@@ -1,0 +1,149 @@
+"""PyramidFluxTransformer: the miniFLUX DiT over packed tokens.
+
+The model is a sequence-to-sequence transformer over already-patchified
+tokens: each batch row is one (sample, stage), and the pipeline builds the
+tokens, float RoPE positions and int time ids. Parameters are per-layer
+modules keyed like the released torch checkpoint
+(``transformer_blocks.{i}.attn.to_q.weight``, ...).
+
+The default config (19 dual + 38 single blocks, 24 heads x 64, 64 input
+channels = 2x2 patch x 16 VAE channels, T5 joint dim 4096, CLIP pooled dim
+768) is the release architecture.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.flash_attention import INVALID_TIME
+from ...ops.rope import rope_freqs
+from .blocks import (
+    AdaLayerNormContinuous,
+    FluxSingleTransformerBlock,
+    FluxTransformerBlock,
+)
+
+__all__ = ["FluxConfig", "PyramidFluxTransformer", "TimestepTextEmbed",
+           "timestep_sinusoidal"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    in_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 64
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    axes_dims_rope: Tuple[int, int, int] = (16, 24, 24)
+    patch_size: int = 2
+    use_temporal_causal: bool = True
+
+    @property
+    def inner_dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+
+def timestep_sinusoidal(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
+    """[cos, sin] sinusoidal embedding of [B] timesteps, fp32
+    (flip_sin_to_cos=True, downscale_freq_shift=0)."""
+    half = dim // 2
+    exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
+    freqs = torch.as_tensor(np.exp(exponent), device=t.device)
+    arg = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(arg), torch.sin(arg)], dim=-1)
+
+
+class _MLPEmbedder(nn.Module):
+    def __init__(self, in_dim: int, dim: int, **kw):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, dim, **kw)
+        self.linear_2 = nn.Linear(dim, dim, **kw)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class TimestepTextEmbed(nn.Module):
+    """Timestep MLP plus pooled-text MLP, summed."""
+
+    def __init__(self, embedding_dim: int, pooled_dim: int, **kw):
+        super().__init__()
+        self.timestep_embedder = _MLPEmbedder(256, embedding_dim, **kw)
+        self.text_embedder = _MLPEmbedder(pooled_dim, embedding_dim, **kw)
+
+    def forward(self, timestep, pooled):
+        t_emb = timestep_sinusoidal(timestep).to(pooled.dtype)
+        return self.timestep_embedder(t_emb) + self.text_embedder(pooled)
+
+
+class PyramidFluxTransformer(nn.Module):
+    """miniFLUX over packed tokens.
+
+    forward inputs:
+      latent_tokens: [B, L, in_channels] (cond history first, current last).
+      latent_pos:    [B, L, 3] float (t, h, w) RoPE positions.
+      latent_time:   [B, L] int temporal ids (frame index; INVALID for pad).
+      text_emb:      [B, Lt, joint_attention_dim].
+      text_mask:     [B, Lt] bool.
+      pooled:        [B, pooled_projection_dim].
+      timestep:      [B] float (0..1000 scale).
+
+    Returns velocity tokens [B, L, in_channels].
+    """
+
+    def __init__(self, config: FluxConfig = FluxConfig(), *,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        cfg = self.config = config
+        kw = dict(dtype=dtype, device=device)
+        d = cfg.inner_dim
+        self.time_text_embed = TimestepTextEmbed(
+            d, cfg.pooled_projection_dim, **kw)
+        self.context_embedder = nn.Linear(cfg.joint_attention_dim, d, **kw)
+        self.x_embedder = nn.Linear(cfg.in_channels, d, **kw)
+        blk = dict(num_heads=cfg.num_attention_heads,
+                   head_dim=cfg.attention_head_dim,
+                   causal=cfg.use_temporal_causal, **kw)
+        self.transformer_blocks = nn.ModuleList(
+            [FluxTransformerBlock(**blk) for _ in range(cfg.num_layers)])
+        self.single_transformer_blocks = nn.ModuleList(
+            [FluxSingleTransformerBlock(**blk)
+             for _ in range(cfg.num_single_layers)])
+        self.norm_out = AdaLayerNormContinuous(d, **kw)
+        self.proj_out = nn.Linear(d, cfg.in_channels, **kw)
+
+    @property
+    def num_attention_calls(self) -> int:
+        """Attentions in one forward: one per block."""
+        return self.config.num_layers + self.config.num_single_layers
+
+    def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
+                text_mask, pooled, timestep):
+        b, lt = text_emb.shape[:2]
+        temb = self.time_text_embed(timestep, pooled)
+        ctx = self.context_embedder(text_emb)
+        x = self.x_embedder(latent_tokens)
+
+        # RoPE over [text; latent]: text at position 0 on every axis
+        text_pos = torch.zeros((b, lt, 3), dtype=torch.float32,
+                               device=latent_pos.device)
+        cos, sin = rope_freqs(torch.cat([text_pos, latent_pos.float()], dim=1),
+                              self.config.axes_dims_rope)
+        # attention time ids: text t=0, masked-out text INVALID
+        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
+        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
+
+        for block in self.transformer_blocks:
+            x, ctx = block(x, ctx, temb, cos, sin, time_ids)
+        h = torch.cat([ctx, x], dim=1)  # text first
+        for block in self.single_transformer_blocks:
+            h = block(h, temb, cos, sin, time_ids)
+        return self.proj_out(self.norm_out(h[:, lt:], temb))

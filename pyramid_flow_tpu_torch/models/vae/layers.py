@@ -1,0 +1,133 @@
+"""Core causal-VAE primitives.
+
+Inside the VAE, activations are torch's native ``[B, C, T, H, W]``, the
+layout ``F.conv3d`` takes; the model's public ``decode`` converts from and to
+the JAX package's channels-last ``[B, T, H, W, C]``.
+
+* :class:`CausalConv3d`: a temporally-causal 3D conv (``k_t - 1`` zero frames
+  in front, symmetric zero padding in space), one ``F.conv3d`` per call. For
+  windowed decoding it reads the previous window's last two input frames from
+  an explicit ``state`` dict and writes its own there.
+* :func:`causal_group_norm`: GroupNorm with statistics per (batch, frame),
+  which is what makes windowed and monolithic decoding agree.
+* :class:`SpatialAttention`: the mid-block's per-frame single-head attention
+  over the H*W pixels, fp32 softmax, queries chunked above
+  ``ATTN_CHUNK_TOKENS``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+__all__ = ["CausalConv3d", "causal_group_norm", "GroupNorm",
+           "SpatialAttention", "ATTN_CHUNK_TOKENS"]
+
+
+class CausalConv3d(nn.Module):
+    """Temporally-causal 3D convolution on [B, C, T, H, W].
+
+    With ``state`` (a dict shared by all convs of one model, keyed by
+    ``cache_key``) the conv streams: on the first window (``is_init``) it
+    pads with zero frames, on a later one it prepends the cached frames
+    (both for stride 1, the last one for temporal stride 2), and it stores
+    the last two frames of its padded input for the next window. Without
+    ``state`` it pads with zero frames. k_t = 1 convs carry nothing.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: Tuple[int, int, int],
+                 stride: Tuple[int, int, int] = (1, 1, 1), **kw):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride)
+        self.cache_key = None  # set by the owning model
+        _, kh, kw_ = self.kernel_size
+        self.conv = nn.Conv3d(in_channels, out_channels, self.kernel_size,
+                              stride=self.stride,
+                              padding=(0, kh // 2, kw_ // 2), **kw)
+
+    def forward(self, x, state: Optional[dict] = None, is_init: bool = True):
+        kt = self.kernel_size[0]
+        st = self.stride[0]
+        if kt > 1:
+            if state is None or is_init:
+                front = x.new_zeros(x.shape[:2] + (kt - 1,) + x.shape[3:])
+            else:
+                cached = state[self.cache_key]
+                front = cached[:, :, -1:] if (st == 2 and kt == 3) else \
+                    cached[:, :, -(kt - 1):]
+            x = torch.cat([front.to(x.dtype), x], dim=2)
+            if state is not None:
+                state[self.cache_key] = x[:, :, -2:]
+        return self.conv(x)
+
+
+def causal_group_norm(x: torch.Tensor, weight: torch.Tensor,
+                      bias: torch.Tensor, num_groups: int,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """Per-frame GroupNorm over [B, C, T, H, W] in fp32: statistics per
+    (batch, group, frame) over (C/G, H, W)."""
+    b, c, t, h, w = x.shape
+    xf = x.float().reshape(b, num_groups, c // num_groups, t, h, w)
+    var, mean = torch.var_mean(xf, dim=(2, 4, 5), unbiased=False,
+                               keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, c, t, h, w)
+    out = xf * weight.float()[:, None, None, None] \
+        + bias.float()[:, None, None, None]
+    return out.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Parameterised per-frame group norm."""
+
+    def __init__(self, channels: int, num_groups: int = 32, eps: float = 1e-6,
+                 **kw):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(channels, **kw))
+        self.bias = nn.Parameter(torch.zeros(channels, **kw))
+
+    def forward(self, x):
+        return causal_group_norm(x, self.weight, self.bias, self.num_groups,
+                                 self.eps)
+
+
+# Above this many tokens (H*W pixels of a frame) SpatialAttention chunks its
+# queries instead of holding the whole [hw, hw] fp32 score matrix.
+ATTN_CHUNK_TOKENS = 4096
+
+
+class SpatialAttention(nn.Module):
+    """Per-frame single-head spatial self-attention with residual."""
+
+    def __init__(self, channels: int, num_groups: int = 32, **kw):
+        super().__init__()
+        self.group_norm = GroupNorm(channels, num_groups, **kw)
+        self.to_q = nn.Linear(channels, channels, **kw)
+        self.to_k = nn.Linear(channels, channels, **kw)
+        self.to_v = nn.Linear(channels, channels, **kw)
+        self.to_out = nn.ModuleList([nn.Linear(channels, channels, **kw)])
+
+    def forward(self, x):
+        b, c, t, h, w = x.shape
+        hw = h * w
+        y = self.group_norm(x).permute(0, 2, 3, 4, 1).reshape(b * t, hw, c)
+        q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
+        kf = k.float()
+        scale = c ** -0.5
+
+        def attend(qi):
+            a = torch.softmax(torch.matmul(qi.float(), kf.transpose(1, 2))
+                              * scale, dim=-1)
+            return torch.matmul(a.to(y.dtype), v)
+
+        if hw > ATTN_CHUNK_TOKENS:
+            ck = next(d for d in range(min(2048, hw), 0, -1) if hw % d == 0)
+            y = torch.cat([attend(qi) for qi in q.split(ck, dim=1)], dim=1)
+        else:
+            y = attend(q)
+        y = self.to_out[0](y)
+        return x + y.reshape(b, t, h, w, c).permute(0, 4, 1, 2, 3)

@@ -1,0 +1,417 @@
+"""PyramidFlow text-to-video pipeline.
+
+The autoregressive loop over temporal units runs, for each unit, a cascade of
+pyramid stages (nearest-2x upsample and correlated block renoise between
+stages), each stage a plain loop of CFG Euler steps through the DiT. Then the
+causal VAE decodes the latents window by window to uint8 frames.
+
+Conditioning on earlier units is packed in front of the current clip and
+padded to a per-stage token budget (zero tokens with INVALID time ids, placed
+between the history and the current clip), so the token layout equals the
+JAX package's exactly.
+
+Text encoding is separate: ``generate`` takes precomputed (embeddings, mask,
+pooled) for the positive and the negative prompt.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gc
+import time
+from typing import Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..ops.blocknoise import block_noise_from_normal
+from ..ops.flash_attention import INVALID_TIME
+from ..ops.resample import nearest_up_2x
+from ..schedulers.flow_matching import PyramidFlowMatchEulerDiscreteScheduler
+from .noising import LATENT_NORMS, VIDEO_NORM, down2, latent_pyramid
+from .packing import clip_metadata, patchify, unpatchify
+
+__all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise"]
+
+
+def _up2_nearest(x):
+    return nearest_up_2x(x.movedim(-1, -3)).movedim(-3, -1)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How :meth:`PyramidFlowPipeline.decode_latent` decodes: untiled
+    windowed decoding of ``window`` latent frames at a time, for frames up to
+    ``untiled_max_latent`` squared latent pixels (192 x 192 latent covers
+    384p and 768p on an 80 GB card). Larger frames need spatial tiling,
+    which is not ported yet."""
+
+    window: int = 2
+    untiled_max_latent: int = 192
+
+
+class GeneratorNoise:
+    """The pipeline's noise: standard normals from one ``torch.Generator``.
+
+    ``initial(shape)`` is the full-size initial latent draw
+    ``[B, temp, h, w, C]``; ``block(unit, stage, shape)`` the standard-normal
+    ``z`` ``[B, T, h/2, w/2, C, 4]`` behind the block noise of a stage
+    transition. Another object with these two methods replays given draws.
+    """
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    def _normal(self, shape):
+        return torch.randn(shape, generator=self.generator,
+                           device=self.generator.device, dtype=torch.float32)
+
+    def initial(self, shape):
+        return self._normal(shape)
+
+    def block(self, unit_index: int, stage: int, shape):
+        return self._normal(shape)
+
+
+class PyramidFlowPipeline:
+    """Inference runner: AR unit loop -> per-stage CFG Euler loops -> causal
+    VAE decode, with the release settings: 3 stages (1/4, 1/2 and full
+    resolution), one latent frame per temporal unit, timestep shift 1 and
+    block-noise gamma 1/3.
+
+    Args:
+      dit: a ``PyramidFluxTransformer`` (packed-token API) with its weights.
+      vae: a ``CausalVideoVAE``, or None for latent output only.
+      dtype: the DiT's compute dtype; tokens are cast to it at patchify,
+        latents stay fp32.
+      device: where the loop runs; defaults to the DiT's device.
+    """
+
+    num_stages = 3
+    frame_per_unit = 1
+    downsample = 8
+
+    def __init__(self, dit, vae=None, latent_channels: int = 16,
+                 dtype: torch.dtype = torch.bfloat16, device=None):
+        self.dit = dit
+        self.vae = vae
+        self.latent_channels = latent_channels
+        self.dtype = dtype
+        self.device = torch.device(
+            device if device is not None else next(dit.parameters()).device)
+        self.scheduler = PyramidFlowMatchEulerDiscreteScheduler()
+        self.vae_shift_factor, self.vae_scale_factor = LATENT_NORMS[
+            "pyramid_flux"]
+        self.vae_video_shift_factor, self.vae_video_scale_factor = VIDEO_NORM
+        self.last_dit_seconds = None
+        self.last_decode_seconds = None
+
+    # ------------------------------------------------------------ helpers
+    def normalize_latent(self, x):
+        """VAE latent -> model space; frame 0 uses the image statistics."""
+        first = (x[:, :1] - self.vae_shift_factor) * self.vae_scale_factor
+        if x.shape[1] == 1:
+            return first
+        rest = ((x[:, 1:] - self.vae_video_shift_factor)
+                * self.vae_video_scale_factor)
+        return torch.cat([first, rest], dim=1)
+
+    def denormalize_latent(self, x):
+        """Model space -> VAE latent space."""
+        first = x[:, :1] / self.vae_scale_factor + self.vae_shift_factor
+        if x.shape[1] == 1:
+            return first
+        rest = (x[:, 1:] / self.vae_video_scale_factor
+                + self.vae_video_shift_factor)
+        return torch.cat([first, rest], dim=1)
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _pack_cond(self, clips, *, budget: int):
+        """Patchify and concat the conditioning clips, right-pad with zero
+        tokens to ``budget``, CFG-double. The pad sits between the history
+        and the current clip, which keeps pad keys out of the first k-tiles
+        of every row."""
+        tokens = torch.cat([patchify(c.to(self.dtype)) for c in clips], dim=1)
+        pad = budget - tokens.shape[1]
+        if pad:
+            tokens = torch.nn.functional.pad(tokens, (0, 0, 0, pad))
+        return torch.cat([tokens, tokens], dim=0)
+
+    # ---------------------------------------------------------- denoising
+    def _denoise_stage_loop(self, latents, cond_tokens, positions, time_ids,
+                            prompt_embeds, prompt_mask, pooled, timesteps,
+                            sigmas, guidance: float, ab, block_z, *,
+                            trainable_tokens: int, temp: int, height: int,
+                            width: int):
+        """The CFG Euler loop of one stage, after the stage transition
+        (nearest-2x upsample and block renoise) when ``block_z`` is given."""
+        if block_z is not None:
+            noise = block_noise_from_normal(block_z, self.scheduler.gamma)
+            latents = ab[0] * _up2_nearest(latents) + ab[1] * noise
+
+        b = latents.shape[0]
+        pos2 = positions.expand(2 * b, -1, -1)
+        time2 = time_ids.expand(2 * b, -1)
+        for i in range(len(timesteps)):
+            lat_tokens = patchify(latents.to(self.dtype))
+            tokens = torch.cat(
+                [cond_tokens, torch.cat([lat_tokens, lat_tokens])], dim=1)
+            t = torch.full((2 * b,), float(timesteps[i]), dtype=torch.float32,
+                           device=self.device)
+            v = self.dit(tokens, pos2, time2, prompt_embeds, prompt_mask,
+                         pooled, t)
+            v_uncond, v_cond = v[:, -trainable_tokens:].float().chunk(2)
+            v = v_uncond + guidance * (v_cond - v_uncond)
+            v_lat = unpatchify(v, temp, height, width)
+            # Euler step in fp32 (the latents are fp32)
+            dt = float(np.float32(sigmas[i + 1]) - np.float32(sigmas[i]))
+            latents = (latents.float() + dt * v_lat).to(latents.dtype)
+        return latents
+
+    def _cond_clip_plan(self, unit_index, stage):
+        """``[(s, lo, hi)]`` oldest first: each conditioning clip takes
+        history frames [lo, hi) at stage ``s``'s resolution. History unit 0
+        is the single first frame; the newest history unit conditions at the
+        current stage, older ones at lower stages, and everything older than
+        stage 0 collapses into one lowest-resolution clip."""
+        if unit_index == 0:
+            return []
+        fpu = self.frame_per_unit
+        plan = []
+        j, s = unit_index - 1, stage
+        while j >= 0:
+            if s == 0:
+                plan.append((0, 0, 1 + j * fpu))
+                break
+            plan.append((s, 0, 1) if j == 0
+                        else (s, 1 + (j - 1) * fpu, 1 + j * fpu))
+            j -= 1
+            s -= 1
+        return list(reversed(plan))
+
+    def _stage_clip_shapes(self, b, h_lat, w_lat, unit_index, stage):
+        """Conditioning clip shapes (B, T, H, W, C) for (unit, stage)."""
+        c = self.latent_channels
+
+        def dims(s):
+            return (h_lat >> (self.num_stages - 1 - s),
+                    w_lat >> (self.num_stages - 1 - s))
+
+        return [(b, hi - lo) + dims(s) + (c,)
+                for (s, lo, hi) in self._cond_clip_plan(unit_index, stage)]
+
+    def _prep_cond_from_history(self, history, *, unit_index: int,
+                                stage: int, budget: int):
+        """history [B, T_hist, H, W, C] -> conditioning tokens
+        [2B, budget, 4C]."""
+        clean_list = latent_pyramid(history, self.num_stages)
+        clips = [clean_list[s][:, lo:hi]
+                 for (s, lo, hi) in self._cond_clip_plan(unit_index, stage)]
+        return self._pack_cond(clips, budget=budget)
+
+    def _stage_metadata(self, b: int, fpu: int, h_lat: int, w_lat: int,
+                        unit_index: int, stage: int, budget: int):
+        """Host-side (positions, time_ids, trainable) of one (unit, stage),
+        padded to ``budget`` conditioning tokens between the history and the
+        current clip."""
+        h = h_lat >> (self.num_stages - 1 - stage)
+        w = w_lat >> (self.num_stages - 1 - stage)
+        shapes = self._stage_clip_shapes(b, h_lat, w_lat, unit_index, stage)
+        shapes.append((b, fpu, h, w, self.latent_channels))
+        positions, time_ids, trainable = clip_metadata(shapes)
+        lc = positions.shape[0] - trainable
+        if lc > budget:
+            raise ValueError(f"{lc} conditioning tokens exceed budget {budget}")
+        pad = budget - lc
+        if pad:
+            positions = np.concatenate(
+                [positions[:lc], np.zeros((pad, 3), np.float32),
+                 positions[lc:]], axis=0)
+            time_ids = np.concatenate(
+                [time_ids[:lc], np.full((pad,), INVALID_TIME, np.int32),
+                 time_ids[lc:]], axis=0)
+        return positions, time_ids, trainable
+
+    def _cond_token_budget(self, unit_index: int, h_lat: int, w_lat: int):
+        """Per-stage conditioning-token budget: the history's token count,
+        rounded so that text (128) + history + current clip lands on a
+        multiple of 512 (of 128 for sequences up to 512)."""
+        fpu = self.frame_per_unit
+        budgets = []
+        for i_s in range(self.num_stages):
+            shapes = self._stage_clip_shapes(1, h_lat, w_lat, unit_index, i_s)
+            toks = sum(t * (h // 2) * (w // 2) for (_, t, h, w, _) in shapes)
+            h = h_lat >> (self.num_stages - 1 - i_s)
+            w = w_lat >> (self.num_stages - 1 - i_s)
+            total = 128 + toks + fpu * (h // 2) * (w // 2)
+            toks += (-total) % (512 if total > 512 else 128)
+            budgets.append(toks)
+        return budgets
+
+    def generate_one_unit(self, latents, cond_tokens_per_stage, prompt_embeds,
+                          prompt_mask, pooled,
+                          num_inference_steps: Sequence[int], guidance: float,
+                          unit_index: int, budgets: Sequence[int], h_lat: int,
+                          w_lat: int, noise):
+        """The stage cascade of one temporal unit; ``latents`` [B, T, h0, w0,
+        C] at the lowest stage's resolution. Returns each stage's latents."""
+        b, fpu = latents.shape[:2]
+        c = self.latent_channels
+        intermed = []
+        for i_s in range(self.num_stages):
+            timesteps, sigmas = self.scheduler.inference_tables(
+                num_inference_steps[i_s], i_s)
+            h = h_lat >> (self.num_stages - 1 - i_s)
+            w = w_lat >> (self.num_stages - 1 - i_s)
+            if i_s > 0:
+                ab = self.scheduler.transition_coefficients(i_s)
+                block_z = noise.block(unit_index, i_s,
+                                      (b, fpu, h // 2, w // 2, c, 4))
+                block_z = block_z.to(self.device, torch.float32)
+            else:
+                ab, block_z = None, None
+            positions, time_ids, trainable = self._stage_metadata(
+                b, fpu, h_lat, w_lat, unit_index, i_s, budgets[i_s])
+            cond_tokens = (cond_tokens_per_stage[i_s]
+                           if cond_tokens_per_stage is not None else
+                           torch.zeros((2 * b, budgets[i_s], 4 * c),
+                                       dtype=self.dtype, device=self.device))
+            latents = self._denoise_stage_loop(
+                latents, cond_tokens,
+                torch.as_tensor(positions, device=self.device)[None],
+                torch.as_tensor(time_ids, device=self.device)[None],
+                prompt_embeds, prompt_mask, pooled, timesteps, sigmas,
+                guidance, ab, block_z, trainable_tokens=trainable, temp=fpu,
+                height=h, width=w)
+            intermed.append(latents)
+        return intermed
+
+    @torch.no_grad()
+    def generate(self, generator: Optional[torch.Generator],
+                 prompt_embeds, prompt_mask, pooled_embeds,
+                 negative_embeds, negative_mask, negative_pooled,
+                 height: int, width: int, temp: int = 1,
+                 num_inference_steps: Sequence[int] | int = 20,
+                 video_num_inference_steps: Sequence[int] | int = 10,
+                 guidance_scale: float = 7.0,
+                 video_guidance_scale: float = 5.0,
+                 use_linear_guidance: bool = False, alpha: float = 0.5,
+                 min_guidance_scale: float = 2.0,
+                 output_type: str = "latent",
+                 decode_plan: DecodePlan = DecodePlan(),
+                 progress_callback: Optional[Callable[[dict], None]] = None,
+                 release_dit_before_decode: bool = False,
+                 noise=None):
+        """Text-to-video. Returns latents [B, temp, h, w, C] (fp32) for
+        ``output_type="latent"``, else uint8 frames
+        [B, 1 + 8 (temp - 1), height, width, 3].
+
+        ``generator`` draws the noise; ``noise`` (an object with the methods
+        of :class:`GeneratorNoise`) replaces it to replay given draws.
+        ``progress_callback(info)`` is called after each unit and before the
+        decode. ``release_dit_before_decode`` drops the DiT before decoding
+        to hand its memory to the VAE; the pipeline then cannot generate
+        again until ``pipeline.dit`` is set."""
+        if self.dit is None:
+            raise RuntimeError(
+                "the DiT was released by generate(release_dit_before_decode="
+                "True); set pipeline.dit to generate again")
+        if noise is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or a noise source")
+            noise = GeneratorNoise(generator)
+        if isinstance(num_inference_steps, int):
+            num_inference_steps = [num_inference_steps] * self.num_stages
+        if isinstance(video_num_inference_steps, int):
+            video_num_inference_steps = ([video_num_inference_steps]
+                                         * self.num_stages)
+        t_start = time.perf_counter()
+        dev = self.device
+        # CFG batch: [negative, positive]
+        pe = torch.cat([negative_embeds, prompt_embeds]).to(dev, self.dtype)
+        pm = torch.cat([negative_mask, prompt_mask]).to(dev)
+        pp = torch.cat([negative_pooled, pooled_embeds]).to(dev, self.dtype)
+
+        b = prompt_embeds.shape[0]
+        h_lat, w_lat = height // self.downsample, width // self.downsample
+        min_div = self.downsample * 2 * (2 ** (self.num_stages - 1))
+        if height % min_div or width % min_div:
+            raise ValueError(
+                f"height/width must be divisible by {min_div} (8x VAE x 2 "
+                f"patch x {2 ** (self.num_stages - 1)} pyramid)")
+        latents = noise.initial((b, temp, h_lat, w_lat, self.latent_channels))
+        latents = latents.to(dev, torch.float32)
+        # start from the lowest stage: bilinear down with the x2 noise scale
+        for _ in range(self.num_stages - 1):
+            latents = down2(latents) * 2
+
+        fpu = self.frame_per_unit
+        num_units = 1 + (temp - 1) // fpu
+        if use_linear_guidance:
+            g_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
+                      for t_ in range(temp)]
+        generated: List[torch.Tensor] = []
+        for unit_index in range(num_units):
+            budgets = self._cond_token_budget(unit_index, h_lat, w_lat)
+            if unit_index == 0:
+                g = g_list[0] if use_linear_guidance else guidance_scale
+                intermed = self.generate_one_unit(
+                    latents[:, :1], None, pe, pm, pp, num_inference_steps, g,
+                    0, budgets, h_lat, w_lat, noise)
+            else:
+                vg = (g_list[unit_index] if use_linear_guidance
+                      else video_guidance_scale)
+                history = torch.cat(generated, dim=1)
+                cond = [self._prep_cond_from_history(
+                    history, unit_index=unit_index, stage=i_s,
+                    budget=budgets[i_s]) for i_s in range(self.num_stages)]
+                start = 1 + (unit_index - 1) * fpu
+                intermed = self.generate_one_unit(
+                    latents[:, start:start + fpu], cond, pe, pm, pp,
+                    video_num_inference_steps, vg, unit_index, budgets,
+                    h_lat, w_lat, noise)
+            generated.append(intermed[-1].float())
+            if progress_callback is not None:
+                self._sync()
+                progress_callback({"phase": "denoise", "unit": unit_index + 1,
+                                   "units": num_units})
+
+        latents_full = torch.cat(generated, dim=1)
+        self._sync()
+        t_dit = time.perf_counter()
+        self.last_dit_seconds = t_dit - t_start
+        if output_type == "latent":
+            return latents_full
+        if release_dit_before_decode:
+            self.dit = None
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if progress_callback is not None:
+            progress_callback({"phase": "decode", "unit": num_units,
+                               "units": num_units})
+        out = self.decode_latent(latents_full, decode_plan)
+        self._sync()
+        self.last_decode_seconds = time.perf_counter() - t_dit
+        return out
+
+    # -------------------------------------------------------------- decode
+    @torch.no_grad()
+    def decode_latent(self, latents, plan: DecodePlan = DecodePlan()):
+        """Un-normalise and decode window by window (untiled). Returns uint8
+        frames [B, F, H, W, 3]."""
+        from ..models.vae.model import chunk_decode
+
+        if self.vae is None:
+            raise ValueError("pipeline built without a VAE")
+        z = self.denormalize_latent(latents).float()
+        hl, wl = z.shape[2], z.shape[3]
+        if hl * wl > plan.untiled_max_latent ** 2:
+            raise NotImplementedError(
+                f"a {hl}x{wl} latent frame exceeds the untiled limit "
+                f"{plan.untiled_max_latent}^2; tiled decoding is not ported")
+        img = chunk_decode(self.vae, z, window_size=plan.window)
+        return (img.float() * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)

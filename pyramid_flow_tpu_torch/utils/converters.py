@@ -1,0 +1,117 @@
+"""JAX parameter trees -> state dicts of the port's modules.
+
+The JAX package keeps flax variables as nested dicts; the port's modules are
+keyed like the released torch checkpoint. These converters take the JAX
+variables as nested dicts of numpy arrays and return state dicts that
+``load_state_dict(strict=True)`` accepts:
+
+* the scanned block stacks (a leading layer axis) become per-layer keys
+  ``transformer_blocks.{i}.``;
+* Dense kernels ``[in, out]`` become Linear weights ``[out, in]``;
+* conv kernels DHWIO become Conv3d weights OIDHW under ``<conv>.conv.``;
+* norm ``scale`` becomes ``weight``;
+* flax's flat names become the checkpoint's module paths (``resnets_0`` ->
+  ``resnets.0``, ``attn/to_out`` -> ``attn.to_out.0``, ``ff/proj_in`` ->
+  ``ff.net.0.proj``, ...).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["flux_state_dict_from_jax", "vae_state_dict_from_jax"]
+
+_STACKED = ("transformer_blocks", "single_transformer_blocks")
+_FLUX_RENAMES = {
+    "timestep_embedder_1": "timestep_embedder.linear_1",
+    "timestep_embedder_2": "timestep_embedder.linear_2",
+    "text_embedder_1": "text_embedder.linear_1",
+    "text_embedder_2": "text_embedder.linear_2",
+    "to_out": "to_out.0",
+}
+_FF_RENAMES = {"proj_in": "net.0.proj", "proj_out": "net.2"}
+_VAE_RENAMES = {
+    "upsampler": "upsamplers.0",
+    "temporal_upsampler": "temporal_upsamplers.0",
+    "to_out": "to_out.0",
+}
+
+
+def _unwrap(params: dict) -> dict:
+    return params["params"] if "params" in params else params
+
+
+def _modules(tree: dict, path: Tuple[str, ...] = ()
+             ) -> Iterator[Tuple[Tuple[str, ...], dict]]:
+    """(path, leaves) of every flax module that holds arrays directly."""
+    leaves = {k: v for k, v in tree.items() if not isinstance(v, dict)}
+    if leaves:
+        yield path, leaves
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _modules(v, path + (k,))
+
+
+def _module_entries(prefix: str, leaves: dict) -> Dict[str, np.ndarray]:
+    """One flax module's arrays -> torch keys under ``prefix``."""
+    out = {}
+    kernel = leaves.get("kernel")
+    if kernel is not None and kernel.ndim == 5:  # conv: DHWIO -> OIDHW
+        out[f"{prefix}.conv.weight"] = kernel.transpose(4, 3, 0, 1, 2)
+        if "bias" in leaves:
+            out[f"{prefix}.conv.bias"] = leaves["bias"]
+        return out
+    if kernel is not None:  # Dense: [in, out] -> [out, in]
+        out[f"{prefix}.weight"] = kernel.T
+    if "scale" in leaves:  # RMSNorm / GroupNorm
+        out[f"{prefix}.weight"] = leaves["scale"]
+    if "bias" in leaves:
+        out[f"{prefix}.bias"] = leaves["bias"]
+    unknown = set(leaves) - {"kernel", "scale", "bias"}
+    if unknown:
+        raise KeyError(f"unexpected leaves {sorted(unknown)} at {prefix}")
+    return out
+
+
+def _to_torch(entries: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+            for k, v in entries.items()}
+
+
+def flux_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``PyramidFluxTransformer`` variables -> ``PyramidFluxTransformer``
+    state dict (fp32 tensors)."""
+    entries: Dict[str, np.ndarray] = {}
+    for path, leaves in _modules(_unwrap(params)):
+        names = []
+        for i, seg in enumerate(path):
+            if i > 0 and path[i - 1] in ("ff", "ff_context"):
+                seg = _FF_RENAMES.get(seg, seg)
+            names.append(_FLUX_RENAMES.get(seg, seg))
+        if path[0] in _STACKED:
+            n = next(iter(leaves.values())).shape[0]
+            for layer in range(n):
+                prefix = ".".join([names[0], str(layer)] + names[1:])
+                entries.update(_module_entries(
+                    prefix, {k: v[layer] for k, v in leaves.items()}))
+        else:
+            entries.update(_module_entries(".".join(names), leaves))
+    return _to_torch(entries)
+
+
+def vae_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``CausalVideoVAE`` variables -> the port's ``CausalVideoVAE``
+    state dict (fp32 tensors). The port holds the decode path only, so the
+    encoder and ``quant_conv`` are left out."""
+    entries: Dict[str, np.ndarray] = {}
+    for path, leaves in _modules(_unwrap(params)):
+        if path[0] in ("encoder", "quant_conv"):
+            continue
+        names = [re.sub(r"^(\w+?)_(\d+)$", r"\1.\2",
+                        _VAE_RENAMES.get(seg, seg)) for seg in path]
+        entries.update(_module_entries(".".join(names), leaves))
+    return _to_torch(entries)
