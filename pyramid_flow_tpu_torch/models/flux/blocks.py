@@ -5,6 +5,12 @@ per-row broadcast and every attention is one :func:`flash_attention` call
 with time-id masking. Module names follow the released torch checkpoint
 (``attn.to_q``, ``attn.to_out.0``, ``ff.net.0.proj``, ...), so its state dict
 loads as it is.
+
+Each attention module can capture batch row 0's post-RoPE q and k, the
+counterpart of the JAX blocks' ``sow("telemetry", ...)``: set its
+``capture`` to a list (``PyramidFluxTransformer.capture_qk`` does so for
+every block) and each forward appends ``(q[:1], k[:1])``. ``capture`` is
+None otherwise, and then costs one attribute test.
 """
 
 from __future__ import annotations
@@ -147,6 +153,7 @@ class JointAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(d, d, **kw)])
         for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
+        self.capture = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
         n = self.num_heads
@@ -161,6 +168,8 @@ class JointAttention(nn.Module):
         q = apply_rope(torch.cat([cq, q], dim=2), rope_cos, rope_sin)
         k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
         v = torch.cat([cv, v], dim=2)
+        if self.capture is not None:
+            self.capture.append((q[:1].detach(), k[:1].detach()))
         o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim))
         return self.to_out[0](o[:, lt:]), self.to_add_out(o[:, :lt])
 
@@ -178,6 +187,7 @@ class SingleAttention(nn.Module):
         self.to_v = nn.Linear(d, d, **kw)
         self.norm_q = RMSNorm(head_dim, **kw)
         self.norm_k = RMSNorm(head_dim, **kw)
+        self.capture = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids):
         n = self.num_heads
@@ -186,6 +196,8 @@ class SingleAttention(nn.Module):
         k = apply_rope(self.norm_k(_heads(self.to_k(x), n)), rope_cos,
                        rope_sin)
         v = _heads(self.to_v(x), n)
+        if self.capture is not None:
+            self.capture.append((q[:1].detach(), k[:1].detach()))
         return _unheads(_attention(q, k, v, time_ids, self.causal,
                                    self.head_dim))
 

@@ -9,17 +9,26 @@ modules keyed like the released torch checkpoint
 The default config (19 dual + 38 single blocks, 24 heads x 64, 64 input
 channels = 2x2 patch x 16 VAE channels, T5 joint dim 4096, CLIP pooled dim
 768) is the release architecture.
+
+Training keeps fp32 parameters and computes in bf16 under
+``torch.autocast("cuda", torch.bfloat16)``, the counterpart of flax's
+``dtype=bf16, param_dtype=fp32``: the norms and RoPE compute in fp32 and cast
+back to their input's dtype, so q, k and v reach the attention kernels in
+bf16. ``remat`` checkpoints every block (recomputed in the backward), as the
+JAX model's ``remat`` field does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import INVALID_TIME
 from ...ops.rope import rope_freqs
@@ -100,9 +109,11 @@ class PyramidFluxTransformer(nn.Module):
     """
 
     def __init__(self, config: FluxConfig = FluxConfig(), *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 remat: bool = False):
         super().__init__()
         cfg = self.config = config
+        self.remat = remat
         kw = dict(dtype=dtype, device=device)
         d = cfg.inner_dim
         self.time_text_embed = TimestepTextEmbed(
@@ -119,11 +130,36 @@ class PyramidFluxTransformer(nn.Module):
              for _ in range(cfg.num_single_layers)])
         self.norm_out = AdaLayerNormContinuous(d, **kw)
         self.proj_out = nn.Linear(d, cfg.in_channels, **kw)
+        # zero-initialised output, as the JAX model: a fresh DiT predicts 0
+        nn.init.zeros_(self.proj_out.weight)
+        nn.init.zeros_(self.proj_out.bias)
 
     @property
     def num_attention_calls(self) -> int:
         """Attentions in one forward: one per block."""
         return self.config.num_layers + self.config.num_single_layers
+
+    @contextlib.contextmanager
+    def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
+        """Within the block, every attention appends batch row 0's post-RoPE
+        ``(q, k)`` ``[1, H, L, D]`` to the yielded list, dual blocks first.
+        Capture without autograd: under ``remat`` a block's recompute in the
+        backward would append again."""
+        attns = [blk.attn for blk in (*self.transformer_blocks,
+                                      *self.single_transformer_blocks)]
+        captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        for attn in attns:
+            attn.capture = captured
+        try:
+            yield captured
+        finally:
+            for attn in attns:
+                attn.capture = None
+
+    def _run(self, block, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep):
@@ -142,8 +178,8 @@ class PyramidFluxTransformer(nn.Module):
         time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
 
         for block in self.transformer_blocks:
-            x, ctx = block(x, ctx, temb, cos, sin, time_ids)
+            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids)
         h = torch.cat([ctx, x], dim=1)  # text first
         for block in self.single_transformer_blocks:
-            h = block(h, temb, cos, sin, time_ids)
+            h = self._run(block, h, temb, cos, sin, time_ids)
         return self.proj_out(self.norm_out(h[:, lt:], temb))

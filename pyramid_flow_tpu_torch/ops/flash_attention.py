@@ -10,16 +10,24 @@ A query row with no visible key outputs zeros. Under ``causal`` a padded
 query row (t = INVALID) sees every key; its output is unspecified, and
 callers mask it downstream.
 
-Two versions of one function live here:
+Two versions of the forward and of the backward live here:
 
-* :func:`attention_reference`, the plain PyTorch version: fp32 scores, a
-  masked softmax and an explicit zero for rows with no visible key.
-* the CUDA kernel in ``csrc/flash_fwd.cu`` (bounded and classic softmax,
-  head dims 64 and 128, bf16), launched by :func:`flash_fwd_cuda`.
+* :func:`attention_reference` and :func:`attention_backward_reference`, the
+  plain PyTorch versions in fp32: a masked softmax with an explicit zero for
+  rows with no visible key, and the gradient recomputed from the saved lse;
+* the CUDA kernels in ``csrc/flash_fwd.cu`` (bounded and classic softmax)
+  and ``csrc/flash_bwd.cu`` (dK/dV and dQ), head dims 64 and 128, bf16,
+  launched by :func:`flash_fwd_cuda` and :func:`flash_bwd_cuda`.
 
-:func:`flash_attention` takes the plain version only for CPU tensors. For a
-CUDA tensor it launches the kernel, or raises if the kernel does not take
+:func:`flash_attention` is differentiable through
+:class:`FlashAttentionFunction`, the counterpart of the JAX package's
+``_flash`` custom VJP. It takes the plain versions only for CPU tensors. For
+a CUDA tensor it launches the kernels, or raises if a kernel does not take
 the input; it never falls back.
+
+The backward's contract, as on the TPU: a padded query row (t = INVALID)
+carries a zero upstream gradient. Under ``causal`` such a row sees every
+key, so a nonzero gradient there would leak into dK and dV.
 """
 
 from __future__ import annotations
@@ -32,7 +40,9 @@ import torch
 
 from ..utils.cuda_build import load_library
 
-__all__ = ["flash_attention", "attention_reference", "flash_fwd_cuda",
+__all__ = ["flash_attention", "attention_reference",
+           "attention_backward_reference", "bounded_softmax_overshoot",
+           "flash_fwd_cuda", "flash_bwd_cuda", "FlashAttentionFunction",
            "INVALID_TIME"]
 
 INVALID_TIME = 2**30
@@ -40,6 +50,7 @@ LOG2E = 1.4426950408889634
 EMPTY_ROW_LSE = 3e38  # lse of a row with no visible key
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_SOURCES = ("flash_fwd.cu",)
+BWD_KERNEL_SOURCES = ("flash_bwd.cu",)
 
 
 def attention_reference(q, k, v, time_q, time_kv=None, *, causal=True,
@@ -49,11 +60,19 @@ def attention_reference(q, k, v, time_q, time_kv=None, *, causal=True,
     q, k, v: ``[B, H, L, D]``; time ids ``[B, L]``. Scores, softmax and the
     p.v product are fp32; the output has v's dtype. With ``return_lse`` also
     returns the natural-log ``lse`` ``[B, H, Lq]`` (fp32; ``3e38`` for rows
-    with no visible key)."""
+    with no visible key). Autocast is off inside, so the fp32 math stays fp32
+    in a bf16 autocast region."""
     if time_kv is None:
         time_kv = time_q
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        return _attention_reference(q, k, v, time_q, time_kv, causal,
+                                    sm_scale, return_lse)
+
+
+def _attention_reference(q, k, v, time_q, time_kv, causal, sm_scale,
+                         return_lse):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     visible = (time_kv != INVALID_TIME)[:, None, None, :]
     if causal:
@@ -73,15 +92,108 @@ def attention_reference(q, k, v, time_q, time_kv=None, *, causal=True,
     return o, lse
 
 
+def attention_backward_reference(q, k, v, time_q, time_kv, o, lse, do, *,
+                                 causal=True, sm_scale=None):
+    """Plain gradient of attention, with the backward kernels' semantics.
+
+    All inputs ``[B, H, L, D]`` (time ids ``[B, L]``, ``lse`` ``[B, H, Lq]``
+    from the forward). fp32 math: ``p = exp(s - lse)`` where the mask holds
+    (``tk <= tq`` causal, ``tk != INVALID`` otherwise), so rows with
+    ``lse = 3e38`` get ``p = 0``; ``delta = rowsum(o * do)``; ``ds = p * (dp
+    - delta) * sm_scale``. Returns ``(dq, dk, dv)`` in the dtypes of q, k, v.
+    """
+    if time_kv is None:
+        time_kv = time_q
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * sm_scale
+        if causal:
+            mask = time_kv[:, None, None, :] <= time_q[:, None, :, None]
+        else:
+            mask = (time_kv != INVALID_TIME)[:, None, None, :]
+        p = torch.where(mask, torch.exp(s - lse.float()[..., None]), 0.0)
+        dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+        delta = (of * dof).sum(-1, keepdim=True)
+        ds = p * (dp - delta) * sm_scale
+        dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+        dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bounded_softmax_overshoot(q, k, time_q, time_kv=None, *, causal=True,
+                              sm_scale=None, chunk=256) -> torch.Tensor:
+    """Max over valid query rows of ``bound - true_max_score`` in log2
+    units, the slack of the bounded forward's shift (exact while it stays
+    well under ~120). Plain torch in fp32, ``chunk`` query rows at a time so
+    the score matrix never materialises at real sequence lengths. Returns a
+    0-dim fp32 tensor."""
+    if time_kv is None:
+        time_kv = time_q
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    with torch.autocast(q.device.type, enabled=False):
+        q32, k32 = q.float(), k.float()
+        qn = q32.square().sum(-1).sqrt()
+        kmax = k32.square().sum(-1).sqrt().amax(-1, keepdim=True)
+        mb = qn * kmax * (sm_scale * LOG2E) + 1.0
+        vis_k = (time_kv != INVALID_TIME)[:, None, None, :]
+        worst = torch.tensor(float("-inf"), device=q.device)
+        for i in range(0, q.shape[2], chunk):
+            ti = time_q[:, i:i + chunk]
+            s = torch.einsum("bhqd,bhkd->bhqk", q32[:, :, i:i + chunk],
+                             k32) * (sm_scale * LOG2E)
+            vis = vis_k
+            if causal:
+                vis = vis & (time_kv[:, None, None, :] <= ti[:, None, :, None])
+            smax = s.masked_fill(~vis, float("-inf")).amax(-1)
+            valid_q = (ti != INVALID_TIME)[:, None, :]
+            over = (mb[:, :, i:i + chunk] - smax).masked_fill(
+                ~valid_q, float("-inf"))
+            worst = torch.maximum(worst, over.amax())
+    return worst
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_library() -> ctypes.CDLL:
-    """The built and loaded kernel library (built on first call)."""
+    """The built and loaded forward kernel library (built on first call)."""
     lib = load_library("flash_fwd", KERNEL_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pf_flash_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                  ctypes.c_float, i, i, p]
     lib.pf_flash_fwd.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_kernel_library() -> ctypes.CDLL:
+    """The built and loaded backward kernel library (built on first call)."""
+    lib = load_library("flash_bwd", BWD_KERNEL_SOURCES)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pf_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
+                                     i, i, ctypes.c_float, i, p]
+    lib.pf_flash_bwd_dkv.restype = ctypes.c_int
+    lib.pf_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                    i, ctypes.c_float, i, p]
+    lib.pf_flash_bwd_dq.restype = ctypes.c_int
+    return lib
+
+
+def _check_tensors(ref, specs):
+    """Each ``(name, tensor, dtype)`` on ``ref``'s device, of ``dtype``,
+    contiguous and 16-byte aligned."""
+    for name, t, dtype in specs:
+        if t.device != ref.device:
+            raise ValueError(f"{name} is on {t.device}, q on {ref.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"the flash kernel takes {name} as {dtype}, "
+                            f"got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_kernel_inputs(q, k, v, time_q, time_kv):
@@ -99,19 +211,10 @@ def _check_kernel_inputs(q, k, v, time_q, time_kv):
         raise ValueError("empty sequence")
     if time_q.shape != (b, lq) or time_kv.shape != (b, lk):
         raise ValueError("time ids must be [B, Lq] and [B, Lk]")
-    for name, t, dtype in (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
-                           ("v", v, torch.bfloat16),
-                           ("time_q", time_q, torch.int32),
-                           ("time_kv", time_kv, torch.int32)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"the flash kernel takes {name} as {dtype}, "
-                            f"got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
+    _check_tensors(q, (("q", q, torch.bfloat16), ("k", k, torch.bfloat16),
+                       ("v", v, torch.bfloat16),
+                       ("time_q", time_q, torch.int32),
+                       ("time_kv", time_kv, torch.int32)))
 
 
 def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
@@ -156,6 +259,58 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 flash_fwd_cuda.launches = 0
 
 
+def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,
+                   causal: bool, sm_scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the CUDA backward kernels. Returns ``(dq, dk, dv)``.
+
+    q, k, v, o, do ``[B, H, L, D]`` bf16 contiguous on one CUDA device, D in
+    (64, 128); time ids ``[B, L]`` int32; ``lse`` (the forward's, natural
+    log) and ``delta = rowsum(o * do)`` ``[B, H, Lq]`` fp32. Padded query
+    rows must carry ``do = 0``. ``flash_bwd_cuda.dkv_launches`` and
+    ``.dq_launches`` count the launches of the two kernels."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_cuda takes CUDA tensors, got {q.device}")
+    _check_kernel_inputs(q, k, v, time_q, time_kv)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if lse.shape != (b, h, lq) or delta.shape != (b, h, lq):
+        raise ValueError("lse and delta must be [B, H, Lq]")
+    _check_tensors(q, (("o", o, torch.bfloat16), ("do", do, torch.bfloat16),
+                       ("lse", lse, torch.float32),
+                       ("delta", delta, torch.float32)))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = bwd_kernel_library()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            time_q.data_ptr(), time_kv.data_ptr(), lse.data_ptr(),
+            delta.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pf_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h,
+                                   lq, lk, d, float(sm_scale), int(causal),
+                                   stream)
+        if err != 0:
+            raise RuntimeError(
+                f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
+        flash_bwd_cuda.dkv_launches += 1
+        err = lib.pf_flash_bwd_dq(*ptrs, dq.data_ptr(), b, h, lq, lk, d,
+                                  float(sm_scale), int(causal), stream)
+        if err != 0:
+            raise RuntimeError(
+                f"flash_bwd_dq kernel launch failed: CUDA error {err}")
+        flash_bwd_cuda.dq_launches += 1
+    return dq, dk, dv
+
+
+flash_bwd_cuda.dkv_launches = 0
+flash_bwd_cuda.dq_launches = 0
+
+
 def _fwd(q, k, v, time_q, time_kv, causal: bool, sm_scale: float,
          bounded: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)``: the kernel for CUDA tensors, the plain version for CPU
@@ -166,6 +321,39 @@ def _fwd(q, k, v, time_q, time_kv, causal: bool, sm_scale: float,
                                    sm_scale=sm_scale, return_lse=True)
     return flash_fwd_cuda(q, k, v, time_q, time_kv, causal=causal,
                           sm_scale=sm_scale, bounded=bounded)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Attention with its gradient, the counterpart of JAX's ``_flash``
+    custom VJP: the forward saves ``(q, k, v, time_q, time_kv, o, lse)``,
+    the backward recomputes the probabilities from ``lse``. One backward
+    serves the bounded and the classic forward, whose lse is the same
+    number. CPU tensors take the plain versions, CUDA tensors the kernels.
+
+    ``apply(q, k, v, time_q, time_kv, causal, sm_scale, bounded)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, time_q, time_kv, causal, sm_scale, bounded):
+        o, lse = _fwd(q, k, v, time_q, time_kv, causal, sm_scale, bounded)
+        ctx.save_for_backward(q, k, v, time_q, time_kv, o, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, time_q, time_kv, o, lse = ctx.saved_tensors
+        do = do.contiguous()  # arrives strided from the heads transpose
+        if q.device.type == "cpu":
+            dq, dk, dv = attention_backward_reference(
+                q, k, v, time_q, time_kv, o, lse, do, causal=ctx.causal,
+                sm_scale=ctx.sm_scale)
+        else:
+            # delta outside the kernels, in fp32, as the TPU wrapper does
+            delta = (o.float() * do.float()).sum(-1)
+            dq, dk, dv = flash_bwd_cuda(
+                q, k, v, time_q, time_kv, o, lse, do, delta,
+                causal=ctx.causal, sm_scale=ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,12 +371,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       bounded: the bounded-softmax form, for RMS-normalised q and k (the
         DiT passes True); the default is the classic online softmax.
 
-    Returns ``[B, H, Lq, D]``; padded-query rows are unspecified.
+    Returns ``[B, H, Lq, D]``; padded-query rows are unspecified and must
+    carry a zero gradient. Differentiable in q, k and v.
     """
     if time_kv is None:
         time_kv = time_q
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    o, _ = _fwd(q, k, v, time_q, time_kv, causal, float(sm_scale),
-                bool(bounded))
-    return o
+    return FlashAttentionFunction.apply(q, k, v, time_q, time_kv,
+                                        bool(causal), float(sm_scale),
+                                        bool(bounded))

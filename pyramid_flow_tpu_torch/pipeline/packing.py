@@ -19,7 +19,8 @@ import torch
 
 from ..ops.resample import interp_linear_1d_grid
 
-__all__ = ["patchify", "unpatchify", "clip_positions", "clip_metadata"]
+__all__ = ["patchify", "unpatchify", "clip_positions", "clip_metadata",
+           "pack_clips"]
 
 
 def patchify(x: torch.Tensor, patch: int = 2) -> torch.Tensor:
@@ -74,3 +75,18 @@ def clip_metadata(shapes: Sequence[Tuple[int, ...]], patch: int = 2
     trainable = t * (h // patch) * (w // patch)
     return (np.concatenate(pos_list, axis=0),
             np.concatenate(time_list, axis=0), trainable)
+
+
+def pack_clips(clips: Sequence[torch.Tensor], patch: int = 2
+               ) -> Tuple[torch.Tensor, np.ndarray, np.ndarray, int]:
+    """Pack a ``[history ..., current]`` clip list into one token sequence.
+
+    clips: ``[B, T_i, H_i, W_i, C]`` each; the last defines the grid that the
+    lower-res clips' positions interpolate. Returns ``tokens [B, L, p*p*C]``,
+    ``positions [L, 3]`` float32 and ``time_ids [L]`` int32 (numpy, for the
+    caller to broadcast over the batch), and the last clip's token count,
+    the only trainable span."""
+    positions, time_ids, trainable = clip_metadata(
+        [tuple(c.shape) for c in clips], patch)
+    tokens = torch.cat([patchify(c, patch) for c in clips], dim=1)
+    return tokens, positions, time_ids, trainable

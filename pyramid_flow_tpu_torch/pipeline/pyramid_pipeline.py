@@ -26,16 +26,12 @@ import torch
 
 from ..ops.blocknoise import block_noise_from_normal
 from ..ops.flash_attention import INVALID_TIME
-from ..ops.resample import nearest_up_2x
 from ..schedulers.flow_matching import PyramidFlowMatchEulerDiscreteScheduler
-from .noising import LATENT_NORMS, VIDEO_NORM, down2, latent_pyramid
+from .noising import (LATENT_NORMS, VIDEO_NORM, down2, latent_pyramid,
+                      normalize_latent, up2_nearest)
 from .packing import clip_metadata, patchify, unpatchify
 
 __all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise"]
-
-
-def _up2_nearest(x):
-    return nearest_up_2x(x.movedim(-1, -3)).movedim(-3, -1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,12 +105,7 @@ class PyramidFlowPipeline:
     # ------------------------------------------------------------ helpers
     def normalize_latent(self, x):
         """VAE latent -> model space; frame 0 uses the image statistics."""
-        first = (x[:, :1] - self.vae_shift_factor) * self.vae_scale_factor
-        if x.shape[1] == 1:
-            return first
-        rest = ((x[:, 1:] - self.vae_video_shift_factor)
-                * self.vae_video_scale_factor)
-        return torch.cat([first, rest], dim=1)
+        return normalize_latent(x, "pyramid_flux")
 
     def denormalize_latent(self, x):
         """Model space -> VAE latent space."""
@@ -150,7 +141,7 @@ class PyramidFlowPipeline:
         (nearest-2x upsample and block renoise) when ``block_z`` is given."""
         if block_z is not None:
             noise = block_noise_from_normal(block_z, self.scheduler.gamma)
-            latents = ab[0] * _up2_nearest(latents) + ab[1] * noise
+            latents = ab[0] * up2_nearest(latents) + ab[1] * noise
 
         b = latents.shape[0]
         pos2 = positions.expand(2 * b, -1, -1)

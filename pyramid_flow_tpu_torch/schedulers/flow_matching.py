@@ -1,4 +1,4 @@
-"""Pyramidal flow-matching Euler scheduler: the inference tables.
+"""Pyramidal flow-matching Euler scheduler: the tables and their lookups.
 
 The table math is numpy and is the same as in the JAX package's
 ``schedulers/flow_matching.py`` (copied, since that module imports jax):
@@ -11,7 +11,9 @@ The table math is numpy and is the same as in the JAX package's
 * per-stage timestep tables linspaced inside each window, and per-stage
   sigma ("ratio") tables ``linspace(1, 0, N+1)[:-1]``.
 
-The Euler step itself is one line in the pipeline's denoise loop.
+Inference reads linspaces of those tables; training maps uniform draws to
+table entries. The Euler step itself is one line in the pipeline's denoise
+loop.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import List, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["PyramidFlowMatchEulerDiscreteScheduler"]
 
@@ -119,6 +122,19 @@ class PyramidFlowMatchEulerDiscreteScheduler:
                              num_inference_steps).astype(np.float32)
         sigmas = np.concatenate([sigmas, np.zeros((1,), dtype=np.float32)])
         return timesteps, sigmas
+
+    def sample_stage_timesteps(self, u: torch.Tensor, stage_index: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uniform draws ``u in [0, 1)`` -> ``(timesteps, ratios)`` of a stage
+        for training: ``idx = clamp(int(u * N), 0, N - 1)`` into the stage's
+        tables, on ``u``'s device."""
+        n = self.num_train_timesteps
+        idx = (u * n).to(torch.int32).clamp(0, n - 1).long()
+        ts = torch.as_tensor(self.timesteps_per_stage[stage_index],
+                             device=u.device)[idx]
+        ratios = torch.as_tensor(self.sigmas_per_stage[stage_index],
+                                 device=u.device)[idx]
+        return ts, ratios
 
     def transition_coefficients(self, stage_index: int) -> Tuple[float, float]:
         """``(alpha, beta)`` for the stage transition

@@ -1,0 +1,190 @@
+"""The DiT training step.
+
+The counterpart of the JAX package's ``training/trainer.py``:
+
+* a 10% CFG text drop per row (text, mask and pooled replaced by the null
+  features);
+* the latent pyramid and per-stage noising on the device;
+* one DiT forward per stage sub-batch, each with its own token count (stage 0
+  rows hold 16x fewer tokens than stage 2 rows);
+* loss = mean over rows of the per-row MSE of the trainable tail;
+* ``accum_steps`` micro-batches with averaged gradients;
+* clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`.
+
+Not ported: training from raw pixels (``"video"`` in the batch), which needs
+the VAE encoder.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+from ..pipeline.noising import (
+    GeneratorDraws,
+    StageBatch,
+    add_ar_noise_stage,
+    add_pyramid_noise_stage,
+    latent_pyramid,
+)
+from ..pipeline.packing import pack_clips, patchify
+from .train_state import TrainState, global_norm
+
+__all__ = ["dit_loss_fn", "make_train_step", "stage_row_split", "global_norm",
+           "top_grad_offenders"]
+
+
+def stage_row_split(batch_size: int, sample_ratios: Sequence[int]
+                    ) -> List[Tuple[int, int]]:
+    """Contiguous row blocks per stage, sized by ``sample_ratios``: a list of
+    (start, count)."""
+    total = sum(sample_ratios)
+    if batch_size % total:
+        raise ValueError(f"batch size {batch_size} does not divide by the "
+                         f"sample ratios {tuple(sample_ratios)}")
+    per = batch_size // total
+    spans, start = [], 0
+    for r in sample_ratios:
+        spans.append((start, per * r))
+        start += per * r
+    return spans
+
+
+def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
+                text_mask: torch.Tensor, pooled: torch.Tensor, scheduler,
+                sample_ratios: Sequence[int] = (1, 2, 1),
+                use_temporal_pyramid: bool = True,
+                num_units_per_stage: Optional[Sequence[int]] = None,
+                frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3):
+    """Noising, one DiT forward per stage and the per-row MSE. ``latents``
+    ``[B, T, H, W, C]`` are clean and normalised. Returns (loss, metrics)."""
+    num_stages = scheduler.stages
+    pyramid = latent_pyramid(latents, num_stages)
+    spans = stage_row_split(latents.shape[0], sample_ratios)
+    device = latents.device
+
+    losses = []
+    for stage, (start, count) in enumerate(spans):
+        draws, sub = draws.split(2)
+        stage_latents = [lvl[start:start + count] for lvl in pyramid]
+        if use_temporal_pyramid:
+            nu = num_units_per_stage[stage] if num_units_per_stage else 1
+            sb: StageBatch = add_ar_noise_stage(
+                sub, scheduler, stage_latents, stage, num_stages, nu,
+                frame_per_unit, corrupt_ratio)
+        else:
+            sb = add_pyramid_noise_stage(sub, scheduler, stage_latents, stage,
+                                         num_stages)
+        tokens, positions, time_ids, trainable = pack_clips(sb.clips)
+        b = tokens.shape[0]
+        pos = torch.as_tensor(positions, device=device)[None].expand(b, -1, -1)
+        times = torch.as_tensor(time_ids, device=device)[None].expand(b, -1)
+        pred = dit(tokens.to(text_emb.dtype), pos, times,
+                   text_emb[start:start + count],
+                   text_mask[start:start + count],
+                   pooled[start:start + count], sb.timesteps)
+        pred = pred[:, -trainable:]
+        err = (pred.float() - patchify(sb.targets).float()) ** 2
+        losses.append(err.reshape(count, -1).mean(dim=1))
+
+    loss = torch.cat(losses).mean()
+    return loss, {"train/loss": loss}
+
+
+def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
+                    use_temporal_pyramid: bool = True,
+                    frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3,
+                    cfg_rate: float = 0.1, accum_steps: int = 1,
+                    compute_dtype: Optional[torch.dtype] = None):
+    """Build the train step.
+
+    ``step(state, batch, draws, num_units_per_stage) -> (state, metrics)``
+    updates ``state`` in place. ``batch``: latents, text_emb, text_mask,
+    pooled, null_text_emb, null_pooled (and optionally null_text_mask) on the
+    DiT's device. ``draws`` is the run's draw source (a ``torch.Generator``
+    is wrapped in :class:`GeneratorDraws`); each step folds in its
+    ``state.step``. ``compute_dtype=torch.bfloat16`` runs the loss under
+    autocast with the parameters kept fp32. ``accum_steps > 1`` splits the
+    batch into that many micro-batches and averages their gradients; the
+    batch size must divide by ``accum_steps * sum(sample_ratios)``.
+    Metrics: ``train/loss`` and the pre-clip ``train/grad_norm`` as floats,
+    and ``train/applied`` (whether the anomaly gate let the update through).
+    """
+
+    def autocast(device):
+        if compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(device.type, dtype=compute_dtype)
+
+    def loss_fn(draws_mb, latents, text_emb, text_mask, pooled, units):
+        with autocast(latents.device):
+            loss, _ = dit_loss_fn(
+                dit, draws_mb, latents, text_emb, text_mask, pooled,
+                scheduler, sample_ratios, use_temporal_pyramid, units,
+                frame_per_unit, corrupt_ratio)
+        return loss
+
+    def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws,
+             num_units_per_stage: Tuple[int, ...]):
+        if "video" in batch:
+            raise NotImplementedError(
+                "training from raw pixels needs the VAE encoder, which the "
+                "port does not have yet (ROADMAP A9); pass latents")
+        if isinstance(draws, torch.Generator):
+            draws = GeneratorDraws(draws)
+        draws_drop, draws_noise, _ = draws.fold_in(state.step).split(3)
+        latents = batch["latents"]
+        b = latents.shape[0]
+        # CFG text drop
+        drop = draws_drop.uniform((b,)).to(latents.device) <= cfg_rate
+        text_emb = torch.where(drop[:, None, None], batch["null_text_emb"],
+                               batch["text_emb"])
+        text_mask = torch.where(
+            drop[:, None], batch.get("null_text_mask", batch["text_mask"]),
+            batch["text_mask"])
+        pooled = torch.where(drop[:, None], batch["null_pooled"],
+                             batch["pooled"])
+
+        params = list(dit.parameters())
+        for p in params:
+            p.grad = None
+        if accum_steps == 1:
+            loss = loss_fn(draws_noise, latents, text_emb, text_mask, pooled,
+                           num_units_per_stage)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            mb = b // accum_steps
+            loss = torch.zeros((), device=latents.device)
+            for i, draws_mb in enumerate(draws_noise.split(accum_steps)):
+                rows = slice(i * mb, (i + 1) * mb)
+                mb_loss = loss_fn(draws_mb, latents[rows], text_emb[rows],
+                                  text_mask[rows], pooled[rows],
+                                  num_units_per_stage)
+                mb_loss.backward()  # sums into .grad
+                loss = loss + mb_loss.detach()
+            loss = loss / accum_steps
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if accum_steps > 1:
+            torch._foreach_div_(grads, accum_steps)
+        gnorm = global_norm(grads).item()
+        loss = loss.item()
+        applied = state.apply_gradients(grads, loss)
+        for p in params:
+            p.grad = None
+        return state, {"train/loss": loss, "train/grad_norm": gnorm,
+                       "train/applied": applied}
+
+    return step
+
+
+def top_grad_offenders(grads: Mapping[str, torch.Tensor], k: int = 5
+                       ) -> List[Tuple[str, float]]:
+    """The ``k`` largest per-parameter gradient norms, largest first: a
+    debugging aid on materialised gradients."""
+    norms = [(name, torch.linalg.vector_norm(g.float()).item())
+             for name, g in grads.items()]
+    return sorted(norms, key=lambda kv: -kv[1])[:k]

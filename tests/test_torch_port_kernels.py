@@ -1,8 +1,8 @@
-"""Card-only tests of the port's CUDA flash-attention kernel.
+"""Card-only tests of the port's CUDA flash-attention kernels.
 
-Each test compares the kernel with the plain PyTorch version on the same
-CUDA inputs, or checks that the wrapper refuses what the kernel does not
-take. They carry the ``gpu`` marker and skip without a CUDA device. This file
+Each test compares a kernel (the forward, or the dK/dV and dQ backward) with
+the plain PyTorch version on the same CUDA inputs, or checks that a wrapper
+refuses what its kernel does not take. They carry the ``gpu`` marker and skip without a CUDA device. This file
 imports torch and the port only, so on a machine without JAX it runs as
 
     python -m pytest tests/test_torch_port_kernels.py -m gpu --noconftest
@@ -14,8 +14,10 @@ import torch
 
 from pyramid_flow_tpu_torch.ops.flash_attention import (
     INVALID_TIME,
+    attention_backward_reference,
     attention_reference,
     flash_attention,
+    flash_bwd_cuda,
     flash_fwd_cuda,
 )
 
@@ -26,6 +28,10 @@ pytestmark = pytest.mark.gpu
 # rounding of sums and the bf16-vs-fp32 q.k difference, so 2e-3
 O_ATOL = 1e-2
 LSE_ATOL = 2e-3
+# backward: bf16 operands (p and ds rounded to bf16 before their products)
+# against fp32, summed over up to L terms: max|err| <= 2e-2 * max|ref| for
+# each of dq, dk, dv
+GRAD_REL = 2e-2
 
 
 @pytest.fixture
@@ -134,3 +140,111 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention(q, k, v, t.long())
     with pytest.raises(ValueError):
         flash_attention(q, k, v.cpu(), t)
+
+
+def _bwd_inputs(dev, d=64, lq=333, lk=None, causal=True, seed=0):
+    """q, k, v, times, o and lse from the forward kernel, and an upstream
+    gradient that is random on valid query rows and zero on padded ones."""
+    q, k, v, t = _inputs(dev, l=lq, d=d, seed=seed)
+    tk = t
+    if lk is not None:
+        _, k, v, tk = _inputs(dev, l=lk, d=d, seed=seed + 1)
+    o, lse = flash_fwd_cuda(q, k, v, t, tk, causal=causal, sm_scale=d ** -0.5,
+                            bounded=True)
+    gen = torch.Generator(dev).manual_seed(seed)
+    do = torch.randn(o.shape, generator=gen, device=dev)
+    do = (do * (t != INVALID_TIME)[:, None, :, None]).bfloat16()
+    return q, k, v, t, tk, o, lse, do
+
+
+def _assert_grads_close(got, ref):
+    for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+        assert torch.isfinite(a).all(), name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert scale > 0, name
+        assert err <= GRAD_REL * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lengths", [(333, None), (200, 333), (64, 64)])
+def test_bwd_kernels_match_plain(cuda, d, causal, lengths):
+    """K3/K4 against the plain backward; lengths not a multiple of 64, and
+    Lq != Lk."""
+    lq, lk = lengths
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda, d, lq, lk, causal)
+    delta = (o.float() * do.float()).sum(-1)
+    got = flash_bwd_cuda(q, k, v, t, tk, o, lse, do, delta, causal=causal,
+                         sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    ref = attention_backward_reference(q, k, v, t, tk, o, lse, do,
+                                       causal=causal)
+    _assert_grads_close(got, ref)
+
+
+def test_bwd_rows_without_visible_keys(cuda):
+    """Queries that see no key (lse = 3e38) give zero gradients, never NaN."""
+    q, k, v, _ = _inputs(cuda, l=130)
+    tq = torch.zeros((2, 130), dtype=torch.int32, device=cuda)
+    tk = torch.full((2, 130), 5, dtype=torch.int32, device=cuda)
+    o, lse = flash_fwd_cuda(q, k, v, tq, tk, causal=True, sm_scale=0.125,
+                            bounded=False)
+    do = torch.randn_like(o)
+    delta = (o.float() * do.float()).sum(-1)
+    for g in flash_bwd_cuda(q, k, v, tq, tk, o, lse, do, delta, causal=True,
+                            sm_scale=0.125):
+        torch.cuda.synchronize()
+        assert (g == 0).all()
+
+
+@pytest.mark.parametrize("bounded", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gradients_match_autograd(cuda, bounded, causal):
+    """flash_attention is differentiable on the card: its gradients match
+    autograd through the plain version, with the loss weighted by the valid
+    rows (padded rows carry no gradient)."""
+    q, k, v, t = _inputs(cuda)
+    valid = (t != INVALID_TIME)[:, None, :, None].float()
+
+    def grads(fn):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*xs)
+        (out.float() * valid).square().sum().backward()
+        return [x.grad for x in xs]
+
+    got = grads(lambda a, b, c: flash_attention(a, b, c, t, causal=causal,
+                                                bounded=bounded))
+    ref = grads(lambda a, b, c: attention_reference(a, b, c, t,
+                                                    causal=causal))
+    _assert_grads_close(got, ref)
+
+
+def test_bwd_launch_counters_count_launches(cuda):
+    q, k, v, t = _inputs(cuda)
+    xs = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (flash_fwd_cuda.launches, flash_bwd_cuda.dkv_launches,
+              flash_bwd_cuda.dq_launches)
+    out = flash_attention(*xs, t, bounded=True)
+    (out.float() * (t != INVALID_TIME)[:, None, :, None]).sum().backward()
+    assert (flash_fwd_cuda.launches, flash_bwd_cuda.dkv_launches,
+            flash_bwd_cuda.dq_launches) == tuple(n + 1 for n in before)
+
+
+def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda)
+    delta = (o.float() * do.float()).sum(-1)
+    with pytest.raises(TypeError):
+        flash_bwd_cuda(q, k, v, t, tk, o, lse, do.float(), delta,
+                       causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError):
+        flash_bwd_cuda(q, k, v, t, tk, o, lse[:, :, :-1].contiguous(), do,
+                       delta, causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError):
+        flash_bwd_cuda(q, k, v, t, tk, o, lse, do.transpose(2, 3)
+                       .contiguous().transpose(2, 3), delta, causal=True,
+                       sm_scale=0.125)
+    with pytest.raises(ValueError):
+        flash_bwd_cuda(q.cpu(), k.cpu(), v.cpu(), t.cpu(), tk.cpu(), o.cpu(),
+                       lse.cpu(), do.cpu(), delta.cpu(), causal=True,
+                       sm_scale=0.125)

@@ -118,7 +118,8 @@ def test_noising_inference_half_matches():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every module of the slice loads no JAX."""
+    """Importing the port and every module of both slices, the training CLI
+    included, loads no JAX."""
     mods = [
         "pyramid_flow_tpu_torch",
         "pyramid_flow_tpu_torch.ops.flash_attention",
@@ -136,6 +137,11 @@ def test_port_imports_no_jax():
         "pyramid_flow_tpu_torch.models.vae.model",
         "pyramid_flow_tpu_torch.utils.converters",
         "pyramid_flow_tpu_torch.utils.cuda_build",
+        "pyramid_flow_tpu_torch.training.lr_schedules",
+        "pyramid_flow_tpu_torch.training.train_state",
+        "pyramid_flow_tpu_torch.training.trainer",
+        "pyramid_flow_tpu_torch.training.telemetry",
+        "pyramid_flow_tpu_torch.tools.train_pyramid_flow",
     ]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
