@@ -1,59 +1,85 @@
 #!/usr/bin/env python3
-"""Run the PyTorch port's text-to-video and DiT-training paths once on one
-CUDA card.
+"""Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
+once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: its name and power limit as nvidia-smi reports them;
-2. build: the CUDA flash-attention forward and backward libraries from
-   ``pyramid_flow_tpu_torch/csrc``, one nvcc each, started together; ptxas's
-   register and spill lines;
+2. build: the CUDA flash-attention forward and backward libraries and the
+   causal-conv library from ``pyramid_flow_tpu_torch/csrc``, one nvcc each,
+   started together; ptxas's register and spill lines;
 3. kernel vs plain: the forward kernel against the plain PyTorch version on the
    DiT's packed attention layouts (384x640 unit 0 stage 0, 384x640 unit 15
    stage 2, 768x1280 unit 15 stage 2) at B=2, H=24, D=64 in bf16, bounded
    and classic softmax, causal and not; valid rows must agree within
    max|do| <= 1e-2 and max|dlse| <= 2e-3 of the fp32 plain version; both
-   are timed with CUDA events;
-4. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
-   blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
-   384x640 unit 15 stage 2 layout through the kernel and through the plain
-   version; relative L2 <= 2e-2 on the valid tokens;
-5. serve: two text-to-video requests through ``PyramidFlowPipeline.generate``
-   with that DiT and the default VAE, 384x640, temp 1 and temp 4, steps
-   [20,20,20]/[10,10,10], guidance 7/5, uint8 frames out. The latents must be
-   finite, the frames not constant, and the kernel's launch counter must
-   grow by exactly 57 per DiT forward;
-6. backward kernels vs plain: dK/dV and dQ against the plain fp32 backward
+   are timed with CUDA events, and at the 384x640 unit 15 stage 2 layout so
+   is ``scaled_dot_product_attention`` with the time-id mask;
+4. backward kernels vs plain: dK/dV and dQ against the plain fp32 backward
    on the layouts of phase 3 (B=2, H=24, D=64, causal and not) and on the
    384x640 unit 15 stage 2 layout at H=12, D=128; o and lse from the forward
    kernel, the upstream gradient random on valid rows and zero on padded
-   ones; max|err| <= 2e-2 * max|ref| for each of dq, dk, dv; both timed;
-7. full-width DiT gradient: the release DiT with fp32 parameters, bf16
+   ones; max|err| <= 2e-2 * max|ref| for each of dq, dk, dv; both timed,
+   and SDPA's backward (its forward plus backward less its forward);
+5. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
+   blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
+   384x640 unit 15 stage 2 layout through the kernel and through the plain
+   version; relative L2 <= 2e-2 on the valid tokens;
+6. full-width encode: the release VAE (bf16, random weights)
+   ``chunk_encode``s a seeded smooth 17-frame 384x640 clip through the conv
+   kernel, through the plain version and in fp32; relative L2 of the
+   kernel's moments to the plain version's <= 2e-2, their distance to fp32
+   within 1.1x of the plain version's, each conv's output within relative
+   L2 2e-3 of the plain conv on the same input, and exactly one conv
+   launch per admitted conv and window;
+7. serve: two text-to-video requests through ``PyramidFlowPipeline.generate``
+   (384x640, temp 1 and temp 4, steps [20,20,20]/[10,10,10], guidance 7/5,
+   uint8 frames out) and one image-to-video request through
+   ``PyramidFlowRunner.generate_i2v`` (a seeded smooth 384x640 image, a
+   seeded stand-in text encoder, temp 4, the same steps and guidance). The
+   latents must be finite, the frames not constant, the flash forward
+   launched exactly 57 times per DiT forward and the conv kernel exactly
+   once per admitted conv and VAE window;
+8. full-width DiT gradient: the release DiT with fp32 parameters, bf16
    autocast and remat, one training-loss backward of a batch row at the
    384x640 unit-16 stage-2 training layout (L = 3068), through the kernels
    and through the plain version; relative L2 of the concatenated parameter
    gradient <= 5e-2, every parameter with a nonzero gradient, and exactly
    2 forward launches (forward and recompute) and one of each backward
    kernel per attention;
-8. train: the serving models freed, ``create_train_state`` on that DiT (its
+9. train: the serving DiT freed, ``create_train_state`` on that DiT (its
    output projection zeroed, as the JAX model initialises it) and three
    ``make_train_step`` steps at the JAX CLI's default shape (batch 4, 16
    latent frames of 48x80, units from ``sample_stage_length``, the CLI's lr
-   schedule); finite losses and grad norms, at least one update applied that
-   moves the parameters, exact kernel launch counts; step seconds and the
-   peak memory printed.
+   schedule), then two raw-pixel steps (``vae=``, batch 4 of 121 frames of
+   384x640, the same 16 latent frames); finite losses and grad norms,
+   updates applied, exact kernel launch counts; step seconds and the peak
+   memory printed.
+10. conv kernel vs plain, with the models freed: the causal 3x3x3 conv
+   against the plain fp32 version at every (B, T, H, W, C, Co) the VAE ran
+   it at in phases 6-9 (recorded by a patch of its conv call), each with
+   zero front frames and with a carried front; max|err| <= 2e-2 *
+   max|ref|; the kernel and ``F.conv3d`` (cuDNN, bf16, channels-last)
+   timed at each, the plain version at the decoder's 128->128 384x640
+   conv over a 16-frame window.
 
-Before the last line it prints one JSON object with each kernel's launches on
-the main paths (serve and train, each counted from 0), its largest error
-against the plain version, and its time and the plain version's at the
-384x640 unit 15 stage 2 layout. The last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits 1.
+Each path (text-to-video, image-to-video, latent training, raw-pixel
+training) runs with every launch counter set to 0 just before it and read
+just after. Before the last line the script prints one JSON object with each
+kernel's launches summed over those paths, its largest error against the
+plain version, its time, the plain version's, the least time the card could
+take (bytes or operations at the H100's published peaks) and one PyTorch
+call's time for the same function, at the 384x640 unit 15 stage 2 attention
+layout and at the 128->128 384x640 decode conv; the classic forward (K2),
+which no path runs, has an entry of its own with 0 launches. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -61,27 +87,36 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import torch
 
+import torch.nn.functional as F
+
 from pyramid_flow_tpu_torch.models.flux import blocks as flux_blocks
 from pyramid_flow_tpu_torch.models.flux.model import (
     FluxConfig, PyramidFluxTransformer)
-from pyramid_flow_tpu_torch.models.vae.model import CausalVideoVAE, VAEConfig
+from pyramid_flow_tpu_torch.models.vae import layers as vae_layers
+from pyramid_flow_tpu_torch.models.vae import model as vae_model
+from pyramid_flow_tpu_torch.models.vae.model import (
+    CausalVideoVAE, VAEConfig, kernel_conv_count)
+from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
 from pyramid_flow_tpu_torch.ops import flash_attention as fa
 from pyramid_flow_tpu_torch.pipeline.noising import (
     GeneratorDraws, add_ar_noise_stage, latent_pyramid, sample_stage_length)
 from pyramid_flow_tpu_torch.pipeline.packing import pack_clips, patchify
 from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
     PyramidFlowPipeline)
+from pyramid_flow_tpu_torch.pipeline.runner import PyramidFlowRunner
 from pyramid_flow_tpu_torch.schedulers.flow_matching import (
     PyramidFlowMatchEulerDiscreteScheduler)
 from pyramid_flow_tpu_torch.training.lr_schedules import cosine_schedule
 from pyramid_flow_tpu_torch.training.train_state import (
     TrainConfig, create_train_state)
-from pyramid_flow_tpu_torch.training.trainer import make_train_step
+from pyramid_flow_tpu_torch.training.trainer import (
+    VIDEO_ENCODE_WINDOW, make_train_step)
 
 SEED = 0
 B, H, D = 2, 24, 64
@@ -96,8 +131,19 @@ LAYOUTS = (  # (name, height, width, unit, stage)
     ("768x1280 u15 s2", 768, 1280, 15, 2),
 )
 TIMED_LAYOUT = "384x640 u15 s2"
-REQUESTS = (("a", 1), ("b", 4))  # (name, temp) at 384x640
+HEIGHT, WIDTH = 384, 640  # the requests', the encode's and the video's
+REQUESTS = (("a", 1), ("b", 4))  # (name, temp)
+I2V_TEMP = 4
 STEPS, VIDEO_STEPS = [20, 20, 20], [10, 10, 10]
+DECODE_WINDOW, ENCODE_WINDOW = 2, 16  # latent frames; pixel frames
+# (B, T, H, W, C, Co, front): the decoder's 128->128 conv in its steady
+# window (2 latent frames, after its temporal upsamplers)
+TIMED_CONV = (1, 16, HEIGHT, WIDTH, 128, 128, True)
+CONV_REL, ENCODE_REL_L2, IN_PLACE_REL_L2 = 2e-2, 2e-2, 2e-3
+RAW_STEPS = 2
+RAW_FRAMES = 1 + 8 * (TRAIN_FRAMES - 1)  # 121 pixel frames, 16 latent
+# NVIDIA H100 SXM published dense peaks
+PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
 
 def log(msg):
@@ -127,6 +173,34 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float):
+    """(the least milliseconds the card could take, what bounds it): the
+    operations at the bf16 dense peak against the bytes at the memory
+    rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def visible_pairs(t: torch.Tensor, causal: bool) -> int:
+    """(valid query, visible key) pairs of one row's time ids: the scores
+    the attention kernels must compute for this layout."""
+    tq, tk = t[:, None], t[None, :]
+    vis = (tk != fa.INVALID_TIME) & (tq != fa.INVALID_TIME)
+    if causal:
+        vis &= tk <= tq
+    return int(vis.sum().item())
+
+
+def sdpa_mask(t: torch.Tensor, causal: bool) -> torch.Tensor:
+    """[B, 1, L, L] bool mask of the time-id rule for
+    ``scaled_dot_product_attention``."""
+    tq, tk = t[:, None, :, None], t[:, None, None, :]
+    mask = tk != fa.INVALID_TIME
+    return mask & (tk <= tq) if causal else mask.expand(-1, -1, t.shape[1],
+                                                       -1)
 
 
 def text_time(dev) -> torch.Tensor:
@@ -178,6 +252,15 @@ def kernel_vs_plain(meta_pipe, dev, gen):
             o_ref, lse_ref = plain_attention(q, k, v, t, causal)
             plain_ms = cuda_ms(lambda: plain_attention(q, k, v, t, causal),
                                reps=3, warmup=1)
+            extra = {}
+            if name == TIMED_LAYOUT:
+                mask = sdpa_mask(t, causal)
+                extra["library_ms"] = cuda_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask), reps)
+                pairs = B * H * visible_pairs(t[0], causal)
+                extra["flops"] = 4 * D * pairs
+                del mask
             for bounded in (True, False):
                 def run():
                     return fa.flash_fwd_cuda(q, k, v, t, t, causal=causal,
@@ -191,6 +274,14 @@ def kernel_vs_plain(meta_pipe, dev, gen):
                 r = dict(layout=name, L=L, causal=causal, bounded=bounded,
                          max_abs_err_o=do, max_abs_err_lse=dl, ms=ms,
                          plain_ms=plain_ms)
+                if extra:
+                    # q, k, v read, o written, lse written, time ids read;
+                    # the bounded form's per-row bounds too
+                    nbytes = (4 * B * H * L * D * 2 + B * H * L * 4
+                              + 2 * B * L * 4 + bounded * B * H * L * 4)
+                    r["bound_ms"], r["bound_by"] = bound(extra["flops"],
+                                                         nbytes)
+                    r["library_ms"] = extra["library_ms"]
                 log("kernel vs plain " + json.dumps(r))
                 if not (do <= O_ATOL and dl <= LSE_ATOL):
                     raise AssertionError(f"kernel disagrees with plain: {r}")
@@ -273,12 +364,198 @@ def bwd_vs_plain(meta_pipe, dev, gen):
             r["plain_ms"] = cuda_ms(
                 lambda: plain_backward(q, k, v, t, o, lse, do, causal),
                 reps=3, warmup=1)
+            if name == TIMED_LAYOUT and d == D:
+                r.update(sdpa_backward_ms(q, k, v, t, do, causal, reps))
+                pairs = B * heads * visible_pairs(t[0], causal)
+                io = B * heads * L * d * 2  # one [B, H, L, D] bf16 tensor
+                # reads q, k, v, do, lse, delta and the time ids; writes
+                # dk and dv (K3) or dq (K4)
+                reads = 4 * io + 2 * B * heads * L * 4 + 2 * B * L * 4
+                r["bound_ms_dkv"], r["bound_by_dkv"] = bound(
+                    8 * d * pairs, reads + 2 * io)
+                r["bound_ms_dq"], r["bound_by_dq"] = bound(
+                    6 * d * pairs, reads + io)
             log("backward kernels vs plain " + json.dumps(r))
             results.append(r)
             del o, lse, do, delta, got, ref
         del q, k, v
         torch.cuda.empty_cache()
     return results
+
+
+def sdpa_backward_ms(q, k, v, t, do, causal, reps):
+    """``scaled_dot_product_attention``'s backward with the time-id mask:
+    its forward plus backward less its forward."""
+    mask = sdpa_mask(t, causal)
+    qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*qkv, attn_mask=mask)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), qkv, do)
+
+    fwd_ms = cuda_ms(fwd, reps)
+    return {"library_fwd_ms": fwd_ms,
+            "library_ms": cuda_ms(fwd_bwd, reps) - fwd_ms}
+
+
+def conv_bound(b, t, h, w, c, co, front):
+    """Bound of one causal conv: 2 * 27 * C * Co flops per output pixel; x,
+    the weights, the bias (fp32) and the front frames read, y written."""
+    flops = 2 * 27 * c * co * b * t * h * w
+    nbytes = (2 * b * t * h * w * (c + co) + 2 * 27 * c * co + 4 * co
+              + front * 2 * b * 2 * h * w * c)
+    return flops, bound(flops, nbytes)
+
+
+def record_conv_shapes(shapes: set):
+    """A patch of the VAE's conv call that adds (B, T, H, W, C, Co, front)
+    of every admitted conv it runs to ``shapes``: the shapes the paths give
+    the kernel, for ``conv_vs_plain``."""
+    conv = vae_layers.causal_conv3d
+
+    def recorder(x, weight, bias, front=None):
+        shapes.add(tuple(x.shape) + (weight.shape[0], front is not None))
+        return conv(x, weight, bias, front)
+
+    return mock.patch.object(vae_layers, "causal_conv3d", recorder)
+
+
+def conv_vs_plain(shapes, dev, gen):
+    """The conv kernel against the fp32 plain version at every (B, T, H, W,
+    C, Co) the paths launched it at, each with zero and with carried front
+    frames; the kernel and cuDNN's bf16 channels-last ``F.conv3d`` on the
+    same (front-padded) input timed at each, the plain version at
+    ``TIMED_CONV``."""
+    if TIMED_CONV not in shapes:
+        raise AssertionError(f"no path ran the timed conv {TIMED_CONV}")
+    results = []
+    for b, t, h, w, c, co in sorted({s[:-1] for s in shapes}):
+        weight = (torch.randn((co, c, 3, 3, 3), generator=gen, device=dev)
+                  / math.sqrt(27 * c)).bfloat16()
+        weight = weight.contiguous(memory_format=torch.channels_last_3d)
+        bias = (0.1 * torch.randn((co,), generator=gen, device=dev)
+                ).bfloat16()
+        x = torch.randn((b, t, h, w, c), generator=gen, device=dev).bfloat16()
+        carried = torch.randn((b, 2, h, w, c), generator=gen, device=dev
+                              ).bfloat16()
+        # above the 50 MB L2 every launch finds its input cold anyway
+        reps = 10 if b * t * h * w * max(c, co) * 2 > 50e6 else 30
+        for front in (False, True):
+            fr = carried if front else None
+            y = cc.causal_conv3d_cuda(x, weight, bias, fr)
+            torch.cuda.synchronize()
+            ref = cc.causal_conv3d_reference(
+                x.float(), weight.float(), bias.float(),
+                carried.float() if front else None)
+            err = (y.float() - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            del ref
+            ms = cuda_ms(lambda: cc.causal_conv3d_cuda(x, weight, bias, fr),
+                         reps)
+            xl = torch.cat([carried if front else torch.zeros_like(carried),
+                            x], 1).permute(0, 4, 1, 2, 3)
+            library_ms = cuda_ms(lambda: F.conv3d(
+                xl, weight, bias, padding=(0, 1, 1)), reps)
+            lib = F.conv3d(xl, weight, bias, padding=(0, 1, 1))
+            lib_err = (lib.permute(0, 2, 3, 4, 1).float()
+                       - y.float()).abs().max().item()
+            flops, (bound_ms, bound_by) = conv_bound(b, t, h, w, c, co, front)
+            r = dict(shape=f"{c}->{co} {h}x{w}", b=b, t=t, front=front,
+                     on_path=(b, t, h, w, c, co, front) in shapes,
+                     max_abs_err=err, max_abs_ref=scale,
+                     cudnn_vs_kernel_max_abs=lib_err, ms=ms,
+                     library_ms=library_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, tflops=flops / ms / 1e9)
+            if (b, t, h, w, c, co, front) == TIMED_CONV:
+                r["plain_ms"] = cuda_ms(lambda: cc.causal_conv3d_reference(
+                    x, weight, bias, fr), reps=3, warmup=1)
+            log("conv kernel vs plain " + json.dumps(r))
+            if not (torch.isfinite(y).all() and err <= CONV_REL * scale):
+                raise AssertionError(f"conv kernel disagrees: {r}")
+            results.append(r)
+            del y, xl, lib
+        del x, carried, weight, bias
+        torch.cuda.empty_cache()
+    return results
+
+
+def smooth_video(gen, dev, frames, height, width):
+    """Seeded smooth pixels [1, T, H, W, 3] in [-1, 1]: coarse uniform noise,
+    trilinearly upsampled."""
+    coarse = torch.rand((1, 3, max(frames // 4, 2), height // 64, width // 64),
+                        generator=gen, device=dev)
+    x = F.interpolate(coarse, size=(frames, height, width), mode="trilinear",
+                      align_corners=True)
+    return (x * 2 - 1).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+@torch.no_grad()
+def encode_check(vae, dev, gen):
+    """``chunk_encode`` of a 17-frame 384x640 clip through the conv kernel,
+    through the plain version, and in fp32 (a float copy of the VAE, every
+    conv on fp32 ``F.conv3d``). Two bf16 routes that round at the same
+    places still drift apart through 20 convs and their group norms, as far
+    as each drifts from fp32; so the kernel route must also be no further
+    from fp32 than the plain route (within 10%), and each conv's own error
+    in place (against the plain version on the same input) must stay
+    within ``IN_PLACE_REL_L2``."""
+    clip = smooth_video(gen, dev, 17, HEIGHT, WIDTH)
+    windows = len(vae_model._window_starts(17, ENCODE_WINDOW))
+    expect = kernel_conv_count(vae.encoder) * windows
+    in_place = []
+
+    def per_conv(m, args, out):  # the first window's is_init=True: no front
+        if m.uses_kernel:
+            ref = cc.causal_conv3d_reference(args[0].permute(0, 2, 3, 4, 1),
+                                             m.conv.weight, m.conv.bias)
+            in_place.append(rel_l2(out.permute(0, 2, 3, 4, 1), ref))
+
+    before = cc.causal_conv3d_cuda.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_k = vae_model.chunk_encode(vae, clip, ENCODE_WINDOW)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    launched = cc.causal_conv3d_cuda.launches - before
+    with mock.patch.object(vae_layers, "causal_conv3d",
+                           cc.causal_conv3d_reference):
+        t0 = time.perf_counter()
+        m_p = vae_model.chunk_encode(vae, clip, ENCODE_WINDOW)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    vae32 = copy.deepcopy(vae).float()
+    m_32 = vae_model.chunk_encode(vae32, clip, ENCODE_WINDOW)
+    hooks = [m.register_forward_hook(per_conv) for m in vae.encoder.modules()
+             if isinstance(m, vae_layers.CausalConv3d)]
+    try:
+        vae_model.chunk_encode(vae, clip, ENCODE_WINDOW)
+    finally:
+        for h in hooks:
+            h.remove()
+    del vae32
+    if not all(torch.isfinite(m).all() for m in (m_k, m_p, m_32)):
+        raise AssertionError("non-finite moments")
+    r = dict(frames=17, moments=list(m_k.shape), rel_l2=rel_l2(m_k, m_p),
+             kernel_vs_fp32=rel_l2(m_k, m_32), plain_vs_fp32=rel_l2(m_p, m_32),
+             max_in_place_rel_l2=max(in_place), launches=launched,
+             expected_launches=expect, kernel_s=kernel_s, plain_s=plain_s,
+             moments_rms=m_32.square().mean().sqrt().item())
+    log("full-width encode, kernel vs plain " + json.dumps(r))
+    if launched != expect:
+        raise AssertionError(f"{launched} conv launches in the encode, "
+                             f"expected {expect}")
+    if not (r["rel_l2"] <= ENCODE_REL_L2
+            and r["kernel_vs_fp32"] <= 1.1 * r["plain_vs_fp32"]
+            and r["max_in_place_rel_l2"] <= IN_PLACE_REL_L2):
+        raise AssertionError(f"encode kernel route off: {r}")
+    return r
 
 
 @torch.no_grad()
@@ -355,15 +632,33 @@ def training_batch(dit_cfg, dev, gen, batch):
             "null_pooled": torch.zeros_like(pooled)}
 
 
-def launch_counts():
-    return (fa.flash_fwd_cuda.launches, fa.flash_bwd_cuda.dkv_launches,
-            fa.flash_bwd_cuda.dq_launches)
+def launch_counts() -> dict:
+    """Launches by kernel; ``flash_fwd`` is the bounded forward (K1),
+    ``flash_fwd_classic`` the classic one (K2), which no path runs."""
+    classic = fa.flash_fwd_cuda.classic_launches
+    return {"flash_fwd": fa.flash_fwd_cuda.launches - classic,
+            "flash_fwd_classic": classic,
+            "flash_bwd_dkv": fa.flash_bwd_cuda.dkv_launches,
+            "flash_bwd_dq": fa.flash_bwd_cuda.dq_launches,
+            "causal_conv3d": cc.causal_conv3d_cuda.launches}
 
 
 def reset_launch_counts():
     fa.flash_fwd_cuda.launches = 0
+    fa.flash_fwd_cuda.classic_launches = 0
     fa.flash_bwd_cuda.dkv_launches = 0
     fa.flash_bwd_cuda.dq_launches = 0
+    cc.causal_conv3d_cuda.launches = 0
+
+
+def expected(fwd=0, bwd=0, conv=0) -> dict:
+    """Launch counts of a path: ``bwd`` of each backward kernel."""
+    return {"flash_fwd": fwd, "flash_fwd_classic": 0, "flash_bwd_dkv": bwd,
+            "flash_bwd_dq": bwd, "causal_conv3d": conv}
+
+
+def counted(before: dict) -> dict:
+    return {k: n - before[k] for k, n in launch_counts().items()}
 
 
 def dit_grad_check(dit, dev, gen):
@@ -393,16 +688,15 @@ def dit_grad_check(dit, dev, gen):
         dit.zero_grad(set_to_none=True)
         return loss.item(), grads
 
-    reset_launch_counts()
+    before = launch_counts()
     t0 = time.perf_counter()
     loss_k, gk = backward()
     kernel_s = time.perf_counter() - t0
-    launched = launch_counts()
+    launched = counted(before)
     n = dit.num_attention_calls
-    if launched != (2 * n, n, n):
-        raise AssertionError(f"launches (fwd, dkv, dq) {launched} in one "
-                             f"remat forward+backward, expected "
-                             f"{(2 * n, n, n)}")
+    if launched != expected(2 * n, n):
+        raise AssertionError(f"launches {launched} in one remat forward+"
+                             f"backward, expected {expected(2 * n, n)}")
     missing = [name for name, g in gk.items()
                if g is None or not bool((g != 0).any())]
     if missing:
@@ -428,8 +722,7 @@ def dit_grad_check(dit, dev, gen):
     rel = math.sqrt(diff2 / ref2)
     r = dict(L=L, loss_kernel=loss_k, loss_plain=loss_p, rel_l2=rel,
              worst_leaf=worst[0], worst_leaf_rel_l2=worst[1],
-             launches_fwd=launched[0], launches_dkv=launched[1],
-             launches_dq=launched[2], kernel_s=kernel_s, plain_s=plain_s)
+             launches=launched, kernel_s=kernel_s, plain_s=plain_s)
     log("full-width DiT gradient, kernel vs plain " + json.dumps(r))
     if not (math.isfinite(rel) and rel <= DIT_GRAD_REL_L2):
         raise AssertionError(f"DiT gradient relative L2 {rel} > "
@@ -446,7 +739,8 @@ def zero_output_(dit):
 
 
 def train(dit, dev, gen):
-    """Three train steps of the release DiT at the CLI's default shape."""
+    """Three train steps of the release DiT at the CLI's default shape.
+    Returns (steps, launches, peak GB, state)."""
     zero_output_(dit)
     torch.cuda.reset_peak_memory_stats(dev)
     state = create_train_state(dit, TrainConfig(
@@ -479,14 +773,58 @@ def train(dit, dev, gen):
     launched = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     attentions = dit.num_attention_calls * 3 * TRAIN_STEPS  # 3 stage forwards
-    if launched != (2 * attentions, attentions, attentions):
-        raise AssertionError(f"train launches (fwd, dkv, dq) {launched}, "
-                             f"expected {(2 * attentions, attentions, attentions)}")
+    if launched != expected(2 * attentions, attentions):
+        raise AssertionError(f"train launches {launched}, expected "
+                             f"{expected(2 * attentions, attentions)}")
     if not any(r["applied"] and r["moved"] for r in steps):
         raise AssertionError("no train step passed the anomaly gate and "
                              "moved the parameters")
-    log(f"train: peak memory {peak:.3f} GB, launches (fwd, dkv, dq) "
-        f"{launched}")
+    log(f"train: peak memory {peak:.3f} GB, launches {launched}")
+    return steps, launched, peak, state
+
+
+def train_raw_pixels(dit, vae, state, dev, gen):
+    """Raw-pixel train steps: ``make_train_step(vae=)`` on a ``"video"``
+    batch of 121 frames of 384x640 (16 latent frames, the latent steps'
+    shape), continuing ``state``. Returns (steps, launches, peak GB)."""
+    sched = PyramidFlowMatchEulerDiscreteScheduler()
+    step_fn = make_train_step(dit, sched, (1, 2, 1), True, 1, 1 / 3,
+                              cfg_rate=0.1, compute_dtype=torch.bfloat16,
+                              vae=vae)
+    batch = training_batch(dit.config, dev, gen, TRAIN_BATCH)
+    del batch["latents"]
+    batch["video"] = torch.rand((TRAIN_BATCH, RAW_FRAMES, HEIGHT, WIDTH, 3),
+                                generator=gen, device=dev) * 2 - 1
+    draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED + 1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    reset_launch_counts()
+    for _ in range(RAW_STEPS):
+        units = tuple(sample_stage_length(0, state.step, 3, 31, 1, 8,
+                                          max_units=TRAIN_FRAMES))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch, draws, units)
+        torch.cuda.synchronize()
+        r = dict(step=state.step, frames=RAW_FRAMES, units=units,
+                 loss=m["train/loss"], grad_norm=m["train/grad_norm"],
+                 applied=m["train/applied"],
+                 seconds=time.perf_counter() - t0)
+        log("raw-pixel train step " + json.dumps(r))
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+                and r["applied"]):
+            raise AssertionError(f"raw-pixel train step failed: {r}")
+        steps.append(r)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    attentions = dit.num_attention_calls * 3 * RAW_STEPS
+    windows = len(vae_model._window_starts(RAW_FRAMES, VIDEO_ENCODE_WINDOW))
+    want = expected(2 * attentions, attentions, kernel_conv_count(
+        vae.encoder) * windows * TRAIN_BATCH * RAW_STEPS)
+    if launched != want:
+        raise AssertionError(f"raw-pixel train launches {launched}, "
+                             f"expected {want}")
+    log(f"raw-pixel train: peak memory {peak:.3f} GB, launches {launched}")
     return steps, launched, peak
 
 
@@ -505,20 +843,35 @@ def serve(pipe, dev, gen, name, temp):
         return decode(latents, plan)
 
     forwards = sum(STEPS) + (temp - 1) * sum(VIDEO_STEPS)
-    before = fa.flash_fwd_cuda.launches
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     with mock.patch.object(pipe, "decode_latent", spy):
         t0 = time.perf_counter()
         frames = pipe.generate(
             torch.Generator(dev).manual_seed(SEED + temp), emb, mask, pooled,
-            emb * 0, mask, pooled * 0, height=384, width=640, temp=temp,
+            emb * 0, mask, pooled * 0, height=HEIGHT, width=WIDTH, temp=temp,
             num_inference_steps=STEPS, video_num_inference_steps=VIDEO_STEPS,
             guidance_scale=7.0, video_guidance_scale=5.0,
             output_type="pixels")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launched = fa.flash_fwd_cuda.launches - before
-    expect = (1, 1 + 8 * (temp - 1), 384, 640, 3)
+    launched = counted(before)
+    windows = len(vae_model._window_starts(temp, DECODE_WINDOW, 1))
+    want = expected(pipe.dit.num_attention_calls * forwards,
+                    conv=kernel_conv_count(pipe.vae.decoder) * windows)
+    check_request(frames, seen, launched, want, temp)
+    r = dict(request=name, temp=temp, frames=frames.shape[1],
+             dit_forwards=forwards, launches=launched, wall_s=wall,
+             dit_s=pipe.last_dit_seconds, decode_s=pipe.last_decode_seconds,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             latent_rms=seen[0].square().mean().sqrt().item(),
+             frame_std=frames.float().std().item())
+    log("request " + json.dumps(r))
+    return r
+
+
+def check_request(frames, seen, launched, want, temp):
+    expect = (1, 1 + 8 * (temp - 1), HEIGHT, WIDTH, 3)
     if tuple(frames.shape) != expect or frames.dtype != torch.uint8:
         raise AssertionError(f"frames {tuple(frames.shape)} {frames.dtype}, "
                              f"expected {expect} uint8")
@@ -526,17 +879,97 @@ def serve(pipe, dev, gen, name, temp):
         raise AssertionError("non-finite latents")
     if frames.min() == frames.max():
         raise AssertionError("constant frames")
-    if launched != pipe.dit.num_attention_calls * forwards:
-        raise AssertionError(f"{launched} kernel launches for {forwards} DiT "
-                             "forwards")
-    r = dict(request=name, temp=temp, frames=expect[1], dit_forwards=forwards,
-             kernel_launches=launched, wall_s=wall,
-             dit_s=pipe.last_dit_seconds, decode_s=pipe.last_decode_seconds,
+    if launched != want:
+        raise AssertionError(f"launches {launched}, expected {want}")
+
+
+class StandInTextEncoder:
+    """Text features drawn from a generator seeded by the prompts, in the
+    DiT's dtype: embeddings [B, 128, 4096], a mask of 100 valid tokens and
+    pooled [B, 768]."""
+
+    def __init__(self, cfg, dev, dtype):
+        self.cfg, self.dev, self.dtype = cfg, dev, dtype
+
+    def __call__(self, prompts):
+        g = torch.Generator(self.dev).manual_seed(
+            zlib.crc32("|".join(prompts).encode()))
+        b = len(prompts)
+        emb = torch.randn((b, TEXT_LEN, self.cfg.joint_attention_dim),
+                          generator=g, device=self.dev).to(self.dtype)
+        mask = (text_time(self.dev) == 0)[None].expand(b, -1)
+        pooled = torch.randn((b, self.cfg.pooled_projection_dim),
+                             generator=g, device=self.dev).to(self.dtype)
+        return emb, mask, pooled
+
+
+def serve_i2v(pipe, dev, gen):
+    """One image-to-video request through ``PyramidFlowRunner``."""
+    runner = PyramidFlowRunner(pipe, StandInTextEncoder(pipe.dit.config, dev,
+                                                        pipe.dtype))
+    image = ((smooth_video(gen, dev, 1, HEIGHT, WIDTH)[0, 0] + 1) * 127.5
+             ).round().to(torch.uint8).cpu().numpy()
+    seen, encode_s = [], []
+    decode, encode = pipe.decode_latent, vae_model.chunk_encode
+
+    def spy(latents, plan):
+        seen.append(latents)
+        return decode(latents, plan)
+
+    def timed_encode(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kw)
+        torch.cuda.synchronize()
+        encode_s.append(time.perf_counter() - t0)
+        return out
+
+    forwards = (I2V_TEMP - 1) * sum(VIDEO_STEPS)
+    before = launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with mock.patch.object(pipe, "decode_latent", spy), \
+            mock.patch.object(vae_model, "chunk_encode", timed_encode):
+        t0 = time.perf_counter()
+        frames = runner.generate_i2v(
+            "a red kite over a beach at dawn", image, seed=SEED,
+            height=HEIGHT, width=WIDTH, temp=I2V_TEMP,
+            num_inference_steps=STEPS,
+            video_num_inference_steps=VIDEO_STEPS, guidance_scale=7.0,
+            video_guidance_scale=5.0, output_type="pixels")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = counted(before)
+    windows = len(vae_model._window_starts(I2V_TEMP, DECODE_WINDOW, 1))
+    want = expected(pipe.dit.num_attention_calls * forwards, conv=(
+        kernel_conv_count(pipe.vae.encoder)
+        + kernel_conv_count(pipe.vae.decoder) * windows))
+    check_request(frames, seen, launched, want, I2V_TEMP)
+    r = dict(request="i2v", temp=I2V_TEMP, frames=frames.shape[1],
+             dit_forwards=forwards, launches=launched, wall_s=wall,
+             encode_s=encode_s[0], dit_s=pipe.last_dit_seconds,
+             decode_s=pipe.last_decode_seconds,
              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
              latent_rms=seen[0].square().mean().sqrt().item(),
              frame_std=frames.float().std().item())
     log("request " + json.dumps(r))
     return r
+
+
+def build_libraries():
+    """The three kernel libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        libs = {"flash_fwd": pool.submit(fa.kernel_library),
+                "flash_bwd": pool.submit(fa.bwd_kernel_library),
+                "causal_conv3d": pool.submit(cc.kernel_library)}
+        libs = {name: f.result() for name, f in libs.items()}
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        log(f"build {name}: nvcc {lib.build_seconds:.2f} s")
+        for line in lib.build_log.splitlines():
+            if "Compiling entry" in line or "registers" in line \
+                    or "spill" in line:
+                log("  " + line.strip())
 
 
 def main() -> int:
@@ -549,19 +982,7 @@ def main() -> int:
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device count {torch.cuda.device_count()}")
-
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-        libs = {"flash_fwd": pool.submit(fa.kernel_library),
-                "flash_bwd": pool.submit(fa.bwd_kernel_library)}
-        libs = {name: f.result() for name, f in libs.items()}
-    log(f"build: {time.perf_counter() - t0:.2f} s")
-    for name, lib in libs.items():
-        log(f"build {name}: nvcc {lib.build_seconds:.2f} s")
-        for line in lib.build_log.splitlines():
-            if "Compiling entry" in line or "registers" in line \
-                    or "spill" in line:
-                log("  " + line.strip())
+    build_libraries()
 
     gen = torch.Generator(dev).manual_seed(SEED)
     meta_pipe = PyramidFlowPipeline(None, device=dev)
@@ -577,63 +998,130 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"models: DiT {sum(p.numel() for p in dit.parameters()) / 1e9:.3f} B "
         f"params, VAE {sum(p.numel() for p in vae.parameters()) / 1e6:.1f} M "
-        f"params, built in {time.perf_counter() - t0:.1f} s")
+        f"params ({kernel_conv_count(vae.encoder)} encoder and "
+        f"{kernel_conv_count(vae.decoder)} decoder convs on the conv "
+        f"kernel), built in {time.perf_counter() - t0:.1f} s")
     dit_check(dit, meta_pipe, dev, gen)
+    conv_shapes = set()
+    with record_conv_shapes(conv_shapes):
+        encode_check(vae, dev, gen)
 
-    pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16, device=dev)
-    reset_launch_counts()  # count the serving path's launches only
-    requests = [serve(pipe, dev, gen, name, temp) for name, temp in REQUESTS]
-    serve_launches = launch_counts()
-    forwards = sum(r["dit_forwards"] for r in requests)
-    if serve_launches != (dit.num_attention_calls * forwards, 0, 0):
-        raise AssertionError(f"{serve_launches} launches on the serving path")
+        # each path counted from 0
+        paths = {}
+        pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16,
+                                   device=dev)
+        reset_launch_counts()
+        requests = [serve(pipe, dev, gen, name, temp)
+                    for name, temp in REQUESTS]
+        paths["text-to-video"] = launch_counts()
+        log("text-to-video decode seconds through the conv kernel: "
+            + ", ".join(f"({r['request']}) {r['decode_s']:.3f} of "
+                        f"{r['wall_s']:.3f} s wall" for r in requests)
+            + "; PR 2 call 4 on cuDNN (NVIDIA H100 80GB HBM3, 700 W): (a) "
+              "6.142 s and (b) 15.107 s wall, decode about 0.5 s")
+        reset_launch_counts()
+        serve_i2v(pipe, dev, gen)
+        paths["image-to-video"] = launch_counts()
 
-    # training: free the serving models first
-    del pipe, dit, vae
+        # training: free the serving DiT first; the VAE stays for raw pixels
+        del pipe, dit
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tdit = PyramidFluxTransformer(FluxConfig(), dtype=torch.float32,
+                                      device=dev, remat=True)
+        randomize_(tdit, gen)
+        torch.cuda.synchronize()
+        log(f"training DiT: fp32 parameters, remat, built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        dit_grad_check(tdit, dev, gen)
+        _, paths["train (latents)"], _, state = train(tdit, dev, gen)
+        _, paths["train (raw pixels)"], _ = train_raw_pixels(
+            tdit, vae, state, dev, gen)
+    log("launches by path " + json.dumps(paths))
+    total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
+    unused = [k for k, n in total.items()
+              if n == 0 and k != "flash_fwd_classic"]
+    if unused:
+        raise AssertionError(f"kernels no path launched: {unused}")
+
+    # the conv kernel at every shape the paths gave it, with the models freed
+    del tdit, state, vae
     gc.collect()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    tdit = PyramidFluxTransformer(FluxConfig(), dtype=torch.float32,
-                                  device=dev, remat=True)
-    randomize_(tdit, gen)
-    torch.cuda.synchronize()
-    log(f"training DiT: fp32 parameters, remat, built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    dit_grad_check(tdit, dev, gen)
-    _, train_launches, _ = train(tdit, dev, gen)
+    log(f"conv shapes the paths launched: {len(conv_shapes)}")
+    conv_checks = conv_vs_plain(conv_shapes, dev, gen)
 
     timed = next(r for r in checks if r["layout"] == TIMED_LAYOUT
                  and r["causal"] and r["bounded"])
+    classic = next(r for r in checks if r["layout"] == TIMED_LAYOUT
+                   and r["causal"] and not r["bounded"])
     btimed = next(r for r in bwd_checks if r["layout"] == TIMED_LAYOUT
                   and r["d"] == D and r["causal"])
+    ctimed = next(r for r in conv_checks if "plain_ms" in r)
     log(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:207",
-        "launches": serve_launches[0] + train_launches[0],
-        "max_abs_err": max(r["max_abs_err_o"] for r in checks),
+        "launches": total["flash_fwd"],
+        "max_abs_err": max(r["max_abs_err_o"] for r in checks
+                           if r["bounded"]),
         "ms": timed["ms"],
         "plain_ms": timed["plain_ms"],
+        "bound_ms": timed["bound_ms"],
+        "bound_by": timed["bound_by"],
+        "library_ms": timed["library_ms"],
+    }, {
+        "name": "flash_fwd_classic",
+        "route": "cuda",
+        "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "pyramid_flow_tpu/ops/flash_attention.py:122",
+        "launches": total["flash_fwd_classic"],
+        "max_abs_err": max(r["max_abs_err_o"] for r in checks
+                           if not r["bounded"]),
+        "ms": classic["ms"],
+        "plain_ms": classic["plain_ms"],
+        "bound_ms": classic["bound_ms"],
+        "bound_by": classic["bound_by"],
+        "library_ms": classic["library_ms"],
     }, {
         "name": "flash_bwd_dkv",
         "route": "cuda",
         "source": "pyramid_flow_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:447",
-        "launches": train_launches[1],
+        "launches": total["flash_bwd_dkv"],
         "max_abs_err": max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
                            for r in bwd_checks),
         "ms": btimed["ms_dkv"],
         "plain_ms": btimed["plain_ms"],
+        "bound_ms": btimed["bound_ms_dkv"],
+        "bound_by": btimed["bound_by_dkv"],
+        "library_ms": btimed["library_ms"],
     }, {
         "name": "flash_bwd_dq",
         "route": "cuda",
         "source": "pyramid_flow_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:514",
-        "launches": train_launches[2],
+        "launches": total["flash_bwd_dq"],
         "max_abs_err": max(r["max_abs_err_dq"] for r in bwd_checks),
         "ms": btimed["ms_dq"],
         "plain_ms": btimed["plain_ms"],
+        "bound_ms": btimed["bound_ms_dq"],
+        "bound_by": btimed["bound_by_dq"],
+        "library_ms": btimed["library_ms"],
+    }, {
+        "name": "causal_conv3d",
+        "route": "cuda",
+        "source": "pyramid_flow_tpu_torch/csrc/causal_conv3d.cu",
+        "replaces": "pyramid_flow_tpu/ops/causal_conv3d.py:42",
+        "launches": total["causal_conv3d"],
+        "max_abs_err": max(r["max_abs_err"] for r in conv_checks),
+        "ms": ctimed["ms"],
+        "plain_ms": ctimed["plain_ms"],
+        "bound_ms": ctimed["bound_ms"],
+        "bound_by": ctimed["bound_by"],
+        "library_ms": ctimed["library_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

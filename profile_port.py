@@ -60,7 +60,8 @@ from pyramid_flow_tpu_torch.training.trainer import make_train_step
 CATEGORIES = (  # first match wins; names are lower-cased
     ("flash attention", ("flash_fwd_kernel",)),
     ("flash attention backward", ("flash_bwd_",)),
-    ("convolution", ("conv", "fprop", "cudnn", "winograd")),
+    ("causal conv kernel", ("causal_conv3d_kernel",)),
+    ("convolution (cuDNN)", ("conv", "fprop", "cudnn", "winograd")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma")),
     ("optimizer (fused AdamW)", ("adam",)),
 )

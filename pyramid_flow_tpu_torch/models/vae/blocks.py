@@ -1,9 +1,11 @@
-"""Causal VAE decoder blocks on [B, C, T, H, W]: resnets, spatial and
-temporal depth-to-space upsamplers, the up blocks and the mid block.
+"""Causal VAE blocks on channels-last [B, C, T, H, W]: resnets, the
+encoder's strided downsamplers and down blocks, the decoder's spatial and
+temporal depth-to-space upsamplers and up blocks, and the mid block.
 
 Every block's forward takes ``(x, state=None, is_init=True)`` and passes them
-to its causal convs (see :class:`~.layers.CausalConv3d`). The encoder half
-(Downsample2x, TemporalDownsample2x, DownEncoderBlock) is not ported yet.
+to its causal convs (see :class:`~.layers.CausalConv3d`), and returns
+channels-last activations: the depth-to-space shuffles are written on the
+physical ``[B, T, H, W, C]`` order, one copy each.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from torch import nn
 
 from .layers import CausalConv3d, GroupNorm, SpatialAttention
 
-__all__ = ["ResnetBlock3D", "Upsample2x", "TemporalUpsample2x",
+__all__ = ["ResnetBlock3D", "Downsample2x", "TemporalDownsample2x",
+           "DownEncoderBlock", "Upsample2x", "TemporalUpsample2x",
            "UpDecoderBlock", "MidBlock"]
 
 
@@ -43,6 +46,57 @@ class ResnetBlock3D(nn.Module):
         return x + h
 
 
+class Downsample2x(nn.Module):
+    """Spatial 2x down: a causal 3x3x3 conv with stride (1, 2, 2)."""
+
+    def __init__(self, in_channels: int, out_channels: int, **kw):
+        super().__init__()
+        self.conv = CausalConv3d(in_channels, out_channels, (3, 3, 3),
+                                 stride=(1, 2, 2), **kw)
+
+    def forward(self, x, state=None, is_init=True):
+        return self.conv(x, state, is_init)
+
+
+class TemporalDownsample2x(nn.Module):
+    """Temporal 2x down: a causal 3x3x3 conv with stride (2, 1, 1); a later
+    window puts only the last carried frame in front."""
+
+    def __init__(self, in_channels: int, out_channels: int, **kw):
+        super().__init__()
+        self.conv = CausalConv3d(in_channels, out_channels, (3, 3, 3),
+                                 stride=(2, 1, 1), **kw)
+
+    def forward(self, x, state=None, is_init=True):
+        return self.conv(x, state, is_init)
+
+
+class DownEncoderBlock(nn.Module):
+    """N resnets, then optional spatial and temporal downsamplers."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 num_layers: int = 2, add_spatial_downsample: bool = True,
+                 add_temporal_downsample: bool = False, num_groups: int = 32,
+                 **kw):
+        super().__init__()
+        self.resnets = nn.ModuleList([
+            ResnetBlock3D(in_channels if i == 0 else out_channels,
+                          out_channels, num_groups, **kw)
+            for i in range(num_layers)])
+        self.downsamplers = nn.ModuleList(
+            [Downsample2x(out_channels, out_channels, **kw)]
+            if add_spatial_downsample else [])
+        self.temporal_downsamplers = nn.ModuleList(
+            [TemporalDownsample2x(out_channels, out_channels, **kw)]
+            if add_temporal_downsample else [])
+
+    def forward(self, x, state=None, is_init=True):
+        for layer in (*self.resnets, *self.downsamplers,
+                      *self.temporal_downsamplers):
+            x = layer(x, state, is_init)
+        return x
+
+
 class Upsample2x(nn.Module):
     """Spatial 2x up: conv to 4*C, then depth-to-space with the channel
     order ``(c p1 p2)``."""
@@ -52,11 +106,11 @@ class Upsample2x(nn.Module):
         self.conv = CausalConv3d(channels, channels * 4, (3, 3, 3), **kw)
 
     def forward(self, x, state=None, is_init=True):
-        y = self.conv(x, state, is_init)
-        b, c4, t, h, w = y.shape
+        y = self.conv(x, state, is_init).permute(0, 2, 3, 4, 1)
+        b, t, h, w, c4 = y.shape
         c = c4 // 4
-        y = y.reshape(b, c, 2, 2, t, h, w).permute(0, 1, 4, 5, 2, 6, 3)
-        return y.reshape(b, c, t, h * 2, w * 2)
+        y = y.reshape(b, t, h, w, c, 2, 2).permute(0, 1, 2, 5, 3, 6, 4)
+        return y.reshape(b, t, h * 2, w * 2, c).permute(0, 4, 1, 2, 3)
 
 
 class TemporalUpsample2x(nn.Module):
@@ -69,12 +123,14 @@ class TemporalUpsample2x(nn.Module):
         self.conv = CausalConv3d(channels, channels * 2, (3, 3, 3), **kw)
 
     def forward(self, x, state=None, is_init=True):
-        y = self.conv(x, state, is_init)
-        b, c2, t, h, w = y.shape
+        y = self.conv(x, state, is_init).permute(0, 2, 3, 4, 1)
+        b, t, h, w, c2 = y.shape
         c = c2 // 2
-        y = y.reshape(b, c, 2, t, h, w).permute(0, 1, 3, 2, 4, 5)
-        y = y.reshape(b, c, t * 2, h, w)
-        return y[:, :, 1:] if is_init else y
+        y = y.reshape(b, t, h, w, c, 2).permute(0, 1, 5, 2, 3, 4)
+        y = y.reshape(b, t * 2, h, w, c)
+        if is_init:
+            y = y[:, 1:].contiguous()
+        return y.permute(0, 4, 1, 2, 3)
 
 
 class UpDecoderBlock(nn.Module):

@@ -1,15 +1,22 @@
 """Core causal-VAE primitives.
 
-Inside the VAE, activations are torch's native ``[B, C, T, H, W]``, the
-layout ``F.conv3d`` takes; the model's public ``decode`` converts from and to
-the JAX package's channels-last ``[B, T, H, W, C]``.
+Inside the VAE, activations are torch's ``[B, C, T, H, W]`` held in
+``torch.channels_last_3d``: physically ``[B, T, H, W, C]``, the JAX package's
+channels-last layout, which the conv kernel reads without a transpose. Every
+layer keeps that layout (the conv weights are channels-last too); the model's
+public ``encode``/``decode`` take and return ``[B, T, H, W, C]``.
 
-* :class:`CausalConv3d`: a temporally-causal 3D conv (``k_t - 1`` zero frames
-  in front, symmetric zero padding in space), one ``F.conv3d`` per call. For
-  windowed decoding it reads the previous window's last two input frames from
-  an explicit ``state`` dict and writes its own there.
+* :class:`CausalConv3d`: a temporally-causal 3D conv (``k_t - 1`` frames in
+  front, symmetric zero padding in space). A conv that
+  :func:`~pyramid_flow_tpu_torch.ops.causal_conv3d.supports_kernel` admits
+  runs through :func:`~pyramid_flow_tpu_torch.ops.causal_conv3d.causal_conv3d`
+  (the CUDA kernel on the card), which reads the front frames from their own
+  tensor; the others (the 3-, 16- and 32-channel ends, the 1x1x1 convs, the
+  strided downsamplers) run ``F.conv3d`` on the frames concatenated. For
+  windowed coding the conv reads the previous window's last two input frames
+  from an explicit ``state`` dict and writes its own there.
 * :func:`causal_group_norm`: GroupNorm with statistics per (batch, frame),
-  which is what makes windowed and monolithic decoding agree.
+  which is what makes windowed and monolithic coding agree.
 * :class:`SpatialAttention`: the mid-block's per-frame single-head attention
   over the H*W pixels, fp32 softmax, queries chunked above
   ``ATTN_CHUNK_TOKENS``.
@@ -22,16 +29,36 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ...ops.causal_conv3d import causal_conv3d, supports_kernel
+
 __all__ = ["CausalConv3d", "causal_group_norm", "GroupNorm",
-           "SpatialAttention", "ATTN_CHUNK_TOKENS"]
+           "SpatialAttention", "ATTN_CHUNK_TOKENS", "channels_last"]
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``[B, T, H, W, C]`` -> the VAE's ``[B, C, T, H, W]`` channels-last
+    view (a copy only if ``x`` is not contiguous)."""
+    return x.contiguous().permute(0, 4, 1, 2, 3)
+
+
+def _carry(front: Optional[torch.Tensor], x: torch.Tensor, kt: int
+           ) -> torch.Tensor:
+    """The last two frames of ``front ++ x`` (``[B, T, H, W, C]``; ``front``
+    None means ``kt - 1`` zero frames), copied so that the next window does
+    not hold the whole of ``x``."""
+    if x.shape[1] >= 2:
+        return x[:, -2:].clone()
+    if front is None:
+        front = x.new_zeros((x.shape[0], kt - 1) + x.shape[2:])
+    return torch.cat([front[:, -1:].to(x.dtype), x], dim=1)
 
 
 class CausalConv3d(nn.Module):
-    """Temporally-causal 3D convolution on [B, C, T, H, W].
+    """Temporally-causal 3D convolution on channels-last [B, C, T, H, W].
 
     With ``state`` (a dict shared by all convs of one model, keyed by
     ``cache_key``) the conv streams: on the first window (``is_init``) it
-    pads with zero frames, on a later one it prepends the cached frames
+    pads with zero frames, on a later one it puts the cached frames in front
     (both for stride 1, the last one for temporal stride 2), and it stores
     the last two frames of its padded input for the next window. Without
     ``state`` it pads with zero frames. k_t = 1 convs carry nothing.
@@ -49,20 +76,32 @@ class CausalConv3d(nn.Module):
                               stride=self.stride,
                               padding=(0, kh // 2, kw_ // 2), **kw)
 
+    @property
+    def uses_kernel(self) -> bool:
+        """Whether this conv runs through ``causal_conv3d``."""
+        w = self.conv.weight
+        return supports_kernel(w.shape[1], w.shape[0], self.kernel_size,
+                               self.stride, w.dtype)
+
     def forward(self, x, state: Optional[dict] = None, is_init: bool = True):
-        kt = self.kernel_size[0]
-        st = self.stride[0]
-        if kt > 1:
-            if state is None or is_init:
-                front = x.new_zeros(x.shape[:2] + (kt - 1,) + x.shape[3:])
-            else:
+        kt, st = self.kernel_size[0], self.stride[0]
+        xc = x.permute(0, 2, 3, 4, 1)  # [B, T, H, W, C]
+        front = None  # frames in front of x; None = zeros
+        if kt > 1 and state is not None:
+            if not is_init:
                 cached = state[self.cache_key]
-                front = cached[:, :, -1:] if (st == 2 and kt == 3) else \
-                    cached[:, :, -(kt - 1):]
-            x = torch.cat([front.to(x.dtype), x], dim=2)
-            if state is not None:
-                state[self.cache_key] = x[:, :, -2:]
-        return self.conv(x)
+                front = cached[:, -1:] if st == 2 else cached
+            state[self.cache_key] = _carry(front, xc, kt)
+        if self.uses_kernel:
+            y = causal_conv3d(xc.contiguous(), self.conv.weight,
+                              self.conv.bias, front)
+            return y.permute(0, 4, 1, 2, 3)
+        if kt > 1:
+            if front is None:
+                front = xc.new_zeros((xc.shape[0], kt - 1) + xc.shape[2:])
+            xc = torch.cat([front.to(xc.dtype), xc], dim=1)
+        y = self.conv(xc.permute(0, 4, 1, 2, 3))
+        return y.contiguous(memory_format=torch.channels_last_3d)
 
 
 def causal_group_norm(x: torch.Tensor, weight: torch.Tensor,

@@ -1,0 +1,161 @@
+"""The causal VAE's 3x3x3 stride-1 convolution.
+
+What it computes, for ``x`` ``[B, T, H, W, C]`` (channels-last, the JAX
+package's layout) and the Conv3d ``weight`` ``[Co, C, 3, 3, 3]``: a conv that
+is causal in time (two frames in front of ``x``: zeros, or the carried
+``front`` ``[B, 2, H, W, C]`` of a streaming window), SAME (zero) padded in
+space, plus ``bias`` ``[Co]``. Out: ``[B, T, H, W, Co]``.
+
+Two versions:
+
+* :func:`causal_conv3d_reference`, the plain PyTorch version: the sum of the
+  27 shifted taps' matmuls in fp32, which is what the TPU kernel's body
+  computes;
+* the CUDA kernel in ``csrc/causal_conv3d.cu``, an implicit GEMM with bf16
+  products and fp32 sums that reads the front frames from their own pointer,
+  launched by :func:`causal_conv3d_cuda`.
+
+:func:`supports_kernel` is the one rule for which convs the kernel takes.
+:func:`causal_conv3d` takes the plain version only for CPU tensors; for a
+CUDA tensor it launches the kernel, or raises if the kernel does not take the
+input. It never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.cuda_build import load_library
+
+__all__ = ["causal_conv3d", "causal_conv3d_reference", "causal_conv3d_cuda",
+           "supports_kernel", "kernel_library", "TILE_K", "TILE_N"]
+
+KERNEL_SOURCES = ("causal_conv3d.cu",)
+TILE_K = 32   # input channels per K step of the kernel
+TILE_N = 128  # output channels per block
+
+
+def supports_kernel(in_channels: int, out_channels: int,
+                    kernel_size: Sequence[int], stride: Sequence[int],
+                    dtype: torch.dtype) -> bool:
+    """Whether the kernel computes this conv: 3x3x3, stride 1, bf16, input
+    channels a multiple of ``TILE_K`` and output channels of ``TILE_N``. On
+    the release VAE that is every resnet, mid-block and upsampler conv; the
+    3-, 16- and 32-channel ends and the strided downsamplers are not."""
+    return (tuple(kernel_size) == (3, 3, 3) and tuple(stride) == (1, 1, 1)
+            and dtype == torch.bfloat16 and in_channels % TILE_K == 0
+            and out_channels % TILE_N == 0)
+
+
+def _check_shapes(x, weight, bias, front):
+    if x.dim() != 5:
+        raise ValueError(f"x must be [B, T, H, W, C], got {tuple(x.shape)}")
+    b, _, h, w, c = x.shape
+    if weight.dim() != 5 or weight.shape[1:] != (c, 3, 3, 3):
+        raise ValueError(f"weight {tuple(weight.shape)} is not [Co, {c}, 3, "
+                         "3, 3]")
+    if bias.shape != (weight.shape[0],):
+        raise ValueError(f"bias {tuple(bias.shape)} does not match weight")
+    if front is not None and front.shape != (b, 2, h, w, c):
+        raise ValueError(f"front {tuple(front.shape)} is not "
+                         f"{(b, 2, h, w, c)}")
+
+
+def causal_conv3d_reference(x: torch.Tensor, weight: torch.Tensor,
+                            bias: torch.Tensor,
+                            front: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """The plain version: 27 shifted-tap matmuls summed in fp32, plus the
+    bias; the result in ``x``'s dtype."""
+    _check_shapes(x, weight, bias, front)
+    b, t, h, w, c = x.shape
+    if front is None:
+        front = x.new_zeros((b, 2, h, w, c))
+    with torch.autocast(x.device.type, enabled=False):
+        xp = torch.cat([front.to(x.dtype), x], dim=1).float()
+        xp = F.pad(xp, (0, 0, 1, 1, 1, 1))  # SAME: one pixel in W and H
+        wf = weight.float()
+        out = bias.float().expand(b, t, h, w, -1).clone()
+        for kt in range(3):
+            for kh in range(3):
+                for kw in range(3):
+                    out += torch.matmul(
+                        xp[:, kt:kt + t, kh:kh + h, kw:kw + w],
+                        wf[:, :, kt, kh, kw].t())
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_library() -> ctypes.CDLL:
+    """The built and loaded conv kernel library (built on first call)."""
+    lib = load_library("causal_conv3d", KERNEL_SOURCES)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pf_causal_conv3d.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.pf_causal_conv3d.restype = ctypes.c_int
+    return lib
+
+
+def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
+                       bias: torch.Tensor,
+                       front: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel. ``x`` and ``front`` bf16 contiguous
+    channels-last, ``weight`` bf16 in ``torch.channels_last_3d`` (physically
+    ``[Co, 3, 3, 3, C]``), ``bias`` any float dtype (the kernel adds it in
+    fp32). ``causal_conv3d_cuda.launches`` counts the launches."""
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv3d_cuda takes CUDA tensors, got "
+                         f"{x.device}")
+    _check_shapes(x, weight, bias, front)
+    b, t, h, w, c = x.shape
+    co = weight.shape[0]
+    if not supports_kernel(c, co, weight.shape[2:], (1, 1, 1), x.dtype):
+        raise ValueError(f"the conv kernel takes bf16 with input channels a "
+                         f"multiple of {TILE_K} and output channels of "
+                         f"{TILE_N}; got {x.dtype}, {c} -> {co}")
+    if b * t > 65535:
+        raise ValueError(f"B * T = {b * t} frames exceed the grid")
+    tensors = [("x", x, torch.contiguous_format), ("weight", weight,
+                                                   torch.channels_last_3d)]
+    if front is not None:
+        tensors.append(("front", front, torch.contiguous_format))
+    for name, tensor, fmt in tensors:
+        if tensor.device != x.device:
+            raise ValueError(f"{name} is on {tensor.device}, x on {x.device}")
+        if tensor.dtype != torch.bfloat16:
+            raise TypeError(f"the conv kernel takes {name} as bf16, got "
+                            f"{tensor.dtype}")
+        if not tensor.is_contiguous(memory_format=fmt):
+            raise ValueError(f"{name} must be contiguous in {fmt}")
+        if tensor.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    bias32 = bias.to(device=x.device, dtype=torch.float32).contiguous()
+    y = torch.empty((b, t, h, w, co), dtype=x.dtype, device=x.device)
+    lib = kernel_library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pf_causal_conv3d(
+            x.data_ptr(), front.data_ptr() if front is not None else None,
+            weight.data_ptr(), bias32.data_ptr(), y.data_ptr(), b, t, h, w,
+            c, co, stream)
+    if err != 0:
+        raise RuntimeError(f"causal_conv3d kernel launch failed: CUDA error "
+                           f"{err}")
+    causal_conv3d_cuda.launches += 1
+    return y
+
+
+causal_conv3d_cuda.launches = 0
+
+
+def causal_conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                  front: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The causal 3x3x3 stride-1 conv: the plain version for CPU tensors,
+    the kernel for CUDA tensors (or an error if it does not take them)."""
+    if x.device.type == "cpu":
+        return causal_conv3d_reference(x, weight, bias, front)
+    return causal_conv3d_cuda(x, weight, bias, front)

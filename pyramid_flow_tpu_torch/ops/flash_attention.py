@@ -228,7 +228,8 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
     here in fp32 over all keys, padding included) instead of a running max;
     it is exact while the bound stays within ~120 log2 units of the true row
     max, which RMS-normalised q and k guarantee. ``flash_fwd_cuda.launches``
-    counts the launches."""
+    counts the launches of both forms, ``.classic_launches`` those of the
+    classic one."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd_cuda takes CUDA tensors, got {q.device}")
     _check_kernel_inputs(q, k, v, time_q, time_kv)
@@ -253,10 +254,12 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {err}")
     flash_fwd_cuda.launches += 1
+    flash_fwd_cuda.classic_launches += not bounded
     return o, lse
 
 
 flash_fwd_cuda.launches = 0
+flash_fwd_cuda.classic_launches = 0
 
 
 def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,

@@ -1,9 +1,10 @@
-"""PyramidFlow text-to-video pipeline.
+"""PyramidFlow text-to-video and image-to-video pipeline.
 
 The autoregressive loop over temporal units runs, for each unit, a cascade of
 pyramid stages (nearest-2x upsample and correlated block renoise between
 stages), each stage a plain loop of CFG Euler steps through the DiT. Then the
-causal VAE decodes the latents window by window to uint8 frames.
+causal VAE decodes the latents window by window (spatially tiled above a
+size) to uint8 frames. Image-to-video fixes unit 0 to the VAE-encoded image.
 
 Conditioning on earlier units is packed in front of the current clip and
 padded to a per-stage token budget (zero tokens with INVALID time ids, placed
@@ -36,14 +37,17 @@ __all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise"]
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """How :meth:`PyramidFlowPipeline.decode_latent` decodes: untiled
-    windowed decoding of ``window`` latent frames at a time, for frames up to
+    """How :meth:`PyramidFlowPipeline.decode_latent` decodes: windows of
+    ``window`` latent frames, untiled for frames up to
     ``untiled_max_latent`` squared latent pixels (192 x 192 latent covers
-    384p and 768p on an 80 GB card). Larger frames need spatial tiling,
-    which is not ported yet."""
+    384p and 768p on an 80 GB card); larger frames in spatial tiles of
+    ``tile`` pixels that overlap by ``overlap``. The defaults are the JAX
+    package's settings for a device of 48 GB or more."""
 
     window: int = 2
     untiled_max_latent: int = 192
+    tile: int = 512
+    overlap: float = 0.125
 
 
 class GeneratorNoise:
@@ -293,12 +297,15 @@ class PyramidFlowPipeline:
                  min_guidance_scale: float = 2.0,
                  output_type: str = "latent",
                  decode_plan: DecodePlan = DecodePlan(),
+                 input_image_latent: Optional[torch.Tensor] = None,
                  progress_callback: Optional[Callable[[dict], None]] = None,
                  release_dit_before_decode: bool = False,
                  noise=None):
-        """Text-to-video. Returns latents [B, temp, h, w, C] (fp32) for
-        ``output_type="latent"``, else uint8 frames
-        [B, 1 + 8 (temp - 1), height, width, 3].
+        """Text-to-video, or image-to-video with ``input_image_latent``
+        ([B, 1, h, w, C], normalised): unit 0 is then the image and units
+        1 .. temp - 1 are generated. Returns latents
+        [B, temp, h, w, C] (fp32) for ``output_type="latent"``, else uint8
+        frames [B, 1 + 8 (temp - 1), height, width, 3].
 
         ``generator`` draws the noise; ``noise`` (an object with the methods
         of :class:`GeneratorNoise`) replaces it to replay given draws.
@@ -340,12 +347,20 @@ class PyramidFlowPipeline:
             latents = down2(latents) * 2
 
         fpu = self.frame_per_unit
-        num_units = 1 + (temp - 1) // fpu
+        generated: List[torch.Tensor] = []
+        if input_image_latent is not None:
+            # unit 0 is the image; unit u > 0 denoises the initial draw's
+            # frames [(u - 1) fpu, u fpu)
+            generated.append(input_image_latent.to(dev, torch.float32))
+            unit_range = range(1, temp // fpu)
+        else:
+            # unit 0 is the first frame; unit u > 0 takes frames
+            # [1 + (u - 1) fpu, 1 + u fpu)
+            unit_range = range(1 + (temp - 1) // fpu)
         if use_linear_guidance:
             g_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
                       for t_ in range(temp)]
-        generated: List[torch.Tensor] = []
-        for unit_index in range(num_units):
+        for done, unit_index in enumerate(unit_range, start=1):
             budgets = self._cond_token_budget(unit_index, h_lat, w_lat)
             if unit_index == 0:
                 g = g_list[0] if use_linear_guidance else guidance_scale
@@ -359,7 +374,9 @@ class PyramidFlowPipeline:
                 cond = [self._prep_cond_from_history(
                     history, unit_index=unit_index, stage=i_s,
                     budget=budgets[i_s]) for i_s in range(self.num_stages)]
-                start = 1 + (unit_index - 1) * fpu
+                start = (unit_index - 1) * fpu
+                if input_image_latent is None:
+                    start += 1  # frame 0 was unit 0's
                 intermed = self.generate_one_unit(
                     latents[:, start:start + fpu], cond, pe, pm, pp,
                     video_num_inference_steps, vg, unit_index, budgets,
@@ -367,8 +384,8 @@ class PyramidFlowPipeline:
             generated.append(intermed[-1].float())
             if progress_callback is not None:
                 self._sync()
-                progress_callback({"phase": "denoise", "unit": unit_index + 1,
-                                   "units": num_units})
+                progress_callback({"phase": "denoise", "unit": done,
+                                   "units": len(unit_range)})
 
         latents_full = torch.cat(generated, dim=1)
         self._sync()
@@ -382,27 +399,40 @@ class PyramidFlowPipeline:
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         if progress_callback is not None:
-            progress_callback({"phase": "decode", "unit": num_units,
-                               "units": num_units})
+            progress_callback({"phase": "decode", "unit": len(unit_range),
+                               "units": len(unit_range)})
         out = self.decode_latent(latents_full, decode_plan)
         self._sync()
         self.last_decode_seconds = time.perf_counter() - t_dit
         return out
 
+    def generate_i2v(self, generator: Optional[torch.Generator],
+                     image_latent_raw: torch.Tensor, *args, **kwargs):
+        """Image-to-video: ``image_latent_raw`` is the VAE's latent of the
+        image ([B, 1, h, w, C], not normalised); it is normalised with the
+        image statistics and fixed as unit 0. The other arguments are
+        :meth:`generate`'s."""
+        img = ((image_latent_raw.float() - self.vae_shift_factor)
+               * self.vae_scale_factor)
+        return self.generate(generator, *args, input_image_latent=img,
+                             **kwargs)
+
     # -------------------------------------------------------------- decode
     @torch.no_grad()
     def decode_latent(self, latents, plan: DecodePlan = DecodePlan()):
-        """Un-normalise and decode window by window (untiled). Returns uint8
-        frames [B, F, H, W, 3]."""
-        from ..models.vae.model import chunk_decode
+        """Un-normalise and decode window by window; frames above the plan's
+        untiled limit in overlapping spatial tiles. Returns uint8 frames
+        [B, F, H, W, 3]."""
+        from ..models.vae.model import chunk_decode, tiled_decode
 
         if self.vae is None:
             raise ValueError("pipeline built without a VAE")
         z = self.denormalize_latent(latents).float()
         hl, wl = z.shape[2], z.shape[3]
         if hl * wl > plan.untiled_max_latent ** 2:
-            raise NotImplementedError(
-                f"a {hl}x{wl} latent frame exceeds the untiled limit "
-                f"{plan.untiled_max_latent}^2; tiled decoding is not ported")
-        img = chunk_decode(self.vae, z, window_size=plan.window)
+            img = tiled_decode(self.vae, z, tile_sample_min_size=plan.tile,
+                               temporal_chunk=True, window_size=plan.window,
+                               overlap_factor=plan.overlap)
+        else:
+            img = chunk_decode(self.vae, z, window_size=plan.window)
         return (img.float() * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)

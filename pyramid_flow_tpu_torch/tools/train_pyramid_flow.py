@@ -5,8 +5,8 @@
 
 The flags are those of the JAX package's ``tools/train_pyramid_flow.py``.
 Supported: the synthetic ``--debug_tiny`` run (a tiny DiT on the CPU),
-``--anno_file`` (pre-extracted latents and text features, read by the JAX
-package's numpy-only data loaders), the schedule, pyramid and logging flags,
+``--anno_file`` (pre-extracted latents and text features, read by the
+port's numpy data loaders, ``pyramid_flow_tpu_torch.data``), the schedule, pyramid and logging flags,
 ``--gradient_checkpointing``, ``--bound_probe_freq``, ``--output_dir`` and
 ``--auto_resume``. The full-size DiT trains on one CUDA device with fp32
 parameters and bf16 autocast. Flags of parts the port does not have yet exit
@@ -100,8 +100,9 @@ def unported(args) -> Optional[str]:
         return ("--model_path: loading released checkpoints is not ported "
                 "yet (ROADMAP A8)")
     if args.load_vae:
-        return ("--load_vae: training from raw pixels needs the VAE encoder, "
-                "not ported yet (ROADMAP A9)")
+        return ("--load_vae: the train step encodes raw pixels "
+                "(make_train_step(vae=...)), but the VAE's released weights "
+                "need checkpoint loading, not ported yet (ROADMAP A8)")
     if args.load_text_encoder:
         return "--load_text_encoder: the text encoders are not ported yet " \
                "(ROADMAP A8)"
@@ -232,11 +233,8 @@ def main(argv=None) -> int:
         overshoot_probe = make_bound_overshoot_probe(dit, sched)
 
     if args.anno_file:
-        # the JAX package's data modules are numpy-only and shared
-        from pyramid_flow_tpu.data.datasets import (
-            LengthGroupedVideoTextDataset)
-        from pyramid_flow_tpu.data.loaders import (
-            create_length_grouped_video_text_dataloader)
+        from ..data.datasets import LengthGroupedVideoTextDataset
+        from ..data.loaders import create_length_grouped_video_text_dataloader
         ds = LengthGroupedVideoTextDataset(args.anno_file, args.max_frames)
         loader = create_length_grouped_video_text_dataloader(
             ds, args.batch_size, sync_group=args.video_sync_group)
@@ -246,7 +244,7 @@ def main(argv=None) -> int:
     else:
         sys.exit("--anno_file is required unless --debug_tiny")
 
-    from pyramid_flow_tpu.utils.metrics import MetricLogger
+    from ..utils.metrics import MetricLogger
     null = np.load(args.null_text_fea) if args.null_text_fea else None
     logger = MetricLogger(
         log_file=os.path.join(args.output_dir, "log.txt"),

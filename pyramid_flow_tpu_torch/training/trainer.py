@@ -9,10 +9,10 @@ The counterpart of the JAX package's ``training/trainer.py``:
   rows hold 16x fewer tokens than stage 2 rows);
 * loss = mean over rows of the per-row MSE of the trainable tail;
 * ``accum_steps`` micro-batches with averaged gradients;
-* clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`.
-
-Not ported: training from raw pixels (``"video"`` in the batch), which needs
-the VAE encoder.
+* clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`;
+* raw-pixel batches (``"video"``): the frozen VAE encodes them, its
+  posterior is sampled from the step's own draw, and the latents are
+  normalised, before all of the above.
 """
 
 from __future__ import annotations
@@ -22,18 +22,23 @@ from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..models.vae.model import chunk_encode, gaussian_sample
 from ..pipeline.noising import (
     GeneratorDraws,
     StageBatch,
     add_ar_noise_stage,
     add_pyramid_noise_stage,
     latent_pyramid,
+    normalize_latent,
 )
 from ..pipeline.packing import pack_clips, patchify
 from .train_state import TrainState, global_norm
 
 __all__ = ["dit_loss_fn", "make_train_step", "stage_row_split", "global_norm",
-           "top_grad_offenders"]
+           "top_grad_offenders", "encode_video"]
+
+# frames per window of the raw-pixel encode (after a first window of 9)
+VIDEO_ENCODE_WINDOW = 8
 
 
 def stage_row_split(batch_size: int, sample_ratios: Sequence[int]
@@ -93,18 +98,34 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
     return loss, {"train/loss": loss}
 
 
+def encode_video(vae, video: torch.Tensor, draws) -> torch.Tensor:
+    """Raw pixels [B, T, H, W, 3] in [-1, 1] -> normalised latents: the
+    VAE's moments, a posterior sample with ``draws.normal`` as its draw, and
+    the latent normalisation. The encode runs one row and one window of
+    ``VIDEO_ENCODE_WINDOW`` frames at a time, which equals encoding the
+    whole batch and keeps the activations to one window's."""
+    moments = torch.cat([chunk_encode(vae, row[None], VIDEO_ENCODE_WINDOW)
+                         for row in video])
+    mean_shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
+    z = gaussian_sample(moments, draws.normal(mean_shape))
+    return normalize_latent(z.float())
+
+
 def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
                     use_temporal_pyramid: bool = True,
                     frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3,
                     cfg_rate: float = 0.1, accum_steps: int = 1,
-                    compute_dtype: Optional[torch.dtype] = None):
+                    compute_dtype: Optional[torch.dtype] = None, vae=None):
     """Build the train step.
 
     ``step(state, batch, draws, num_units_per_stage) -> (state, metrics)``
     updates ``state`` in place. ``batch``: latents, text_emb, text_mask,
     pooled, null_text_emb, null_pooled (and optionally null_text_mask) on the
-    DiT's device. ``draws`` is the run's draw source (a ``torch.Generator``
-    is wrapped in :class:`GeneratorDraws`); each step folds in its
+    DiT's device; or, with ``vae`` (a frozen ``CausalVideoVAE``), ``video``
+    [B, T, H, W, 3] raw pixels in [-1, 1] in place of the latents
+    (:func:`encode_video`). ``draws`` is the run's draw source (a
+    ``torch.Generator`` is wrapped in :class:`GeneratorDraws`); each step
+    folds in its
     ``state.step``. ``compute_dtype=torch.bfloat16`` runs the loss under
     autocast with the parameters kept fp32. ``accum_steps > 1`` splits the
     batch into that many micro-batches and averages their gradients; the
@@ -128,14 +149,16 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws,
              num_units_per_stage: Tuple[int, ...]):
-        if "video" in batch:
-            raise NotImplementedError(
-                "training from raw pixels needs the VAE encoder, which the "
-                "port does not have yet (ROADMAP A9); pass latents")
         if isinstance(draws, torch.Generator):
             draws = GeneratorDraws(draws)
-        draws_drop, draws_noise, _ = draws.fold_in(state.step).split(3)
-        latents = batch["latents"]
+        draws_drop, draws_noise, draws_vae = draws.fold_in(state.step).split(3)
+        if "video" in batch:
+            if vae is None:
+                raise ValueError("a raw-pixel batch ('video') needs "
+                                 "make_train_step(vae=...)")
+            latents = encode_video(vae, batch["video"], draws_vae)
+        else:
+            latents = batch["latents"]
         b = latents.shape[0]
         # CFG text drop
         drop = draws_drop.uniform((b,)).to(latents.device) <= cfg_rate

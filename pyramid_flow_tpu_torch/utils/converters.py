@@ -35,6 +35,8 @@ _FLUX_RENAMES = {
 }
 _FF_RENAMES = {"proj_in": "net.0.proj", "proj_out": "net.2"}
 _VAE_RENAMES = {
+    "downsampler": "downsamplers.0",
+    "temporal_downsampler": "temporal_downsamplers.0",
     "upsampler": "upsamplers.0",
     "temporal_upsampler": "temporal_upsamplers.0",
     "to_out": "to_out.0",
@@ -104,13 +106,11 @@ def flux_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
 
 
 def vae_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``CausalVideoVAE`` variables -> the port's ``CausalVideoVAE``
-    state dict (fp32 tensors). The port holds the decode path only, so the
-    encoder and ``quant_conv`` are left out."""
+    """JAX ``CausalVideoVAE`` variables (encoder, ``quant_conv``,
+    ``post_quant_conv`` and decoder) -> the port's ``CausalVideoVAE`` state
+    dict (fp32 tensors)."""
     entries: Dict[str, np.ndarray] = {}
     for path, leaves in _modules(_unwrap(params)):
-        if path[0] in ("encoder", "quant_conv"):
-            continue
         names = [re.sub(r"^(\w+?)_(\d+)$", r"\1.\2",
                         _VAE_RENAMES.get(seg, seg)) for seg in path]
         entries.update(_module_entries(".".join(names), leaves))

@@ -1,8 +1,9 @@
-"""Card-only tests of the port's CUDA flash-attention kernels.
+"""Card-only tests of the port's CUDA kernels.
 
-Each test compares a kernel (the forward, or the dK/dV and dQ backward) with
-the plain PyTorch version on the same CUDA inputs, or checks that a wrapper
-refuses what its kernel does not take. They carry the ``gpu`` marker and skip without a CUDA device. This file
+Each test compares a kernel (the flash-attention forward, its dK/dV and dQ
+backward, or the VAE's causal conv) with the plain PyTorch version on the
+same CUDA inputs, checks a launch counter, or checks that a wrapper refuses
+what its kernel does not take. They carry the ``gpu`` marker and skip without a CUDA device. This file
 imports torch and the port only, so on a machine without JAX it runs as
 
     python -m pytest tests/test_torch_port_kernels.py -m gpu --noconftest
@@ -12,6 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from pyramid_flow_tpu_torch.models.vae.layers import CausalConv3d
+from pyramid_flow_tpu_torch.ops.causal_conv3d import (
+    causal_conv3d,
+    causal_conv3d_cuda,
+    causal_conv3d_reference,
+)
 from pyramid_flow_tpu_torch.ops.flash_attention import (
     INVALID_TIME,
     attention_backward_reference,
@@ -120,10 +127,11 @@ def test_rows_without_visible_keys(cuda):
 
 def test_launch_counter_counts_launches(cuda):
     q, k, v, t = _inputs(cuda)
-    before = flash_fwd_cuda.launches
+    before = (flash_fwd_cuda.launches, flash_fwd_cuda.classic_launches)
     flash_attention(q, k, v, t, bounded=True)
     flash_attention(q, k, v, t)
-    assert flash_fwd_cuda.launches == before + 2
+    assert (flash_fwd_cuda.launches, flash_fwd_cuda.classic_launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -248,3 +256,72 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         flash_bwd_cuda(q.cpu(), k.cpu(), v.cpu(), t.cpu(), tk.cpu(), o.cpu(),
                        lse.cpu(), do.cpu(), delta.cpu(), causal=True,
                        sm_scale=0.125)
+
+
+# the conv: bf16 products of 27 * C terms against the fp32 plain version
+CONV_REL = 2e-2
+
+
+def _conv_inputs(dev, b, t, h, w, c, co, front, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def bf16(a):
+        return torch.tensor(a, dtype=torch.bfloat16, device=dev)
+
+    x = bf16(rng.standard_normal((b, t, h, w, c)))
+    weight = bf16(rng.standard_normal((co, c, 3, 3, 3)) / np.sqrt(27 * c))
+    weight = weight.contiguous(memory_format=torch.channels_last_3d)
+    bias = bf16(0.1 * rng.standard_normal(co))
+    fr = bf16(rng.standard_normal((b, 2, h, w, c))) if front else None
+    return x, weight, bias, fr
+
+
+@pytest.mark.parametrize("front", [False, True])
+@pytest.mark.parametrize("shape", [
+    (1, 3, 20, 36, 128, 128),   # 720 pixels: a ragged last 128-pixel tile
+    (2, 1, 13, 17, 64, 256),    # B = 2, one frame, two output-channel tiles
+])
+def test_conv_kernel_matches_plain(cuda, shape, front):
+    x, weight, bias, fr = _conv_inputs(cuda, *shape, front)
+    y = causal_conv3d_cuda(x, weight, bias, fr)
+    torch.cuda.synchronize()
+    ref = causal_conv3d_reference(
+        x.float(), weight.float(), bias.float(),
+        None if fr is None else fr.float())
+    assert y.shape == ref.shape and torch.isfinite(y).all()
+    err = (y.float() - ref).abs().max().item()
+    assert err <= CONV_REL * ref.abs().max().item(), err
+
+
+def test_conv_launch_counter_counts_launches(cuda):
+    """One launch per call of the public op and per admitted module call;
+    the module's streaming carry passes its front to the kernel."""
+    x, weight, bias, _ = _conv_inputs(cuda, 1, 2, 8, 8, 64, 128, False)
+    before = causal_conv3d_cuda.launches
+    causal_conv3d(x, weight, bias)
+    conv = CausalConv3d(64, 128, (3, 3, 3), dtype=torch.bfloat16,
+                        device=cuda).to(memory_format=torch.channels_last_3d)
+    conv.cache_key = "c"
+    state = {}
+    xs = x.permute(0, 4, 1, 2, 3)
+    first = conv(xs[:, :, :1], state, is_init=True)
+    second = conv(xs[:, :, 1:], state, is_init=False)
+    torch.cuda.synchronize()
+    assert causal_conv3d_cuda.launches == before + 3
+    whole = conv(xs)  # monolithic, equal to the two windows
+    out = torch.cat([first, second], 2)
+    assert (out.float() - whole.float()).abs().max().item() <= 1e-2
+
+
+def test_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, weight, bias, fr = _conv_inputs(cuda, 1, 2, 8, 8, 64, 128, True)
+    with pytest.raises(ValueError):   # fp32 is not the kernel's
+        causal_conv3d_cuda(x.float(), weight.float(), bias)
+    with pytest.raises(ValueError):   # weight not channels-last
+        causal_conv3d_cuda(x, weight.contiguous(), bias)
+    with pytest.raises(ValueError):   # 96 output channels
+        causal_conv3d_cuda(x, weight[:96], bias[:96])
+    with pytest.raises(ValueError):   # front of one frame
+        causal_conv3d_cuda(x, weight, bias, fr[:, :1])
+    with pytest.raises(ValueError):
+        causal_conv3d_cuda(x.cpu(), weight, bias)

@@ -21,7 +21,7 @@ import torch
 from pyramid_flow_tpu.models.flux.model import (
     FluxConfig as JFluxConfig, PyramidFluxTransformer as JDiT)
 from pyramid_flow_tpu.models.vae.model import (
-    CausalVideoVAE as JVAE, VAEConfig as JVAEConfig)
+    CausalVideoVAE as JVAE, VAEConfig as JVAEConfig, tiled_decode)
 from pyramid_flow_tpu.pipeline.pyramid_pipeline import (
     PyramidFlowPipeline as JPipeline)
 from pyramid_flow_tpu_torch.models.flux.model import (
@@ -44,13 +44,16 @@ GEN = dict(height=64, width=64, temp=3, num_inference_steps=[2, 2, 2],
 
 
 class JaxNoise:
-    """Replays the draws JAX's ``generate(PRNGKey(seed))`` makes: the initial
-    latents from the first split, and for unit u, stage s > 0 the block-noise
-    draw from the (s+1)-th split of the unit's key, the unit's key being the
-    (u+1)-th split after the initial one."""
+    """Replays the draws JAX's ``generate(key)`` makes (``key`` a PRNG key or
+    an int seed): the initial latents from the first split, and for unit u,
+    stage s > 0 the block-noise draw from the (s+1)-th split of the unit's
+    key, the unit's key being the (u - first_unit + 1)-th split after the
+    initial one (``first_unit`` is 1 for image-to-video, whose loop starts at
+    unit 1)."""
 
-    def __init__(self, seed):
-        self.key = jax.random.PRNGKey(seed)
+    def __init__(self, key, first_unit=0):
+        self.key = jax.random.PRNGKey(key) if isinstance(key, int) else key
+        self.first_unit = first_unit
         self.calls = []
 
     def initial(self, shape):
@@ -60,7 +63,7 @@ class JaxNoise:
 
     def block(self, unit, stage, shape):
         rng, _ = jax.random.split(self.key)
-        for _ in range(unit + 1):
+        for _ in range(unit - self.first_unit + 1):
             rng, unit_key = jax.random.split(rng)
         for _ in range(stage + 1):
             unit_key, sub = jax.random.split(unit_key)
@@ -71,19 +74,21 @@ class JaxNoise:
 @pytest.fixture(scope="module")
 def pipelines():
     dit_j = JDiT(config=JFluxConfig(**DIT), dtype=jnp.float32)
-    dit_params = dit_j.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, 16, 16)), jnp.zeros((2, 16, 3)),
-        jnp.zeros((2, 16), jnp.int32), jnp.zeros((2, 8, 32)),
-        jnp.ones((2, 8), bool), jnp.zeros((2, 24)), jnp.zeros((2,)))
+    # shapes only (nothing compiles): every leaf is redrawn below
+    dit_params = jax.eval_shape(
+        dit_j.init, jax.random.PRNGKey(0), jnp.zeros((2, 16, 16)),
+        jnp.zeros((2, 16, 3)), jnp.zeros((2, 16), jnp.int32),
+        jnp.zeros((2, 8, 32)), jnp.ones((2, 8), bool), jnp.zeros((2, 24)),
+        jnp.zeros((2,)))
     rng = np.random.default_rng(1)
     dit_params = jax.tree.map(
         lambda p: (0.02 * rng.standard_normal(p.shape)).astype(np.float32),
         dit_params)
     vae_j = JVAE(config=JVAEConfig(encoder_layers_per_block=(1, 1, 1, 1),
                                    **VAE))
-    vae_params = vae_j.init(jax.random.PRNGKey(2),
-                            jnp.zeros((1, 1, 32, 32, 3)),
-                            rng=jax.random.PRNGKey(3))
+    vae_params = jax.eval_shape(lambda: vae_j.init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 1, 32, 32, 3)),
+        rng=jax.random.PRNGKey(3)))
     vae_params = jax.tree_util.tree_map_with_path(
         lambda path, p: (
             rng.standard_normal(p.shape) / np.sqrt(np.prod(p.shape[:-1]))
@@ -96,7 +101,8 @@ def pipelines():
     dit_t = PyramidFluxTransformer(FluxConfig(**DIT))
     dit_t.load_state_dict(flux_state_dict_from_jax(
         jax.tree.map(np.asarray, dit_params)), strict=True)
-    vae_t = CausalVideoVAE(VAEConfig(**VAE))
+    vae_t = CausalVideoVAE(VAEConfig(encoder_layers_per_block=(1, 1, 1, 1),
+                                     **VAE))
     vae_t.load_state_dict(vae_state_dict_from_jax(
         jax.tree.map(np.asarray, vae_params)), strict=True)
     tpipe = PyramidFlowPipeline(dit_t, vae_t, latent_channels=4,
@@ -173,6 +179,8 @@ def test_linear_guidance_and_generator_noise(pipelines):
 
 
 def test_release_dit_is_one_shot_and_decode_plan_limit(pipelines):
+    """Above the plan's untiled limit the decode tiles, as JAX's
+    ``tiled_decode`` with the same tile, overlap and window."""
     jpipe, tpipe = pipelines
     dit = tpipe.dit
     try:
@@ -183,9 +191,18 @@ def test_release_dit_is_one_shot_and_decode_plan_limit(pipelines):
             _port_generate(tpipe, JaxNoise(SEED))
     finally:
         tpipe.dit = dit
-    with pytest.raises(NotImplementedError):
-        tpipe.decode_latent(torch.zeros((1, 1, 8, 8, 4)),
-                            DecodePlan(untiled_max_latent=4))
+    lat = np.random.default_rng(9).standard_normal(
+        (1, 3, 8, 8, 4)).astype(np.float32)
+    out = tpipe.decode_latent(torch.from_numpy(lat), DecodePlan(
+        untiled_max_latent=4, tile=32, overlap=0.25))
+    z = jpipe.denormalize_latent(jnp.asarray(lat))
+    ref = jnp.clip(tiled_decode(jpipe.vae, jpipe.vae_params, z, 32,
+                                temporal_chunk=True, window_size=2,
+                                overlap_factor=0.25) * 127.5 + 127.5, 0, 255)
+    ref = np.asarray(ref.astype(jnp.uint8))
+    assert out.shape == ref.shape == (1, 17, 64, 64, 3)
+    diff = np.abs(out.numpy().astype(np.int16) - ref.astype(np.int16))
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
 def test_stage_metadata_and_budgets_match_jax(pipelines):

@@ -118,18 +118,21 @@ def test_noising_inference_half_matches():
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every module of both slices, the training CLI
-    included, loads no JAX."""
+    """Importing the port and every module of its slices, the training CLI
+    and the data loaders included, loads no JAX (imports inside functions:
+    test_torch_port_imports.py)."""
     mods = [
         "pyramid_flow_tpu_torch",
         "pyramid_flow_tpu_torch.ops.flash_attention",
         "pyramid_flow_tpu_torch.ops.rope",
         "pyramid_flow_tpu_torch.ops.resample",
         "pyramid_flow_tpu_torch.ops.blocknoise",
+        "pyramid_flow_tpu_torch.ops.causal_conv3d",
         "pyramid_flow_tpu_torch.schedulers.flow_matching",
         "pyramid_flow_tpu_torch.pipeline.packing",
         "pyramid_flow_tpu_torch.pipeline.noising",
         "pyramid_flow_tpu_torch.pipeline.pyramid_pipeline",
+        "pyramid_flow_tpu_torch.pipeline.runner",
         "pyramid_flow_tpu_torch.models.flux.blocks",
         "pyramid_flow_tpu_torch.models.flux.model",
         "pyramid_flow_tpu_torch.models.vae.layers",
@@ -137,6 +140,10 @@ def test_port_imports_no_jax():
         "pyramid_flow_tpu_torch.models.vae.model",
         "pyramid_flow_tpu_torch.utils.converters",
         "pyramid_flow_tpu_torch.utils.cuda_build",
+        "pyramid_flow_tpu_torch.utils.metrics",
+        "pyramid_flow_tpu_torch.data.bucket",
+        "pyramid_flow_tpu_torch.data.datasets",
+        "pyramid_flow_tpu_torch.data.loaders",
         "pyramid_flow_tpu_torch.training.lr_schedules",
         "pyramid_flow_tpu_torch.training.train_state",
         "pyramid_flow_tpu_torch.training.trainer",

@@ -80,8 +80,10 @@ def test_make_train_step_matches_jax(dits, accum_steps):
 
 
 def test_raw_pixel_batch_is_refused(dits):
+    """Without a VAE a raw-pixel batch is refused (with one it trains:
+    test_torch_port_raw_pixel_step.py)."""
     dit_t = dits[2]()
     step = make_train_step(dit_t, PyramidFlowMatchEulerDiscreteScheduler())
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="vae"):
         step(create_train_state(dit_t), {"video": torch.zeros(1)},
              JaxDraws(jax.random.PRNGKey(0)), UNITS)

@@ -317,7 +317,7 @@ def test_cli_trains_checkpoints_and_resumes(tmp_path):
 
 def test_cli_trains_from_an_annotation_file(tmp_path):
     """``--anno_file``: pre-extracted latents ([C, T, H, W] .npy) and text
-    features (.npz) through the JAX package's numpy data loaders."""
+    features (.npz) through the port's numpy data loaders."""
     import json
     rng = np.random.default_rng(0)
     lines = []
@@ -339,7 +339,7 @@ def test_cli_trains_from_an_annotation_file(tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--model_path", "x"], "A8"), (["--load_vae"], "A9"),
+    (["--model_path", "x"], "A8"), (["--load_vae"], "A8"),
     (["--load_text_encoder"], "A8"), (["--model_name", "pyramid_mmdit"], "A10"),
     (["--sp", "2"], "A11"), (["--fsdp", "2"], "A11"), (["--dp", "2"], "A11")])
 def test_cli_names_the_roadmap_item_of_unported_flags(tmp_path, flags, item):

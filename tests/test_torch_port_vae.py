@@ -1,4 +1,5 @@
-"""Port parity: the causal VAE decoder, JAX vs torch.
+"""Port parity: the causal VAE decoder, JAX vs torch (the encoder's tests
+are in test_torch_port_encoder.py).
 
 JAX weights (redrawn from a numpy seed so that every layer carries signal)
 go to the port through ``vae_state_dict_from_jax`` and a strict load. fp32
@@ -46,16 +47,15 @@ def vaes():
     params = jvae.init(jax.random.PRNGKey(0), jnp.zeros((1, 1, 32, 32, 3)),
                        rng=jax.random.PRNGKey(1))
     params = _randomize(params, 2)
-    tvae = model.CausalVideoVAE(model.VAEConfig(**CFG))
+    tvae = model.CausalVideoVAE(model.VAEConfig(
+        encoder_layers_per_block=(1, 1, 1, 1), **CFG))
     np_params = jax.tree.map(np.asarray, params)
     sd = vae_state_dict_from_jax(np_params)
     res = tvae.load_state_dict(sd, strict=True)
     assert not res.missing_keys and not res.unexpected_keys
-    # every decode-path leaf is consumed (the port has no encoder yet)
-    p = params["params"]
-    n_decode = sum(np.size(x) for x in jax.tree.leaves(
-        {k: p[k] for k in ("decoder", "post_quant_conv")}))
-    assert sum(t.numel() for t in sd.values()) == n_decode
+    # every leaf is consumed, the encoder's and quant_conv's included
+    n_leaves = sum(np.size(x) for x in jax.tree.leaves(params["params"]))
+    assert sum(t.numel() for t in sd.values()) == n_leaves
     return jvae, params, tvae
 
 
@@ -87,9 +87,10 @@ def test_windowed_decode_equals_monolithic(vaes, window):
 
 
 def test_window_starts_match_jax():
-    for n, window in ((7, 2), (1, 2), (9, 4), (8, 3)):
-        assert (model._window_starts(n, window)
-                == jmodel._window_starts(n, window, 1))
+    for n, window in ((7, 2), (1, 2), (9, 4), (8, 3), (17, 16), (33, 8)):
+        for init in (None, 1):
+            assert (model._window_starts(n, window, init)
+                    == jmodel._window_starts(n, window, init))
 
 
 def test_spatial_attention_query_chunking_matches(monkeypatch):
