@@ -1,40 +1,51 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
-once on one CUDA card.
+for both DiT families, and the heads-per-block attention experiment, once on
+one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. the card: its name and power limit as nvidia-smi reports them;
-2. build: the CUDA flash-attention forward and backward libraries and the
-   causal-conv library from ``pyramid_flow_tpu_torch/csrc``, one nvcc each,
-   started together; ptxas's register and spill lines;
+2. build: the four kernel libraries from ``pyramid_flow_tpu_torch/csrc``
+   (the flash-attention forward, the heads-per-block forward, the backward
+   and the causal conv), one nvcc each, started together; ptxas's register
+   and spill lines;
 3. kernel vs plain: the forward kernel against the plain PyTorch version on the
    DiT's packed attention layouts (384x640 unit 0 stage 0, 384x640 unit 15
    stage 2, 768x1280 unit 15 stage 2) at B=2, H=24, D=64 in bf16, bounded
    and classic softmax, causal and not; valid rows must agree within
    max|do| <= 1e-2 and max|dlse| <= 2e-3 of the fp32 plain version; both
    are timed with CUDA events, and at the 384x640 unit 15 stage 2 layout so
-   is ``scaled_dot_product_attention`` with the time-id mask;
+   is ``scaled_dot_product_attention`` with the time-id mask; the
+   heads-per-block forward (K6) against the same plain version with the same
+   tolerances at every hs whose block fits the card (the others are
+   reported), hs=2 timed at that layout, then on the inputs the experiment
+   of phase 5 times (its 768p final-unit stage-2 layout, L=11008, q = k = v,
+   causal), and on rows with no visible key (o = 0, lse = 3e38). These
+   checks draw from a generator of their own, apart from the models';
 4. backward kernels vs plain: dK/dV and dQ against the plain fp32 backward
    on the layouts of phase 3 (B=2, H=24, D=64, causal and not) and on the
    384x640 unit 15 stage 2 layout at H=12, D=128; o and lse from the forward
    kernel, the upstream gradient random on valid rows and zero on padded
    ones; max|err| <= 2e-2 * max|ref| for each of dq, dk, dv; both timed,
    and SDPA's backward (its forward plus backward less its forward);
-5. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
+5. the experiment: ``pyramid_flow_tpu_torch.tools.exp_flash_h2.main`` in
+   this process (its checks, and K1 and K6 at each hs timed at the 768p
+   stage-2 layout, L=11008), its launches held to exactly its count;
+6. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
    blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
    384x640 unit 15 stage 2 layout through the kernel and through the plain
    version; relative L2 <= 2e-2 on the valid tokens;
-6. full-width encode: the release VAE (bf16, random weights)
+7. full-width encode: the release VAE (bf16, random weights)
    ``chunk_encode``s a seeded smooth 17-frame 384x640 clip through the conv
    kernel, through the plain version and in fp32; relative L2 of the
    kernel's moments to the plain version's <= 2e-2, their distance to fp32
    within 1.1x of the plain version's, each conv's output within relative
    L2 2e-3 of the plain conv on the same input, and exactly one conv
    launch per admitted conv and window;
-7. serve: two text-to-video requests through ``PyramidFlowPipeline.generate``
+8. serve: two text-to-video requests through ``PyramidFlowPipeline.generate``
    (384x640, temp 1 and temp 4, steps [20,20,20]/[10,10,10], guidance 7/5,
    uint8 frames out) and one image-to-video request through
    ``PyramidFlowRunner.generate_i2v`` (a seeded smooth 384x640 image, a
@@ -42,38 +53,48 @@ Phases, each of which raises on failure (the script then exits non-zero):
    latents must be finite, the frames not constant, the flash forward
    launched exactly 57 times per DiT forward and the conv kernel exactly
    once per admitted conv and VAE window;
-8. full-width DiT gradient: the release DiT with fp32 parameters, bf16
+9. full-width DiT gradient: the release DiT with fp32 parameters, bf16
    autocast and remat, one training-loss backward of a batch row at the
    384x640 unit-16 stage-2 training layout (L = 3068), through the kernels
    and through the plain version; relative L2 of the concatenated parameter
    gradient <= 5e-2, every parameter with a nonzero gradient, and exactly
    2 forward launches (forward and recompute) and one of each backward
    kernel per attention;
-9. train: the serving DiT freed, ``create_train_state`` on that DiT (its
+10. train: the serving DiT freed, ``create_train_state`` on that DiT (its
    output projection zeroed, as the JAX model initialises it) and three
    ``make_train_step`` steps at the JAX CLI's default shape (batch 4, 16
    latent frames of 48x80, units from ``sample_stage_length``, the CLI's lr
    schedule), then two raw-pixel steps (``vae=``, batch 4 of 121 frames of
    384x640, the same 16 latent frames); finite losses and grad norms,
    updates applied, exact kernel launch counts; step seconds and the peak
-   memory printed.
-10. conv kernel vs plain, with the models freed: the causal 3x3x3 conv
+   memory printed;
+11. the MMDiT, after the flux training state is freed: the release SD3
+   MMDiT (24 joint blocks, 24 x 64 heads, 1536 wide) in bf16, its forward
+   kernel vs plain (relative L2 <= 2e-2, with the table's crop origin); one
+   T2V request through ``PyramidFlowPipeline(model_name="pyramid_mmdit")``
+   with the release VAE (384x640, temp 4, 128 text tokens of width 4096,
+   100 valid, pooled 2048; 24 flash launches per DiT forward); then with
+   fp32 parameters and remat the gradient check of phase 9 (every
+   parameter nonzero but the last block's text-query projection, which it
+   discards) and two latent train steps at the shape of phase 10;
+12. conv kernel vs plain, with the models freed: the causal 3x3x3 conv
    against the plain fp32 version at every (B, T, H, W, C, Co) the VAE ran
-   it at in phases 6-9 (recorded by a patch of its conv call), each with
+   it at in phases 7-11 (recorded by a patch of its conv call), each with
    zero front frames and with a carried front; max|err| <= 2e-2 *
    max|ref|; the kernel and ``F.conv3d`` (cuDNN, bf16, channels-last)
    timed at each, the plain version at the decoder's 128->128 384x640
    conv over a 16-frame window.
 
-Each path (text-to-video, image-to-video, latent training, raw-pixel
-training) runs with every launch counter set to 0 just before it and read
-just after. Before the last line the script prints one JSON object with each
-kernel's launches summed over those paths, its largest error against the
-plain version, its time, the plain version's, the least time the card could
-take (bytes or operations at the H100's published peaks) and one PyTorch
-call's time for the same function, at the 384x640 unit 15 stage 2 attention
-layout and at the 128->128 384x640 decode conv; the classic forward (K2),
-which no path runs, has an entry of its own with 0 launches. The last line is
+Each path (the experiment, text-to-video, image-to-video, latent training,
+raw-pixel training, MMDiT text-to-video, MMDiT latent training) runs with
+every launch counter set to 0 just before it and read just after. Before the
+last line the script prints one JSON object with each kernel's launches
+summed over those paths, its largest error against the plain version, its
+time, the plain version's, the least time the card could take (bytes or
+operations at the H100's published peaks) and one PyTorch call's time for
+the same function, at the 384x640 unit 15 stage 2 attention layout and at
+the 128->128 384x640 decode conv; the classic forward (K2), which no path
+runs, has an entry of its own with 0 launches. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
 """
 
@@ -98,6 +119,8 @@ import torch.nn.functional as F
 from pyramid_flow_tpu_torch.models.flux import blocks as flux_blocks
 from pyramid_flow_tpu_torch.models.flux.model import (
     FluxConfig, PyramidFluxTransformer)
+from pyramid_flow_tpu_torch.models.mmdit.model import (
+    MMDiTConfig, PyramidDiffusionMMDiT)
 from pyramid_flow_tpu_torch.models.vae import layers as vae_layers
 from pyramid_flow_tpu_torch.models.vae import model as vae_model
 from pyramid_flow_tpu_torch.models.vae.model import (
@@ -115,6 +138,7 @@ from pyramid_flow_tpu_torch.schedulers.flow_matching import (
 from pyramid_flow_tpu_torch.training.lr_schedules import cosine_schedule
 from pyramid_flow_tpu_torch.training.train_state import (
     TrainConfig, create_train_state)
+from pyramid_flow_tpu_torch.tools import exp_flash_h2
 from pyramid_flow_tpu_torch.training.trainer import (
     VIDEO_ENCODE_WINDOW, make_train_step)
 
@@ -141,6 +165,9 @@ DECODE_WINDOW, ENCODE_WINDOW = 2, 16  # latent frames; pixel frames
 TIMED_CONV = (1, 16, HEIGHT, WIDTH, 128, 128, True)
 CONV_REL, ENCODE_REL_L2, IN_PLACE_REL_L2 = 2e-2, 2e-2, 2e-3
 RAW_STEPS = 2
+MMDIT_TEMP, MMDIT_TRAIN_STEPS = 4, 2
+HN_TIMED_HS = 2  # the heads per block timed beside K1 (the JAX default)
+TOOL_ITERS = 8   # the tool's timed launches per kernel
 RAW_FRAMES = 1 + 8 * (TRAIN_FRAMES - 1)  # 121 pixel frames, 16 latent
 # NVIDIA H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
@@ -239,7 +266,9 @@ def plain_attention(q, k, v, t, causal, head_chunk=2):
 
 
 def kernel_vs_plain(meta_pipe, dev, gen):
-    results = []
+    """K1/K2 and K6 (at every hs that fits) against the plain version on the
+    DiT's layouts. Returns (K1/K2 results, K6 results)."""
+    results, hn_results = [], []
     for name, height, width, unit, stage in LAYOUTS:
         _, t = layout_time_ids(meta_pipe, height, width, unit, stage, dev)
         L = t.shape[1]
@@ -286,9 +315,107 @@ def kernel_vs_plain(meta_pipe, dev, gen):
                 if not (do <= O_ATOL and dl <= LSE_ATOL):
                     raise AssertionError(f"kernel disagrees with plain: {r}")
                 results.append(r)
+            hn_results += hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref,
+                                      name, reps, plain_ms, extra)
         del q, k, v, o_ref, lse_ref
         torch.cuda.empty_cache()
+    return results, hn_results
+
+
+def hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref, name, reps, plain_ms,
+                extra):
+    """K6 at every hs whose block fits the card, against the plain version
+    (K1's tolerances); hs = HN_TIMED_HS timed at the timed layout."""
+    valid = t[0] != fa.INVALID_TIME
+    L = t.shape[1]
+    results = []
+    for hs in fa.HN_HEADS_PER_BLOCK:
+        res = fa.flash_fwd_hn_resources(hs, causal)
+        if not res["fits"]:
+            log(f"flash_fwd_hn hs={hs} does not fit: {json.dumps(res)}")
+            continue
+
+        def run(hs=hs):
+            return fa.flash_fwd_hn_cuda(q, k, v, t, t, causal=causal,
+                                        sm_scale=D ** -0.5, hs=hs)
+        o, lse = run()
+        torch.cuda.synchronize()
+        r = dict(layout=name, L=L, causal=causal, hs=hs,
+                 max_abs_err_o=(o.float() - o_ref.float())[:, :, valid]
+                 .abs().max().item(),
+                 max_abs_err_lse=(lse - lse_ref)[:, :, valid].abs().max()
+                 .item())
+        if extra and hs == HN_TIMED_HS:
+            # the bounded forward's bytes and operations, as K1's
+            nbytes = (4 * B * H * L * D * 2 + B * H * L * 4 + 2 * B * L * 4
+                      + B * H * L * 4)
+            r.update(ms=cuda_ms(run, reps), plain_ms=plain_ms,
+                     library_ms=extra["library_ms"])
+            r["bound_ms"], r["bound_by"] = bound(extra["flops"], nbytes)
+        log("heads-per-block kernel vs plain " + json.dumps(r))
+        if not (r["max_abs_err_o"] <= O_ATOL
+                and r["max_abs_err_lse"] <= LSE_ATOL):
+            raise AssertionError(f"heads-per-block kernel disagrees: {r}")
+        results.append(r)
+        del o, lse
     return results
+
+
+def hn_tool_layout(dev):
+    """K6 at every hs that fits against the plain version on the inputs the
+    experiment times: its 768p final-unit stage-2 layout (B=2, H=24, D=64,
+    L=11008, q = k = v from its own seeded generator, causal), K1's
+    tolerances."""
+    q, t, _ = exp_flash_h2.layout_768p_stage2(dev)
+    o_ref, lse_ref = plain_attention(q, q, q, t, True)
+    results = hn_vs_plain(q, q, q, t, True, o_ref, lse_ref,
+                          "768x1280 exp_flash_h2 sweep", 0, None, {})
+    del q, t, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def hn_empty_rows(dev, gen):
+    """K6 at every hs that fits on rows with no visible key (all keys
+    INVALID, and under causal all keys later): o = 0 and lse = 3e38."""
+    q, k, v = (torch.randn((B, H, 256, D), generator=gen, device=dev)
+               .bfloat16() for _ in range(3))
+    tq = torch.ones((B, 256), dtype=torch.int32, device=dev)
+    for causal, tk in ((False, torch.full_like(tq, fa.INVALID_TIME)),
+                       (True, torch.full_like(tq, 5))):
+        for hs in fa.HN_HEADS_PER_BLOCK:
+            if not fa.flash_fwd_hn_resources(hs, causal)["fits"]:
+                continue
+            o, lse = fa.flash_fwd_hn_cuda(q, k, v, tq, tk, causal=causal,
+                                          sm_scale=D ** -0.5, hs=hs)
+            torch.cuda.synchronize()
+            if not (bool((o == 0).all()) and bool((lse == 3e38).all())):
+                raise AssertionError(f"heads-per-block kernel, hs={hs} "
+                                     f"causal={causal}: empty rows give "
+                                     f"o != 0 or lse != 3e38")
+    log("heads-per-block kernel: empty rows give o = 0 and lse = 3e38 at "
+        "every hs that fits")
+
+
+def tool_path():
+    """The experiment's entry point, ``exp_flash_h2.main``, in this process:
+    its checks (three K6 launches at hs=2) and its sweep at L=11008 (K1 and
+    K6 at each hs that fits, each warmed up and timed); launches counted
+    from 0 and held to exactly that."""
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    if exp_flash_h2.main(["--iters", str(TOOL_ITERS)]) != 0:
+        raise AssertionError("exp_flash_h2.main failed")
+    seconds = time.perf_counter() - t0
+    launched = launch_counts()
+    runs = exp_flash_h2.WARMUP + TOOL_ITERS
+    fit = sum(fa.flash_fwd_hn_resources(hs, True)["fits"]
+              for hs in fa.HN_HEADS_PER_BLOCK)
+    want = expected(fwd=runs, hn=3 + fit * runs)
+    log(f"exp_flash_h2 tool: {seconds:.3f} s, launches {launched}")
+    if launched != want:
+        raise AssertionError(f"tool launches {launched}, expected {want}")
+    return launched
 
 
 def plain_backward(q, k, v, t, o, lse, do, causal, head_chunk=2):
@@ -563,16 +690,22 @@ def randomize_(module: torch.nn.Module, gen: torch.Generator, std=0.02):
     """N(0, std) for every weight and bias, 1 + N(0, std) for norm weights:
     no layer is zero, and q/k keep the RMS the qk-norm gives them."""
     for name, p in module.named_parameters():
+        if name == "pos_embed.pos_embed":
+            continue  # the MMDiT's sincos table keeps its values
         p.normal_(0.0, std, generator=gen)
         if p.dim() == 1 and "norm" in name and name.endswith("weight"):
             p.add_(1.0)
 
 
-def dit_inputs(meta_pipe, dev, gen, cfg, dtype):
+def dit_inputs(meta_pipe, dev, gen, dit, dtype):
+    """Inputs of one forward at the 384x640 unit 15 stage 2 layout (the
+    MMDiT's crop origin last)."""
+    cfg = dit.config
     positions, t = layout_time_ids(meta_pipe, 384, 640, 15, 2, dev)
     lat_time = t[:, TEXT_LEN:]
     lat_len = lat_time.shape[1]
-    tokens = torch.randn((B, lat_len, cfg.in_channels), generator=gen,
+    width = cfg.patch_size ** 2 * dit.latent_channels  # one token
+    tokens = torch.randn((B, lat_len, width), generator=gen,
                          device=dev).to(dtype)
     pos = torch.as_tensor(positions, device=dev)[None].expand(B, -1, -1)
     text = torch.randn((B, TEXT_LEN, cfg.joint_attention_dim), generator=gen,
@@ -581,12 +714,13 @@ def dit_inputs(meta_pipe, dev, gen, cfg, dtype):
     pooled = torch.randn((B, cfg.pooled_projection_dim), generator=gen,
                          device=dev).to(dtype)
     ts = torch.full((B,), 900.0, device=dev)
-    return (tokens, pos, lat_time, text, mask, pooled, ts), lat_time[0]
+    return ((tokens, pos, lat_time, text, mask, pooled, ts)
+            + dit.stage_inputs(B, 48, 80, dev)), lat_time[0]
 
 
 @torch.no_grad()
 def dit_check(dit, meta_pipe, dev, gen):
-    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit.config,
+    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
                                   next(dit.parameters()).dtype)
     before = fa.flash_fwd_cuda.launches
     out_k = dit(*inputs)
@@ -608,7 +742,8 @@ def dit_check(dit, meta_pipe, dev, gen):
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite DiT output")
     rel = ((a - b).norm() / b.norm()).item()
-    log(f"full-width DiT forward, L={inputs[2].shape[1] + TEXT_LEN}: "
+    log(f"full-width {type(dit).__name__} forward, "
+        f"L={inputs[2].shape[1] + TEXT_LEN}: "
         f"kernel vs plain relative L2 {rel:.3e} (limit {DIT_REL_L2}), "
         f"|out| rms {b.square().mean().sqrt().item():.3e}")
     if not rel <= DIT_REL_L2:
@@ -619,7 +754,8 @@ def dit_check(dit, meta_pipe, dev, gen):
 def training_batch(dit_cfg, dev, gen, batch):
     """The JAX CLI's default training shape at 384x640: latents [B, 16, 48,
     80, 16] N(0, 1), T5 features [B, 128, 4096] with 100 valid tokens,
-    pooled [B, 768], null features of zeros."""
+    pooled [B, 768] (flux) or [B, 2048] (MMDiT), null features of
+    zeros."""
     lat = torch.randn((batch, TRAIN_FRAMES, 48, 80, 16), generator=gen,
                       device=dev)
     text = torch.randn((batch, TEXT_LEN, dit_cfg.joint_attention_dim),
@@ -634,13 +770,16 @@ def training_batch(dit_cfg, dev, gen, batch):
 
 def launch_counts() -> dict:
     """Launches by kernel; ``flash_fwd`` is the bounded forward (K1),
-    ``flash_fwd_classic`` the classic one (K2), which no path runs."""
+    ``flash_fwd_classic`` the classic one (K2), which no path runs,
+    ``flash_fwd_hn`` the heads-per-block forward (K6), which only the
+    ``exp_flash_h2`` tool runs."""
     classic = fa.flash_fwd_cuda.classic_launches
     return {"flash_fwd": fa.flash_fwd_cuda.launches - classic,
             "flash_fwd_classic": classic,
             "flash_bwd_dkv": fa.flash_bwd_cuda.dkv_launches,
             "flash_bwd_dq": fa.flash_bwd_cuda.dq_launches,
-            "causal_conv3d": cc.causal_conv3d_cuda.launches}
+            "causal_conv3d": cc.causal_conv3d_cuda.launches,
+            "flash_fwd_hn": fa.flash_fwd_hn_cuda.launches}
 
 
 def reset_launch_counts():
@@ -649,12 +788,13 @@ def reset_launch_counts():
     fa.flash_bwd_cuda.dkv_launches = 0
     fa.flash_bwd_cuda.dq_launches = 0
     cc.causal_conv3d_cuda.launches = 0
+    fa.flash_fwd_hn_cuda.launches = 0
 
 
-def expected(fwd=0, bwd=0, conv=0) -> dict:
+def expected(fwd=0, bwd=0, conv=0, hn=0) -> dict:
     """Launch counts of a path: ``bwd`` of each backward kernel."""
     return {"flash_fwd": fwd, "flash_fwd_classic": 0, "flash_bwd_dkv": bwd,
-            "flash_bwd_dq": bwd, "causal_conv3d": conv}
+            "flash_bwd_dq": bwd, "causal_conv3d": conv, "flash_fwd_hn": hn}
 
 
 def counted(before: dict) -> dict:
@@ -663,7 +803,10 @@ def counted(before: dict) -> dict:
 
 def dit_grad_check(dit, dev, gen):
     """One training-loss backward of a batch row at the stage-2 training
-    layout through the kernels and through the plain version."""
+    layout through the kernels and through the plain version. Every
+    parameter gets a nonzero gradient but the DiT's
+    ``gradient_free_parameters`` (the MMDiT's last-block text-query
+    projection, whose output that block discards), which get exactly 0."""
     sched = PyramidFlowMatchEulerDiscreteScheduler()
     batch = training_batch(dit.config, dev, gen, 1)
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
@@ -674,12 +817,14 @@ def dit_grad_check(dit, dev, gen):
     times = torch.as_tensor(time_ids, device=dev)[None]
     target = patchify(sb.targets)
     L = TEXT_LEN + tokens.shape[1]
+    extra = dit.stage_inputs(1, 48, 80, dev)
 
     def backward():
         dit.zero_grad(set_to_none=True)
         with torch.autocast("cuda", dtype=torch.bfloat16):
             pred = dit(tokens, pos, times, batch["text_emb"],
-                       batch["text_mask"], batch["pooled"], sb.timesteps)
+                       batch["text_mask"], batch["pooled"], sb.timesteps,
+                       *extra)
             loss = (pred[:, -trainable:].float() - target.float()).square(
                 ).mean()
         loss.backward()
@@ -699,7 +844,7 @@ def dit_grad_check(dit, dev, gen):
                              f"backward, expected {expected(2 * n, n)}")
     missing = [name for name, g in gk.items()
                if g is None or not bool((g != 0).any())]
-    if missing:
+    if missing != list(getattr(dit, "gradient_free_parameters", ())):
         raise AssertionError(f"{len(missing)} parameters got no gradient "
                              f"through the kernels, e.g. {missing[:5]}")
 
@@ -720,8 +865,9 @@ def dit_grad_check(dit, dev, gen):
         if r2 > 0 and math.sqrt(d2 / r2) > worst[1]:
             worst = (name, math.sqrt(d2 / r2))
     rel = math.sqrt(diff2 / ref2)
-    r = dict(L=L, loss_kernel=loss_k, loss_plain=loss_p, rel_l2=rel,
-             worst_leaf=worst[0], worst_leaf_rel_l2=worst[1],
+    r = dict(dit=type(dit).__name__, L=L, loss_kernel=loss_k,
+             loss_plain=loss_p, rel_l2=rel, worst_leaf=worst[0],
+             worst_leaf_rel_l2=worst[1], gradient_free=missing,
              launches=launched, kernel_s=kernel_s, plain_s=plain_s)
     log("full-width DiT gradient, kernel vs plain " + json.dumps(r))
     if not (math.isfinite(rel) and rel <= DIT_GRAD_REL_L2):
@@ -738,8 +884,8 @@ def zero_output_(dit):
     dit.proj_out.bias.zero_()
 
 
-def train(dit, dev, gen):
-    """Three train steps of the release DiT at the CLI's default shape.
+def train(dit, dev, gen, n_steps=TRAIN_STEPS):
+    """``n_steps`` train steps of a release DiT at the CLI's default shape.
     Returns (steps, launches, peak GB, state)."""
     zero_output_(dit)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -753,7 +899,7 @@ def train(dit, dev, gen):
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
     steps = []
     reset_launch_counts()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         units = tuple(sample_stage_length(0, state.step, 3, 31, 1, 8,
                                           max_units=TRAIN_FRAMES))
         before = dit.proj_out.weight.detach().clone()
@@ -763,7 +909,8 @@ def train(dit, dev, gen):
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         moved = not torch.equal(before, dit.proj_out.weight)
-        r = dict(step=state.step, units=units, loss=m["train/loss"],
+        r = dict(dit=type(dit).__name__, step=state.step, units=units,
+                 loss=m["train/loss"],
                  grad_norm=m["train/grad_norm"], applied=m["train/applied"],
                  moved=moved, lr_count=state.opt_count, seconds=seconds)
         log("train step " + json.dumps(r))
@@ -772,7 +919,7 @@ def train(dit, dev, gen):
         steps.append(r)
     launched = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
-    attentions = dit.num_attention_calls * 3 * TRAIN_STEPS  # 3 stage forwards
+    attentions = dit.num_attention_calls * 3 * n_steps  # 3 stage forwards
     if launched != expected(2 * attentions, attentions):
         raise AssertionError(f"train launches {launched}, expected "
                              f"{expected(2 * attentions, attentions)}")
@@ -955,13 +1102,53 @@ def serve_i2v(pipe, dev, gen):
     return r
 
 
-def build_libraries():
-    """The three kernel libraries, one nvcc each, started together."""
+def mmdit_paths(vae, meta_pipe, dev, gen, paths):
+    """The release MMDiT (24 joint blocks, 24 x 64 heads): a bf16 forward
+    kernel vs plain, one T2V request through
+    ``PyramidFlowPipeline(model_name="pyramid_mmdit")`` with the release
+    VAE, then with fp32 parameters and remat the gradient check and
+    ``MMDIT_TRAIN_STEPS`` latent train steps. Adds the request's and the
+    steps' launches to ``paths``."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    mmdit = PyramidDiffusionMMDiT(MMDiTConfig(), dtype=torch.bfloat16,
+                                  device=dev)
+    randomize_(mmdit, gen)
+    torch.cuda.synchronize()
+    log(f"MMDiT: {sum(p.numel() for p in mmdit.parameters()) / 1e9:.3f} B "
+        f"params, built in {time.perf_counter() - t0:.1f} s")
+    dit_check(mmdit, meta_pipe, dev, gen)
+    pipe = PyramidFlowPipeline(mmdit, vae, dtype=torch.bfloat16, device=dev,
+                               model_name="pyramid_mmdit")
+    reset_launch_counts()
+    serve(pipe, dev, gen, "mmdit", MMDIT_TEMP)
+    paths["MMDiT text-to-video"] = launch_counts()
+    del pipe, mmdit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tmm = PyramidDiffusionMMDiT(MMDiTConfig(), dtype=torch.float32,
+                                device=dev, remat=True)
+    randomize_(tmm, gen)
+    torch.cuda.synchronize()
+    log(f"training MMDiT: fp32 parameters, remat, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dit_grad_check(tmm, dev, gen)
+    _, paths["MMDiT train (latents)"], _, state = train(
+        tmm, dev, gen, MMDIT_TRAIN_STEPS)
+    del tmm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_libraries():
+    """The four kernel libraries, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
         libs = {"flash_fwd": pool.submit(fa.kernel_library),
                 "flash_bwd": pool.submit(fa.bwd_kernel_library),
-                "causal_conv3d": pool.submit(cc.kernel_library)}
+                "causal_conv3d": pool.submit(cc.kernel_library),
+                "flash_fwd_hn": pool.submit(fa.hn_kernel_library)}
         libs = {name: f.result() for name, f in libs.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
@@ -984,10 +1171,16 @@ def main() -> int:
         f"device count {torch.cuda.device_count()}")
     build_libraries()
 
-    gen = torch.Generator(dev).manual_seed(SEED)
+    # the kernel checks draw from their own generator, so that a check added
+    # or removed there leaves the models' random weights as they were
+    kgen = torch.Generator(dev).manual_seed(SEED)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
     meta_pipe = PyramidFlowPipeline(None, device=dev)
-    checks = kernel_vs_plain(meta_pipe, dev, gen)
-    bwd_checks = bwd_vs_plain(meta_pipe, dev, gen)
+    checks, hn_checks = kernel_vs_plain(meta_pipe, dev, kgen)
+    hn_checks += hn_tool_layout(dev)
+    hn_empty_rows(dev, kgen)
+    bwd_checks = bwd_vs_plain(meta_pipe, dev, kgen)
+    paths = {"exp_flash_h2 tool": tool_path()}
 
     t0 = time.perf_counter()
     dit = PyramidFluxTransformer(FluxConfig(), dtype=torch.bfloat16,
@@ -1007,7 +1200,6 @@ def main() -> int:
         encode_check(vae, dev, gen)
 
         # each path counted from 0
-        paths = {}
         pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16,
                                    device=dev)
         reset_launch_counts()
@@ -1038,6 +1230,13 @@ def main() -> int:
         _, paths["train (latents)"], _, state = train(tdit, dev, gen)
         _, paths["train (raw pixels)"], _ = train_raw_pixels(
             tdit, vae, state, dev, gen)
+
+        # the MMDiT at full width and depth, after the flux training state
+        # is freed: a forward check, one request, the gradient, two steps
+        del tdit, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        mmdit_paths(vae, meta_pipe, dev, gen, paths)
     log("launches by path " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
     unused = [k for k, n in total.items()
@@ -1046,11 +1245,11 @@ def main() -> int:
         raise AssertionError(f"kernels no path launched: {unused}")
 
     # the conv kernel at every shape the paths gave it, with the models freed
-    del tdit, state, vae
+    del vae
     gc.collect()
     torch.cuda.empty_cache()
     log(f"conv shapes the paths launched: {len(conv_shapes)}")
-    conv_checks = conv_vs_plain(conv_shapes, dev, gen)
+    conv_checks = conv_vs_plain(conv_shapes, dev, kgen)
 
     timed = next(r for r in checks if r["layout"] == TIMED_LAYOUT
                  and r["causal"] and r["bounded"])
@@ -1059,6 +1258,7 @@ def main() -> int:
     btimed = next(r for r in bwd_checks if r["layout"] == TIMED_LAYOUT
                   and r["d"] == D and r["causal"])
     ctimed = next(r for r in conv_checks if "plain_ms" in r)
+    hn_timed = next(r for r in hn_checks if "ms" in r and r["causal"])
     log(json.dumps({"kernels": [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1122,6 +1322,18 @@ def main() -> int:
         "bound_ms": ctimed["bound_ms"],
         "bound_by": ctimed["bound_by"],
         "library_ms": ctimed["library_ms"],
+    }, {
+        "name": "flash_fwd_hn",
+        "route": "cuda",
+        "source": "pyramid_flow_tpu_torch/csrc/flash_fwd_hn.cu",
+        "replaces": "tools/exp_flash_h2.py:46",
+        "launches": total["flash_fwd_hn"],
+        "max_abs_err": max(r["max_abs_err_o"] for r in hn_checks),
+        "ms": hn_timed["ms"],
+        "plain_ms": hn_timed["plain_ms"],
+        "bound_ms": hn_timed["bound_ms"],
+        "bound_by": hn_timed["bound_by"],
+        "library_ms": hn_timed["library_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

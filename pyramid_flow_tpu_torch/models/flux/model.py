@@ -15,7 +15,8 @@ Training keeps fp32 parameters and computes in bf16 under
 ``dtype=bf16, param_dtype=fp32``: the norms and RoPE compute in fp32 and cast
 back to their input's dtype, so q, k and v reach the attention kernels in
 bf16. ``remat`` checkpoints every block (recomputed in the backward), as the
-JAX model's ``remat`` field does.
+JAX model's ``remat`` field does. The model is built on the CUDA device
+unless ``device=`` says otherwise, and raises without a visible one.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import INVALID_TIME
 from ...ops.rope import rope_freqs
+from ...utils.devices import model_device
 from .blocks import (
     AdaLayerNormContinuous,
     FluxSingleTransformerBlock,
@@ -106,15 +108,22 @@ class PyramidFluxTransformer(nn.Module):
       timestep:      [B] float (0..1000 scale).
 
     Returns velocity tokens [B, L, in_channels].
+
+    ``model_name``, ``latent_channels`` and ``stage_inputs`` tell the
+    pipeline and the trainer the family's latent normalisation, latent width
+    and extra forward inputs (none).
     """
 
+    model_name = "pyramid_flux"
+
     def __init__(self, config: FluxConfig = FluxConfig(), *,
-                 dtype: torch.dtype = torch.float32, device=None,
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  remat: bool = False):
         super().__init__()
         cfg = self.config = config
         self.remat = remat
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype,
+                  device=model_device(device, "PyramidFluxTransformer"))
         d = cfg.inner_dim
         self.time_text_embed = TimestepTextEmbed(
             d, cfg.pooled_projection_dim, **kw)
@@ -138,6 +147,17 @@ class PyramidFluxTransformer(nn.Module):
     def num_attention_calls(self) -> int:
         """Attentions in one forward: one per block."""
         return self.config.num_layers + self.config.num_single_layers
+
+    @property
+    def latent_channels(self) -> int:
+        """The VAE latent width: the token width over the patch."""
+        return self.config.in_channels // self.config.patch_size ** 2
+
+    def stage_inputs(self, rows: int, height: int, width: int, device
+                     ) -> Tuple[torch.Tensor, ...]:
+        """The forward's inputs after ``timestep`` for a stage of latent
+        size height x width: none."""
+        return ()
 
     @contextlib.contextmanager
     def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:

@@ -1,0 +1,110 @@
+"""SD3 joint transformer block (MMDiT).
+
+The counterpart of the JAX package's ``models/mmdit/blocks.py``, built from
+the miniFLUX primitives. Differences from the flux dual block: the text
+stream's qk-norms are ``norm_add_q``/``norm_add_k``, and the last block is
+``context_pre_only``: its context goes through ``AdaLayerNormContinuous``,
+has no ``to_add_out`` and no ``ff_context``, and comes back unchanged.
+Module names follow the released checkpoint.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops.rope import apply_rope
+from ..flux.blocks import (
+    AdaLayerNormContinuous,
+    AdaLayerNormZero,
+    FeedForward,
+    RMSNorm,
+    _attention,
+    _heads,
+    _unheads,
+    layer_norm,
+)
+
+__all__ = ["MMDiTJointAttention", "JointTransformerBlock"]
+
+
+class MMDiTJointAttention(nn.Module):
+    """Joint text+image attention: separate projections, one softmax over
+    [text; image]; no context output when ``context_pre_only``. ``capture``
+    works as in the flux blocks."""
+
+    def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
+                 context_pre_only: bool = False, **kw):
+        super().__init__()
+        d = num_heads * head_dim
+        self.num_heads, self.head_dim, self.causal = num_heads, head_dim, causal
+        self.context_pre_only = context_pre_only
+        names = ["to_q", "to_k", "to_v", "add_q_proj", "add_k_proj",
+                 "add_v_proj"]
+        if not context_pre_only:
+            names.append("to_add_out")
+        for name in names:
+            setattr(self, name, nn.Linear(d, d, **kw))
+        self.to_out = nn.ModuleList([nn.Linear(d, d, **kw)])
+        for name in ("norm_q", "norm_k", "norm_add_q", "norm_add_k"):
+            setattr(self, name, RMSNorm(head_dim, **kw))
+        self.capture = None
+
+    def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
+        n = self.num_heads
+        q = self.norm_q(_heads(self.to_q(x), n))
+        k = self.norm_k(_heads(self.to_k(x), n))
+        v = _heads(self.to_v(x), n)
+        cq = self.norm_add_q(_heads(self.add_q_proj(ctx), n))
+        ck = self.norm_add_k(_heads(self.add_k_proj(ctx), n))
+        cv = _heads(self.add_v_proj(ctx), n)
+        lt = ctx.shape[1]
+        q = apply_rope(torch.cat([cq, q], dim=2), rope_cos, rope_sin)
+        k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
+        v = torch.cat([cv, v], dim=2)
+        if self.capture is not None:
+            self.capture.append((q[:1].detach(), k[:1].detach()))
+        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim))
+        x_o = self.to_out[0](o[:, lt:])
+        if self.context_pre_only:
+            return x_o, None
+        return x_o, self.to_add_out(o[:, :lt])
+
+
+class JointTransformerBlock(nn.Module):
+    """One MMDiT block; ``context_pre_only`` for the last."""
+
+    def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
+                 context_pre_only: bool = False, **kw):
+        super().__init__()
+        d = num_heads * head_dim
+        self.context_pre_only = context_pre_only
+        self.norm1 = AdaLayerNormZero(d, **kw)
+        self.norm1_context = (AdaLayerNormContinuous(d, **kw)
+                              if context_pre_only else
+                              AdaLayerNormZero(d, **kw))
+        self.attn = MMDiTJointAttention(num_heads, head_dim, causal,
+                                        context_pre_only, **kw)
+        self.ff = FeedForward(d, **kw)
+        if not context_pre_only:
+            self.ff_context = FeedForward(d, **kw)
+
+    def forward(self, x, ctx, temb, rope_cos, rope_sin, time_ids):
+        nx, gate, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
+        if self.context_pre_only:
+            nc = self.norm1_context(ctx, temb)
+        else:
+            nc, c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = \
+                self.norm1_context(ctx, temb)
+        x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids)
+
+        x = x + gate * x_attn
+        h = layer_norm(x) * (1 + scale_mlp) + shift_mlp
+        x = x + gate_mlp * self.ff(h)
+        if self.context_pre_only:
+            return x, ctx
+
+        ctx = ctx + c_gate * ctx_attn
+        hc = layer_norm(ctx) * (1 + c_scale_mlp) + c_shift_mlp
+        ctx = ctx + c_gate_mlp * self.ff_context(hc)
+        return x, ctx

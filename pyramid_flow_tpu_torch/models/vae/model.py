@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.devices import model_device
 from .blocks import DownEncoderBlock, MidBlock, UpDecoderBlock
 from .layers import CausalConv3d, GroupNorm, channels_last
 
@@ -116,13 +117,15 @@ class Decoder(nn.Module):
 
 class CausalVideoVAE(nn.Module):
     """The VAE: ``encode`` (:class:`Encoder` -> ``quant_conv``) and
-    ``decode`` (``post_quant_conv`` -> :class:`Decoder`)."""
+    ``decode`` (``post_quant_conv`` -> :class:`Decoder`). Built on the CUDA
+    device unless ``device=`` says otherwise; raises without a visible
+    one."""
 
     def __init__(self, config: VAEConfig = VAEConfig(), *,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
         super().__init__()
         self.config = config
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=model_device(device, "CausalVideoVAE"))
         zc = config.latent_channels
         self.encoder = Encoder(config, **kw)
         self.decoder = Decoder(config, **kw)

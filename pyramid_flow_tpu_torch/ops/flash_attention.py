@@ -19,6 +19,11 @@ Two versions of the forward and of the backward live here:
   and ``csrc/flash_bwd.cu`` (dK/dV and dQ), head dims 64 and 128, bf16,
   launched by :func:`flash_fwd_cuda` and :func:`flash_bwd_cuda`.
 
+A third forward, ``csrc/flash_fwd_hn.cu`` (:func:`flash_fwd_hn_cuda`), is
+the bounded forward with ``hs`` heads per block, head dim 64; only the
+``tools/exp_flash_h2`` experiment runs it, and its plain version is
+``attention_reference(..., return_lse=True)``.
+
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, the counterpart of the JAX package's
 ``_flash`` custom VJP. It takes the plain versions only for CPU tensors. For
@@ -42,7 +47,8 @@ from ..utils.cuda_build import load_library
 
 __all__ = ["flash_attention", "attention_reference",
            "attention_backward_reference", "bounded_softmax_overshoot",
-           "flash_fwd_cuda", "flash_bwd_cuda", "FlashAttentionFunction",
+           "flash_fwd_cuda", "flash_bwd_cuda", "flash_fwd_hn_cuda",
+           "flash_fwd_hn_resources", "FlashAttentionFunction",
            "INVALID_TIME"]
 
 INVALID_TIME = 2**30
@@ -51,6 +57,9 @@ EMPTY_ROW_LSE = 3e38  # lse of a row with no visible key
 KERNEL_HEAD_DIMS = (64, 128)
 KERNEL_SOURCES = ("flash_fwd.cu",)
 BWD_KERNEL_SOURCES = ("flash_bwd.cu",)
+HN_KERNEL_SOURCES = ("flash_fwd_hn.cu",)
+HN_HEADS_PER_BLOCK = (1, 2, 3, 4, 6)  # the hs values the kernel is built for
+HN_GROUP_THREADS = 128  # threads per head in a block
 
 
 def attention_reference(q, k, v, time_q, time_kv=None, *, causal=True,
@@ -181,6 +190,43 @@ def bwd_kernel_library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def hn_kernel_library() -> ctypes.CDLL:
+    """The built and loaded heads-per-block forward library (built on first
+    call)."""
+    lib = load_library("flash_fwd_hn", HN_KERNEL_SOURCES)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pf_flash_fwd_hn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                    ctypes.c_float, i, i, p]
+    lib.pf_flash_fwd_hn.restype = ctypes.c_int
+    lib.pf_flash_fwd_hn_info.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.pf_flash_fwd_hn_info.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def flash_fwd_hn_resources(hs: int, causal: bool = True) -> dict:
+    """What a block of the heads-per-block forward needs and what the card
+    gives, read from the built kernel of (hs, causal): ``registers`` per
+    thread, ``threads`` per block (128 * hs), ``max_threads`` (the most a
+    block of this kernel can launch with at its registers),
+    ``shared_bytes`` (static plus dynamic) and ``shared_limit`` (the card's
+    opt-in limit per block). ``fits`` says whether a block can launch."""
+    if hs not in HN_HEADS_PER_BLOCK:
+        raise ValueError(f"the heads-per-block forward is built for hs in "
+                         f"{HN_HEADS_PER_BLOCK}, got {hs}")
+    info = (ctypes.c_int * 5)()
+    err = hn_kernel_library().pf_flash_fwd_hn_info(hs, int(causal), info)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_hn info failed: CUDA error {err}")
+    regs, max_threads, static, dynamic, limit = info
+    threads = HN_GROUP_THREADS * hs
+    return dict(hs=hs, registers=regs, threads=threads,
+                max_threads=max_threads, shared_bytes=static + dynamic,
+                shared_limit=limit,
+                fits=threads <= max_threads and static + dynamic <= limit)
+
+
 def _check_tensors(ref, specs):
     """Each ``(name, tensor, dtype)`` on ``ref``'s device, of ``dtype``,
     contiguous and 16-byte aligned."""
@@ -235,12 +281,7 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
     _check_kernel_inputs(q, k, v, time_q, time_kv)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    if bounded:
-        qn = q.float().square().sum(-1).sqrt()
-        kmax = k.float().square().sum(-1).sqrt().amax(-1, keepdim=True)
-        mb = (qn * kmax * (sm_scale * LOG2E) + 1.0).contiguous()
-    else:
-        mb = None
+    mb = _row_bounds(q, k, sm_scale) if bounded else None
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = kernel_library()
@@ -260,6 +301,62 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.classic_launches = 0
+
+
+def _row_bounds(q, k, sm_scale):
+    """The bounded forward's per-row shift ``|q_i| * max|k| * sm_scale *
+    log2(e) + 1`` ``[B, H, Lq]`` fp32, over all keys, padding included."""
+    qn = q.float().square().sum(-1).sqrt()
+    kmax = k.float().square().sum(-1).sqrt().amax(-1, keepdim=True)
+    return (qn * kmax * (sm_scale * LOG2E) + 1.0).contiguous()
+
+
+def flash_fwd_hn_cuda(q, k, v, time_q, time_kv, *, causal: bool,
+                      sm_scale: float, hs: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the bounded forward with ``hs`` heads per block. Returns
+    ``(o, lse)``, as ``flash_fwd_cuda(..., bounded=True)``.
+
+    q, k, v ``[B, H, L, 64]`` bf16 contiguous on one CUDA device, ``H`` a
+    multiple of ``hs``; time ids ``[B, L]`` int32. An ``hs`` whose block
+    does not fit the card (:func:`flash_fwd_hn_resources`) is refused before
+    any launch. ``flash_fwd_hn_cuda.launches`` counts the launches."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd_hn_cuda takes CUDA tensors, got "
+                         f"{q.device}")
+    _check_kernel_inputs(q, k, v, time_q, time_kv)
+    b, h, lq, d = q.shape
+    if d != 64:
+        raise ValueError(f"the heads-per-block forward takes head dim 64, "
+                         f"got {d}")
+    if h % hs:
+        raise ValueError(f"{h} heads do not split into blocks of hs={hs}")
+    res = flash_fwd_hn_resources(hs, bool(causal))
+    if not res["fits"]:
+        raise ValueError(
+            f"hs={hs} does not fit: a block of {res['threads']} threads at "
+            f"{res['registers']} registers each can launch with at most "
+            f"{res['max_threads']} threads, and needs {res['shared_bytes']} "
+            f"of {res['shared_limit']} bytes of shared memory")
+    mb = _row_bounds(q, k, sm_scale)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    lib = hn_kernel_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pf_flash_fwd_hn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), time_q.data_ptr(),
+            time_kv.data_ptr(), mb.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, h, lq, k.shape[2], float(sm_scale * LOG2E), int(causal), hs,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_hn kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_fwd_hn_cuda.launches += 1
+    return o, lse
+
+
+flash_fwd_hn_cuda.launches = 0
 
 
 def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,

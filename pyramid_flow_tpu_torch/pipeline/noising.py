@@ -34,6 +34,7 @@ __all__ = [
     "VIDEO_NORM",
     "GeneratorDraws",
     "StageBatch",
+    "dit_model_name",
     "normalize_latent",
     "noise_pyramid",
     "latent_pyramid",
@@ -81,6 +82,21 @@ class GeneratorDraws:
         seed = hash((self.generator.initial_seed(), int(data))) % 2**63
         return GeneratorDraws(torch.Generator(self.generator.device)
                               .manual_seed(seed))
+
+
+def dit_model_name(dit, model_name: Optional[str] = None) -> str:
+    """The DiT's family, its class's ``model_name`` (``"pyramid_flux"``
+    without a DiT). A ``model_name`` given as well must name that family."""
+    if model_name is not None and model_name not in LATENT_NORMS:
+        raise ValueError(f"unknown model_name {model_name!r}; one of "
+                         f"{sorted(LATENT_NORMS)}")
+    if dit is None:
+        return model_name or "pyramid_flux"
+    if model_name not in (None, dit.model_name):
+        raise ValueError(f"model_name {model_name!r} does not name the "
+                         f"DiT's family: a {type(dit).__name__} is "
+                         f"{dit.model_name!r}")
+    return dit.model_name
 
 
 def normalize_latent(x: torch.Tensor, model_name: str = "pyramid_flux"

@@ -28,8 +28,8 @@ import torch
 from ..ops.blocknoise import block_noise_from_normal
 from ..ops.flash_attention import INVALID_TIME
 from ..schedulers.flow_matching import PyramidFlowMatchEulerDiscreteScheduler
-from .noising import (LATENT_NORMS, VIDEO_NORM, down2, latent_pyramid,
-                      normalize_latent, up2_nearest)
+from .noising import (LATENT_NORMS, VIDEO_NORM, dit_model_name, down2,
+                      latent_pyramid, normalize_latent, up2_nearest)
 from .packing import clip_metadata, patchify, unpatchify
 
 __all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise"]
@@ -80,11 +80,16 @@ class PyramidFlowPipeline:
     block-noise gamma 1/3.
 
     Args:
-      dit: a ``PyramidFluxTransformer`` (packed-token API) with its weights.
+      dit: a ``PyramidFluxTransformer`` or ``PyramidDiffusionMMDiT``
+        (packed-token API) with its weights. Its family (``dit.model_name``)
+        selects the latent normalisation, and its ``stage_inputs`` give the
+        forward's extra inputs per stage (the MMDiT's table crop origin).
       vae: a ``CausalVideoVAE``, or None for latent output only.
       dtype: the DiT's compute dtype; tokens are cast to it at patchify,
         latents stay fp32.
       device: where the loop runs; defaults to the DiT's device.
+      model_name: ``"pyramid_flux"`` or ``"pyramid_mmdit"``, optional; when
+        given it must name the DiT's family.
     """
 
     num_stages = 3
@@ -92,7 +97,9 @@ class PyramidFlowPipeline:
     downsample = 8
 
     def __init__(self, dit, vae=None, latent_channels: int = 16,
-                 dtype: torch.dtype = torch.bfloat16, device=None):
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 model_name: Optional[str] = None):
+        self.model_name = dit_model_name(dit, model_name)
         self.dit = dit
         self.vae = vae
         self.latent_channels = latent_channels
@@ -101,7 +108,7 @@ class PyramidFlowPipeline:
             device if device is not None else next(dit.parameters()).device)
         self.scheduler = PyramidFlowMatchEulerDiscreteScheduler()
         self.vae_shift_factor, self.vae_scale_factor = LATENT_NORMS[
-            "pyramid_flux"]
+            self.model_name]
         self.vae_video_shift_factor, self.vae_video_scale_factor = VIDEO_NORM
         self.last_dit_seconds = None
         self.last_decode_seconds = None
@@ -109,7 +116,7 @@ class PyramidFlowPipeline:
     # ------------------------------------------------------------ helpers
     def normalize_latent(self, x):
         """VAE latent -> model space; frame 0 uses the image statistics."""
-        return normalize_latent(x, "pyramid_flux")
+        return normalize_latent(x, self.model_name)
 
     def denormalize_latent(self, x):
         """Model space -> VAE latent space."""
@@ -150,6 +157,7 @@ class PyramidFlowPipeline:
         b = latents.shape[0]
         pos2 = positions.expand(2 * b, -1, -1)
         time2 = time_ids.expand(2 * b, -1)
+        extra = self.dit.stage_inputs(2 * b, height, width, self.device)
         for i in range(len(timesteps)):
             lat_tokens = patchify(latents.to(self.dtype))
             tokens = torch.cat(
@@ -157,7 +165,7 @@ class PyramidFlowPipeline:
             t = torch.full((2 * b,), float(timesteps[i]), dtype=torch.float32,
                            device=self.device)
             v = self.dit(tokens, pos2, time2, prompt_embeds, prompt_mask,
-                         pooled, t)
+                         pooled, t, *extra)
             v_uncond, v_cond = v[:, -trainable_tokens:].float().chunk(2)
             v = v_uncond + guidance * (v_cond - v_uncond)
             v_lat = unpatchify(v, temp, height, width)

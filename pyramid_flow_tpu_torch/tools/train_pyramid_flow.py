@@ -4,7 +4,8 @@
         --epochs 1 --steps_per_epoch 2 --output_dir runs/dit
 
 The flags are those of the JAX package's ``tools/train_pyramid_flow.py``.
-Supported: the synthetic ``--debug_tiny`` run (a tiny DiT on the CPU),
+Supported: both DiT families (``--model_name pyramid_flux`` or
+``pyramid_mmdit``), the synthetic ``--debug_tiny`` run (a tiny DiT on the CPU),
 ``--anno_file`` (pre-extracted latents and text features, read by the
 port's numpy data loaders, ``pyramid_flow_tpu_torch.data``), the schedule, pyramid and logging flags,
 ``--gradient_checkpointing``, ``--bound_probe_freq``, ``--output_dir`` and
@@ -106,9 +107,6 @@ def unported(args) -> Optional[str]:
     if args.load_text_encoder:
         return "--load_text_encoder: the text encoders are not ported yet " \
                "(ROADMAP A8)"
-    if args.model_name == "pyramid_mmdit":
-        return "--model_name pyramid_mmdit: the MMDiT is not ported yet " \
-               "(ROADMAP A10)"
     if args.sp > 1 or args.fsdp > 1 or args.dp > 1:
         return ("--sp/--fsdp/--dp > 1: the port trains on one device; "
                 "parallelism is not ported yet (ROADMAP A11)")
@@ -132,10 +130,10 @@ def save_checkpoint(output_dir: str, step: int, state) -> None:
     torch.save(state.ema, os.path.join(output_dir, f"checkpoint-{step}-ema.pt"))
 
 
-def synthetic_batch(args, cfg, step: int) -> dict:
+def synthetic_batch(args, dit, step: int) -> dict:
     """The ``--debug_tiny`` batch of one step, a function of (seed, step)."""
     gen = np.random.default_rng((args.seed, step))
-    c = cfg.in_channels // 4  # latent channels (patch 2)
+    cfg, c = dit.config, dit.latent_channels
     t = 1 + args.frame_per_unit * 2
     b = args.batch_size
     return {
@@ -180,6 +178,7 @@ def main(argv=None) -> int:
         sys.exit(msg)
 
     from ..models.flux.model import FluxConfig, PyramidFluxTransformer
+    from ..models.mmdit.model import MMDiTConfig, PyramidDiffusionMMDiT
     from ..pipeline.noising import GeneratorDraws, sample_stage_length
     from ..schedulers.flow_matching import (
         PyramidFlowMatchEulerDiscreteScheduler)
@@ -187,12 +186,19 @@ def main(argv=None) -> int:
     from ..training.train_state import TrainConfig, create_train_state
     from ..training.trainer import make_train_step
 
+    mmdit = args.model_name == "pyramid_mmdit"
     if args.debug_tiny:
-        cfg = FluxConfig(
-            in_channels=64, num_layers=2, num_single_layers=2,
-            attention_head_dim=16, num_attention_heads=8,
-            joint_attention_dim=64, pooled_projection_dim=32,
-            axes_dims_rope=(8, 4, 4))
+        if mmdit:
+            cfg = MMDiTConfig(
+                in_channels=16, num_layers=2, attention_head_dim=16,
+                num_attention_heads=8, caption_projection_dim=128,
+                pooled_projection_dim=32, joint_attention_dim=64)
+        else:
+            cfg = FluxConfig(
+                in_channels=64, num_layers=2, num_single_layers=2,
+                attention_head_dim=16, num_attention_heads=8,
+                joint_attention_dim=64, pooled_projection_dim=32,
+                axes_dims_rope=(8, 4, 4))
         # the kernels take head dims 64 and 128 in bf16: the tiny fp32
         # model runs the plain versions on the CPU
         device, compute_dtype = torch.device("cpu"), None
@@ -200,11 +206,11 @@ def main(argv=None) -> int:
         if not torch.cuda.is_available():
             sys.exit("the full-size DiT trains on a CUDA device; none is "
                      "visible (use --debug_tiny on the CPU)")
-        cfg = FluxConfig()
+        cfg = MMDiTConfig() if mmdit else FluxConfig()
         device, compute_dtype = torch.device("cuda"), torch.bfloat16
     torch.manual_seed(args.seed)
-    dit = PyramidFluxTransformer(cfg, device=device,
-                                 remat=args.gradient_checkpointing)
+    dit_cls = PyramidDiffusionMMDiT if mmdit else PyramidFluxTransformer
+    dit = dit_cls(cfg, device=device, remat=args.gradient_checkpointing)
     sched = PyramidFlowMatchEulerDiscreteScheduler()
 
     lr = cosine_schedule(args.learning_rate, 1e-6, args.steps_per_epoch,
@@ -240,7 +246,7 @@ def main(argv=None) -> int:
             ds, args.batch_size, sync_group=args.video_sync_group)
         next_batch = lambda step: next(loader)  # noqa: E731
     elif args.debug_tiny:
-        next_batch = lambda step: synthetic_batch(args, cfg, step)  # noqa: E731
+        next_batch = lambda step: synthetic_batch(args, dit, step)  # noqa: E731
     else:
         sys.exit("--anno_file is required unless --debug_tiny")
 

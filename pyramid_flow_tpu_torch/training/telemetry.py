@@ -14,24 +14,29 @@ from __future__ import annotations
 
 import torch
 
+from ..models.mmdit.model import sincos_crop_origin
 from ..ops.flash_attention import INVALID_TIME, bounded_softmax_overshoot
 from ..pipeline.noising import add_pyramid_noise_stage, latent_pyramid
 from ..pipeline.packing import pack_clips
 
-__all__ = ["OVERSHOOT_WARN_LOG2", "make_bound_overshoot_probe"]
+__all__ = ["OVERSHOOT_WARN_LOG2", "make_bound_overshoot_probe",
+           "mmdit_pos_offset_fn"]
 
 # exactness dies near ~120 log2 units; in-envelope models measure in the
 # low tens
 OVERSHOOT_WARN_LOG2 = 100.0
 
 
-def make_bound_overshoot_probe(dit, scheduler):
+def make_bound_overshoot_probe(dit, scheduler, pos_offset_fn=None):
     """Build ``probe(latents, text_emb, text_mask, pooled, draws) -> float``.
 
     Batch row 0 goes through one noised DiT forward at the last stage (the
     longest sequence the trainer makes; overshoot only shrinks with more
     visible keys) with q/k capture, and the probe returns the max
-    :func:`bounded_softmax_overshoot` over every attention."""
+    :func:`bounded_softmax_overshoot` over every attention.
+    ``pos_offset_fn(stage_batch, rows)``, when given, returns the DiT's
+    ``pos_offset`` (the MMDiT's: :func:`mmdit_pos_offset_fn`), as the JAX
+    probe takes it; otherwise the DiT's ``stage_inputs`` give it."""
     num_stages = scheduler.stages
     probe_stage = num_stages - 1
 
@@ -44,9 +49,13 @@ def make_bound_overshoot_probe(dit, scheduler):
         dev = latents.device
         pos = torch.as_tensor(positions, device=dev)[None]
         times = torch.as_tensor(time_ids, device=dev)[None]
+        if pos_offset_fn is None:
+            extra = dit.stage_inputs(1, *sb.clips[0].shape[2:4], dev)
+        else:
+            extra = (pos_offset_fn(sb, 1),)
         with dit.capture_qk() as captured:
             dit(tokens.to(text_emb.dtype), pos, times, text_emb[:1],
-                text_mask[:1], pooled[:1], sb.timesteps)
+                text_mask[:1], pooled[:1], sb.timesteps, *extra)
         # model-level attention time ids: [text (0 / INVALID); latent]
         text_time = torch.where(text_mask[:1], 0, INVALID_TIME)
         tq = torch.cat([text_time, times], dim=1).to(torch.int32)
@@ -54,3 +63,13 @@ def make_bound_overshoot_probe(dit, scheduler):
                    for q, k in captured)
 
     return probe
+
+
+def mmdit_pos_offset_fn(pos_embed_max_size: int):
+    """``pos_offset_fn`` for the MMDiT: the crop origin of its sincos table
+    for the probe stage's grid (the trainer's and the pipeline's rule)."""
+    def fn(sb, rows):
+        h, w = sb.clips[0].shape[2:4]
+        return sincos_crop_origin(pos_embed_max_size, rows, h, w,
+                                  sb.clips[0].device)
+    return fn

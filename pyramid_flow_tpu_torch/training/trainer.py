@@ -6,7 +6,8 @@ The counterpart of the JAX package's ``training/trainer.py``:
   features);
 * the latent pyramid and per-stage noising on the device;
 * one DiT forward per stage sub-batch, each with its own token count (stage 0
-  rows hold 16x fewer tokens than stage 2 rows);
+  rows hold 16x fewer tokens than stage 2 rows), with the DiT's
+  ``stage_inputs`` (the MMDiT's crop origin of its sincos table);
 * loss = mean over rows of the per-row MSE of the trainable tail;
 * ``accum_steps`` micro-batches with averaged gradients;
 * clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`;
@@ -28,6 +29,7 @@ from ..pipeline.noising import (
     StageBatch,
     add_ar_noise_stage,
     add_pyramid_noise_stage,
+    dit_model_name,
     latent_pyramid,
     normalize_latent,
 )
@@ -86,10 +88,11 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
         b = tokens.shape[0]
         pos = torch.as_tensor(positions, device=device)[None].expand(b, -1, -1)
         times = torch.as_tensor(time_ids, device=device)[None].expand(b, -1)
+        extra = dit.stage_inputs(b, *stage_latents[stage].shape[2:4], device)
         pred = dit(tokens.to(text_emb.dtype), pos, times,
                    text_emb[start:start + count],
                    text_mask[start:start + count],
-                   pooled[start:start + count], sb.timesteps)
+                   pooled[start:start + count], sb.timesteps, *extra)
         pred = pred[:, -trainable:]
         err = (pred.float() - patchify(sb.targets).float()) ** 2
         losses.append(err.reshape(count, -1).mean(dim=1))
@@ -98,24 +101,26 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
     return loss, {"train/loss": loss}
 
 
-def encode_video(vae, video: torch.Tensor, draws) -> torch.Tensor:
+def encode_video(vae, video: torch.Tensor, draws,
+                 model_name: str = "pyramid_flux") -> torch.Tensor:
     """Raw pixels [B, T, H, W, 3] in [-1, 1] -> normalised latents: the
     VAE's moments, a posterior sample with ``draws.normal`` as its draw, and
-    the latent normalisation. The encode runs one row and one window of
-    ``VIDEO_ENCODE_WINDOW`` frames at a time, which equals encoding the
-    whole batch and keeps the activations to one window's."""
+    ``model_name``'s latent normalisation. The encode runs one row and one
+    window of ``VIDEO_ENCODE_WINDOW`` frames at a time, which equals
+    encoding the whole batch and keeps the activations to one window's."""
     moments = torch.cat([chunk_encode(vae, row[None], VIDEO_ENCODE_WINDOW)
                          for row in video])
     mean_shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
     z = gaussian_sample(moments, draws.normal(mean_shape))
-    return normalize_latent(z.float())
+    return normalize_latent(z.float(), model_name)
 
 
 def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
                     use_temporal_pyramid: bool = True,
                     frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3,
                     cfg_rate: float = 0.1, accum_steps: int = 1,
-                    compute_dtype: Optional[torch.dtype] = None, vae=None):
+                    compute_dtype: Optional[torch.dtype] = None, vae=None,
+                    model_name: Optional[str] = None):
     """Build the train step.
 
     ``step(state, batch, draws, num_units_per_stage) -> (state, metrics)``
@@ -123,9 +128,10 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
     pooled, null_text_emb, null_pooled (and optionally null_text_mask) on the
     DiT's device; or, with ``vae`` (a frozen ``CausalVideoVAE``), ``video``
     [B, T, H, W, 3] raw pixels in [-1, 1] in place of the latents
-    (:func:`encode_video`). ``draws`` is the run's draw source (a
-    ``torch.Generator`` is wrapped in :class:`GeneratorDraws`); each step
-    folds in its
+    (:func:`encode_video`, normalised for the DiT's family,
+    ``dit.model_name``; a ``model_name`` given as well must name it, or
+    this raises). ``draws`` is the run's draw source (a ``torch.Generator``
+    is wrapped in :class:`GeneratorDraws`); each step folds in its
     ``state.step``. ``compute_dtype=torch.bfloat16`` runs the loss under
     autocast with the parameters kept fp32. ``accum_steps > 1`` splits the
     batch into that many micro-batches and averages their gradients; the
@@ -133,6 +139,8 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
     Metrics: ``train/loss`` and the pre-clip ``train/grad_norm`` as floats,
     and ``train/applied`` (whether the anomaly gate let the update through).
     """
+
+    model_name = dit_model_name(dit, model_name)
 
     def autocast(device):
         if compute_dtype is None:
@@ -156,7 +164,8 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
             if vae is None:
                 raise ValueError("a raw-pixel batch ('video') needs "
                                  "make_train_step(vae=...)")
-            latents = encode_video(vae, batch["video"], draws_vae)
+            latents = encode_video(vae, batch["video"], draws_vae,
+                                   model_name)
         else:
             latents = batch["latents"]
         b = latents.shape[0]

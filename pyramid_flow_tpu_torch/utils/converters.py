@@ -6,7 +6,7 @@ variables as nested dicts of numpy arrays and return state dicts that
 ``load_state_dict(strict=True)`` accepts:
 
 * the scanned block stacks (a leading layer axis) become per-layer keys
-  ``transformer_blocks.{i}.``;
+  ``transformer_blocks.{i}.`` (the MMDiT's separate last block, too);
 * Dense kernels ``[in, out]`` become Linear weights ``[out, in]``;
 * conv kernels DHWIO become Conv3d weights OIDHW under ``<conv>.conv.``;
 * norm ``scale`` becomes ``weight``;
@@ -23,7 +23,8 @@ from typing import Dict, Iterator, Tuple
 import numpy as np
 import torch
 
-__all__ = ["flux_state_dict_from_jax", "vae_state_dict_from_jax"]
+__all__ = ["flux_state_dict_from_jax", "mmdit_state_dict_from_jax",
+           "vae_state_dict_from_jax"]
 
 _STACKED = ("transformer_blocks", "single_transformer_blocks")
 _FLUX_RENAMES = {
@@ -84,17 +85,18 @@ def _to_torch(entries: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             for k, v in entries.items()}
 
 
-def flux_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
-    """JAX ``PyramidFluxTransformer`` variables -> ``PyramidFluxTransformer``
-    state dict (fp32 tensors)."""
+def _dit_entries(tree: dict, stacked: Tuple[str, ...] = _STACKED
+                 ) -> Dict[str, np.ndarray]:
+    """A DiT's flax modules -> torch keys; the subtrees named in ``stacked``
+    carry a leading layer axis and become per-layer keys."""
     entries: Dict[str, np.ndarray] = {}
-    for path, leaves in _modules(_unwrap(params)):
+    for path, leaves in _modules(tree):
         names = []
         for i, seg in enumerate(path):
             if i > 0 and path[i - 1] in ("ff", "ff_context"):
                 seg = _FF_RENAMES.get(seg, seg)
             names.append(_FLUX_RENAMES.get(seg, seg))
-        if path[0] in _STACKED:
+        if path[0] in stacked:
             n = next(iter(leaves.values())).shape[0]
             for layer in range(n):
                 prefix = ".".join([names[0], str(layer)] + names[1:])
@@ -102,6 +104,40 @@ def flux_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
                     prefix, {k: v[layer] for k, v in leaves.items()}))
         else:
             entries.update(_module_entries(".".join(names), leaves))
+    return entries
+
+
+def flux_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``PyramidFluxTransformer`` variables -> ``PyramidFluxTransformer``
+    state dict (fp32 tensors)."""
+    return _to_torch(_dit_entries(_unwrap(params)))
+
+
+def mmdit_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``PyramidDiffusionMMDiT`` variables -> ``PyramidDiffusionMMDiT``
+    state dict (fp32 tensors), keyed like the released checkpoint:
+
+    * the scanned ``transformer_blocks`` become ``transformer_blocks.{i}``
+      and ``final_block`` the last of them, ``transformer_blocks.{n-1}``;
+    * ``pos_embed_proj`` (a Dense over ``(p1, p2, c)`` token features, patch
+      2 as in every MMDiT config) becomes ``pos_embed.proj`` with the
+      checkpoint's conv2d weight shape ``[D, C, 2, 2]``;
+    * ``pos_embed_table`` ``[G, G, D]`` becomes ``pos_embed.pos_embed``
+      ``[1, G*G, D]``."""
+    tree = dict(_unwrap(params))
+    table = np.asarray(tree.pop("pos_embed_table"))
+    proj = tree.pop("pos_embed_proj")
+    final = tree.pop("final_block")
+    entries = _dit_entries(tree, stacked=("transformer_blocks",))
+    _, leaves = next(_modules(tree["transformer_blocks"]))
+    n = 1 + next(iter(leaves.values())).shape[0]
+    entries.update(_dit_entries(
+        {"transformer_blocks": {str(n - 1): final}}, stacked=()))
+    kernel = np.asarray(proj["kernel"])
+    entries["pos_embed.proj.weight"] = kernel.reshape(
+        2, 2, kernel.shape[0] // 4, -1).transpose(3, 2, 0, 1)
+    entries["pos_embed.proj.bias"] = proj["bias"]
+    entries["pos_embed.pos_embed"] = table.reshape(1, -1, table.shape[-1])
     return _to_torch(entries)
 
 

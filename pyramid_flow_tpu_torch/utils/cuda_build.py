@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each library is compiled on first use into ``build/pf_kernels/`` at the root
-of the checkout, under a name keyed by a hash of its sources and flags, so a
-changed source rebuilds and an unchanged one loads at once. The sources have
+of the checkout, under a name keyed by a hash of its sources, the shared
+headers (``csrc/*.cuh``) and the flags, so a changed source rebuilds and an
+unchanged one loads at once. The sources have
 a plain ``extern "C"`` interface and include no PyTorch headers, which keeps
 a build to seconds.
 """
@@ -45,7 +46,8 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     build was loaded)."""
     paths = [CSRC_DIR / s for s in sources]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    # the shared headers too: a changed header rebuilds every library
+    for p in paths + sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
     out = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

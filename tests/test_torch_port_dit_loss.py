@@ -75,7 +75,8 @@ def tiny_dits():
             (0.05 * rng.standard_normal(p.shape)).astype(np.float32)), shapes)
 
     def make_port(remat=False):
-        dit_t = PyramidFluxTransformer(FluxConfig(**DIT), remat=remat)
+        dit_t = PyramidFluxTransformer(FluxConfig(**DIT), remat=remat,
+                                       device="cpu")
         dit_t.load_state_dict(flux_state_dict_from_jax(
             jax.tree.map(np.array, params)), strict=True)
         return dit_t

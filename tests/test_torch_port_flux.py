@@ -69,7 +69,8 @@ def test_full_tiny_dit_matches_on_packed_ar_layout():
                                    *map(jnp.asarray, inputs)), 1)
     out_j = np.asarray(dit_j.apply(params, *map(jnp.asarray, inputs)))
 
-    dit_t = model.PyramidFluxTransformer(model.FluxConfig(**CFG))
+    dit_t = model.PyramidFluxTransformer(model.FluxConfig(**CFG),
+                                         device="cpu")
     dit_t.load_state_dict(flux_state_dict_from_jax(_as_np(params)),
                           strict=True)
     with torch.no_grad():
@@ -135,7 +136,8 @@ def test_converter_consumes_every_leaf():
     sd = flux_state_dict_from_jax(_as_np(params))
     n_jax = sum(np.size(p) for p in jax.tree.leaves(params))
     assert sum(t.numel() for t in sd.values()) == n_jax
-    dit_t = model.PyramidFluxTransformer(model.FluxConfig(**CFG))
+    dit_t = model.PyramidFluxTransformer(model.FluxConfig(**CFG),
+                                         device="cpu")
     res = dit_t.load_state_dict(sd, strict=True)
     assert not res.missing_keys and not res.unexpected_keys
     assert "transformer_blocks.1.attn.to_out.0.weight" in sd

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels.
 
-Each test compares a kernel (the flash-attention forward, its dK/dV and dQ
-backward, or the VAE's causal conv) with the plain PyTorch version on the
+Each test compares a kernel (the flash-attention forward, the forward with
+several heads per block, its dK/dV and dQ backward, or the VAE's causal conv)
+with the plain PyTorch version on the
 same CUDA inputs, checks a launch counter, or checks that a wrapper refuses
 what its kernel does not take. They carry the ``gpu`` marker and skip without a CUDA device. This file
 imports torch and the port only, so on a machine without JAX it runs as
@@ -26,7 +27,10 @@ from pyramid_flow_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_bwd_cuda,
     flash_fwd_cuda,
+    flash_fwd_hn_cuda,
+    flash_fwd_hn_resources,
 )
+from pyramid_flow_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.gpu
 
@@ -325,3 +329,72 @@ def test_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         causal_conv3d_cuda(x, weight, bias, fr[:, :1])
     with pytest.raises(ValueError):
         causal_conv3d_cuda(x.cpu(), weight, bias)
+
+
+# ------------------------------------------- heads-per-block bounded forward
+@pytest.mark.parametrize("hs", [1, 2, 3, 4, 6])
+@pytest.mark.parametrize("causal", [True, False])
+def test_hn_kernel_matches_plain_or_is_refused(cuda, hs, causal):
+    """At every hs the kernel is built for: K1's tolerances against the
+    plain version where the block fits the card, a refusal before any
+    launch where it does not."""
+    q, k, v, t = _inputs(cuda, h=12)
+    before = flash_fwd_hn_cuda.launches
+    if not flash_fwd_hn_resources(hs, causal)["fits"]:
+        with pytest.raises(ValueError, match="does not fit"):
+            flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                              hs=hs)
+        assert flash_fwd_hn_cuda.launches == before
+        return
+    o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                               hs=hs)
+    torch.cuda.synchronize()
+    assert flash_fwd_hn_cuda.launches == before + 1
+    o_ref, lse_ref = attention_reference(q, k, v, t, causal=causal,
+                                         return_lse=True)
+    valid = t[0] != INVALID_TIME
+    assert torch.isfinite(o).all()
+    assert (o.float() - o_ref.float())[:, :, valid].abs().max() <= O_ATOL
+    assert (lse - lse_ref)[:, :, valid].abs().max() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hn_kernel_at_one_head_is_the_one_head_kernel_bit_for_bit(cuda,
+                                                                  causal):
+    """hs = 1 runs the same tile code as flash_fwd.cu's bounded forward."""
+    q, k, v, t = _inputs(cuda, h=3, l=333)
+    o1, lse1 = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                              bounded=True)
+    o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                               hs=1)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+
+
+def test_hn_kernel_rows_without_visible_keys(cuda):
+    q, k, v, _ = _inputs(cuda, h=4, l=130)
+    tq = torch.zeros((2, 130), dtype=torch.int32, device=cuda)
+    tk = torch.full((2, 130), 5, dtype=torch.int32, device=cuda)
+    o, lse = flash_fwd_hn_cuda(q, k, v, tq, tk, causal=True, sm_scale=0.125,
+                               hs=2)
+    torch.cuda.synchronize()
+    assert (o == 0).all() and (lse == 3e38).all()
+
+
+def test_hn_two_heads_fit_and_a_block_that_does_not_is_refused(cuda,
+                                                               monkeypatch):
+    res = flash_fwd_hn_resources(2)
+    assert res["fits"] and res["threads"] == 256
+    q, k, v, t = _inputs(cuda, h=4, d=128)  # K1 takes it, K6 does not
+    with pytest.raises(ValueError, match="head dim 64"):
+        flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125, hs=2)
+    q, k, v, t = _inputs(cuda, h=4)
+    with pytest.raises(ValueError, match="hs=3"):
+        flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125, hs=3)
+    # a card whose registers could not hold the block
+    monkeypatch.setattr(fa, "flash_fwd_hn_resources", lambda hs, causal: {
+        **res, "max_threads": 128, "fits": False})
+    before = flash_fwd_hn_cuda.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125, hs=2)
+    assert flash_fwd_hn_cuda.launches == before

@@ -98,11 +98,11 @@ def pipelines():
     jpipe = JPipeline(dit_j, dit_params, vae_j, vae_params, latent_channels=4,
                       dtype=jnp.float32)
 
-    dit_t = PyramidFluxTransformer(FluxConfig(**DIT))
+    dit_t = PyramidFluxTransformer(FluxConfig(**DIT), device="cpu")
     dit_t.load_state_dict(flux_state_dict_from_jax(
         jax.tree.map(np.asarray, dit_params)), strict=True)
     vae_t = CausalVideoVAE(VAEConfig(encoder_layers_per_block=(1, 1, 1, 1),
-                                     **VAE))
+                                     **VAE), device="cpu")
     vae_t.load_state_dict(vae_state_dict_from_jax(
         jax.tree.map(np.asarray, vae_params)), strict=True)
     tpipe = PyramidFlowPipeline(dit_t, vae_t, latent_channels=4,

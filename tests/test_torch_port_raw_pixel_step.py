@@ -47,7 +47,7 @@ def vaes():
         rng=jax.random.PRNGKey(1)))
     params = jax.tree.map(jnp.asarray, _randomize(shapes, 21))
     tvae = vae_model.CausalVideoVAE(vae_model.VAEConfig(
-        encoder_layers_per_block=(1, 1, 1, 1), **CFG))
+        encoder_layers_per_block=(1, 1, 1, 1), **CFG), device="cpu")
     tvae.load_state_dict(vae_state_dict_from_jax(
         jax.tree.map(np.asarray, params)), strict=True)
     return jvae, params, tvae

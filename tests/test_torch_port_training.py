@@ -340,7 +340,7 @@ def test_cli_trains_from_an_annotation_file(tmp_path):
 
 @pytest.mark.parametrize("flags,item", [
     (["--model_path", "x"], "A8"), (["--load_vae"], "A8"),
-    (["--load_text_encoder"], "A8"), (["--model_name", "pyramid_mmdit"], "A10"),
+    (["--load_text_encoder"], "A8"),
     (["--sp", "2"], "A11"), (["--fsdp", "2"], "A11"), (["--dp", "2"], "A11")])
 def test_cli_names_the_roadmap_item_of_unported_flags(tmp_path, flags, item):
     with pytest.raises(SystemExit, match=item):

@@ -48,7 +48,7 @@ def vaes():
                        rng=jax.random.PRNGKey(1))
     params = _randomize(params, 2)
     tvae = model.CausalVideoVAE(model.VAEConfig(
-        encoder_layers_per_block=(1, 1, 1, 1), **CFG))
+        encoder_layers_per_block=(1, 1, 1, 1), **CFG), device="cpu")
     np_params = jax.tree.map(np.asarray, params)
     sd = vae_state_dict_from_jax(np_params)
     res = tvae.load_state_dict(sd, strict=True)
