@@ -17,14 +17,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stage 2, 768x1280 unit 15 stage 2) at B=2, H=24, D=64 in bf16, bounded
    and classic softmax, causal and not; valid rows must agree within
    max|do| <= 1e-2 and max|dlse| <= 2e-3 of the fp32 plain version; both
-   are timed with CUDA events, and at the 384x640 unit 15 stage 2 layout so
-   is ``scaled_dot_product_attention`` with the time-id mask; the
+   are timed with CUDA events around wrapper calls back to back, as the
+   paths make them, and at the 384x640 unit 15 stage 2 layout so is
+   ``scaled_dot_product_attention`` with the time-id mask, and the kernel's
+   own device time is read from a profiler trace of the same calls; the
    heads-per-block forward (K6) against the same plain version with the same
    tolerances at every hs whose block fits the card (the others are
    reported), hs=2 timed at that layout, then on the inputs the experiment
    of phase 5 times (its 768p final-unit stage-2 layout, L=11008, q = k = v,
-   causal), and on rows with no visible key (o = 0, lse = 3e38). These
-   checks draw from a generator of their own, apart from the models';
+   causal), and on rows with no visible key (o = 0, lse = 3e38). Beside
+   each forward check, the SKIP/FULL/MASKED split of its (64-row, 128-key)
+   tiles (``tile_types``). Then K1/K2 where those layouts do not reach: the
+   short 384x640 unit 15 stage 0 layout, Lq = 1000 against Lk = 3072, an
+   all-FULL layout and head dim 128; and what a K1 launch costs the host
+   (the whole wrapper call, bounded and classic). These checks draw from a
+   generator of their own, apart from the models';
 4. backward kernels vs plain: dK/dV and dQ against the plain fp32 backward
    on the layouts of phase 3 (B=2, H=24, D=64, causal and not) and on the
    384x640 unit 15 stage 2 layout at H=12, D=128; o and lse from the forward
@@ -83,7 +90,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    zero front frames and with a carried front; max|err| <= 2e-2 *
    max|ref|; the kernel and ``F.conv3d`` (cuDNN, bf16, channels-last)
    timed at each, the plain version at the decoder's 128->128 384x640
-   conv over a 16-frame window.
+   conv over a 16-frame window; then, within the same limit, one and two
+   frames without front frames (the skipped taps), H x W that the 16 x 16
+   tile does not divide, and 512 -> 256 channels.
 
 Each path (the experiment, text-to-video, image-to-video, latent training,
 raw-pixel training, MMDiT text-to-video, MMDiT latent training) runs with
@@ -92,8 +101,11 @@ last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
 time, the plain version's, the least time the card could take (bytes or
 operations at the H100's published peaks) and one PyTorch call's time for
-the same function, at the 384x640 unit 15 stage 2 attention layout and at
-the 128->128 384x640 decode conv; the classic forward (K2), which no path
+the same function, its rate (``tflops``) and ``bound_share`` (the least
+time over its time), at the 384x640 unit 15 stage 2 attention layout and
+at the 128->128 384x640 decode conv. Each time is that of the wrapper call
+the paths make; the forwards also give ``kernel_ms``, the kernel's own
+device time. The classic forward (K2), which no path
 runs, has an entry of its own with 0 launches. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
 """
@@ -104,7 +116,6 @@ import copy
 import gc
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -115,6 +126,7 @@ from unittest import mock
 import torch
 
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 from pyramid_flow_tpu_torch.models.flux import blocks as flux_blocks
 from pyramid_flow_tpu_torch.models.flux.model import (
@@ -186,20 +198,47 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` on the current stream (CUDA events)."""
+    """Milliseconds per call of ``fn`` on the current stream: CUDA events
+    around ``reps`` calls back to back, so that the host's time between
+    calls is not counted while it enqueues faster than the card runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms_by_kernel(fn, reps: int) -> dict:
+    """{kernel name: device milliseconds per call} from a ``torch.profiler``
+    trace of ``reps`` calls of ``fn``: every kernel a call puts on the card,
+    its wrapper's own included."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] = (ms.get(e.name, 0.0)
+                          + (e.time_range.end - e.time_range.start) / reps / 1e3)
+    return ms
+
+
+def kernel_device_ms(fn, reps: int, name: str):
+    """Device milliseconds per call of the kernels whose name holds ``name``
+    (the kernel's own time, without the work around it); None if the trace
+    holds no such kernel."""
+    ms = [t for k, t in device_ms_by_kernel(fn, reps).items() if name in k]
+    return sum(ms) if ms else None
 
 
 def bound(flops: float, nbytes: float):
@@ -290,6 +329,7 @@ def kernel_vs_plain(meta_pipe, dev, gen):
                 pairs = B * H * visible_pairs(t[0], causal)
                 extra["flops"] = 4 * D * pairs
                 del mask
+            split = tile_split(t, t, causal)
             for bounded in (True, False):
                 def run():
                     return fa.flash_fwd_cuda(q, k, v, t, t, causal=causal,
@@ -299,18 +339,20 @@ def kernel_vs_plain(meta_pipe, dev, gen):
                 torch.cuda.synchronize()
                 do = (o.float() - o_ref.float())[:, :, valid].abs().max().item()
                 dl = (lse - lse_ref)[:, :, valid].abs().max().item()
-                ms = cuda_ms(run, reps)
                 r = dict(layout=name, L=L, causal=causal, bounded=bounded,
-                         max_abs_err_o=do, max_abs_err_lse=dl, ms=ms,
-                         plain_ms=plain_ms)
+                         max_abs_err_o=do, max_abs_err_lse=dl,
+                         ms=cuda_ms(run, reps), plain_ms=plain_ms,
+                         tiles=split)
                 if extra:
-                    # q, k, v read, o written, lse written, time ids read;
-                    # the bounded form's per-row bounds too
+                    r["kernel_ms"] = kernel_device_ms(run, reps,
+                                                      "flash_fwd_kernel")
+                    # q, k, v read, o written, lse written, time ids read
                     nbytes = (4 * B * H * L * D * 2 + B * H * L * 4
-                              + 2 * B * L * 4 + bounded * B * H * L * 4)
+                              + 2 * B * L * 4)
                     r["bound_ms"], r["bound_by"] = bound(extra["flops"],
                                                          nbytes)
                     r["library_ms"] = extra["library_ms"]
+                    r["flops"] = extra["flops"]
                 log("kernel vs plain " + json.dumps(r))
                 if not (do <= O_ATOL and dl <= LSE_ATOL):
                     raise AssertionError(f"kernel disagrees with plain: {r}")
@@ -320,6 +362,97 @@ def kernel_vs_plain(meta_pipe, dev, gen):
         del q, k, v, o_ref, lse_ref
         torch.cuda.empty_cache()
     return results, hn_results
+
+
+def tile_split(tq, tk, causal) -> dict:
+    """How many (64-row, 128-key) tiles of one batch row the forward kernel
+    skips, runs unmasked and masks: the SKIP/FULL/MASKED split of
+    ``fa.tile_types``, per head."""
+    types = fa.tile_types(tq[:1], tk[:1], fa.FWD_TILE_Q, fa.FWD_TILE_K,
+                          causal)
+    return {name: int((types == code).sum().item()) for name, code in (
+        ("skip", fa.TILE_SKIP), ("full", fa.TILE_FULL),
+        ("masked", fa.TILE_MASKED))}
+
+
+def fwd_edge_checks(meta_pipe, dev, gen):
+    """K1/K2 against the plain version where the main layouts do not reach:
+    a short stage-0 layout of the last unit (few blocks: the one-consumer
+    form), Lq != Lk (the first 1000 queries of the timed layout, which is
+    not a multiple of the q-tile, against all its keys), an all-FULL layout
+    (every key valid, non-causal) and head dim 128; K1's tolerances on the
+    valid rows that see a key."""
+    _, t_s0 = layout_time_ids(meta_pipe, HEIGHT, WIDTH, 15, 0, dev)
+    _, t_s2 = layout_time_ids(meta_pipe, HEIGHT, WIDTH, 15, 2, dev)
+    t_full = torch.zeros((B, 1024), dtype=torch.int32, device=dev)
+    cases = (("384x640 u15 s0", t_s0, t_s0, D, (True, False)),
+             ("384x640 u15 s2, Lq=1000", t_s2[:, :1000].contiguous(), t_s2,
+              D, (True, False)),
+             ("all FULL, L=1024", t_full, t_full, D, (False,)),
+             ("384x640 u15 s2, D=128", t_s2, t_s2, 128, (True, False)))
+    results = []
+    for name, tq, tk, d, causals in cases:
+        heads = H * D // d
+        q = rms_normal((B, heads, tq.shape[1], d), gen, dev)
+        k = rms_normal((B, heads, tk.shape[1], d), gen, dev)
+        v = torch.randn((B, heads, tk.shape[1], d), generator=gen,
+                        device=dev).bfloat16()
+        for causal in causals:
+            outs = [fa.attention_reference(
+                q[:, i:i + 2], k[:, i:i + 2], v[:, i:i + 2], tq, tk,
+                causal=causal, return_lse=True)
+                for i in range(0, heads, 2)]
+            o_ref = torch.cat([o for o, _ in outs], 1)
+            lse_ref = torch.cat([lse for _, lse in outs], 1)
+            seen = (lse_ref < 1e38) & (tq != fa.INVALID_TIME)[:, None, :]
+            for bounded in (True, False):
+                o, lse = fa.flash_fwd_cuda(q, k, v, tq, tk, causal=causal,
+                                           sm_scale=d ** -0.5,
+                                           bounded=bounded)
+                torch.cuda.synchronize()
+                r = dict(layout=name, Lq=tq.shape[1], Lk=tk.shape[1], d=d,
+                         causal=causal, bounded=bounded,
+                         tiles=tile_split(tq, tk, causal),
+                         max_abs_err_o=(o.float() - o_ref.float())[seen]
+                         .abs().max().item(),
+                         max_abs_err_lse=(lse - lse_ref)[seen].abs().max()
+                         .item())
+                log("kernel vs plain, edge " + json.dumps(r))
+                if not (r["max_abs_err_o"] <= O_ATOL
+                        and r["max_abs_err_lse"] <= LSE_ATOL):
+                    raise AssertionError(f"kernel disagrees with plain: {r}")
+                results.append(r)
+        del q, k, v, o_ref, lse_ref
+        torch.cuda.empty_cache()
+    return results
+
+
+def host_us(fn, n=200) -> float:
+    """Host microseconds per call of ``fn`` over ``n`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def fwd_host_cost(meta_pipe, dev, gen):
+    """What a K1 launch costs the host: the whole wrapper call (checks,
+    allocations, tensor maps, the row-bounds and attention launches),
+    bounded and classic; on one 256-row head, so that the host and not the
+    card bounds the loop."""
+    _, t = layout_time_ids(meta_pipe, HEIGHT, WIDTH, 15, 2, dev)
+    q = rms_normal((1, 1, 256, D), gen, dev)
+    t = t[:1, :256].contiguous()
+    r = {f"wrapper_{'bounded' if bounded else 'classic'}_us": host_us(
+        lambda: fa.flash_fwd_cuda(q, q, q, t, t, causal=True,
+                                  sm_scale=D ** -0.5, bounded=bounded))
+         for bounded in (True, False)}
+    log("flash_fwd host cost per launch " + json.dumps(r))
+    return r
 
 
 def hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref, name, reps, plain_ms,
@@ -347,10 +480,11 @@ def hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref, name, reps, plain_ms,
                  .item())
         if extra and hs == HN_TIMED_HS:
             # the bounded forward's bytes and operations, as K1's
-            nbytes = (4 * B * H * L * D * 2 + B * H * L * 4 + 2 * B * L * 4
-                      + B * H * L * 4)
-            r.update(ms=cuda_ms(run, reps), plain_ms=plain_ms,
-                     library_ms=extra["library_ms"])
+            nbytes = 4 * B * H * L * D * 2 + B * H * L * 4 + 2 * B * L * 4
+            r.update(ms=cuda_ms(run, reps),
+                     kernel_ms=kernel_device_ms(run, reps,
+                                                "flash_fwd_hn_kernel"),
+                     plain_ms=plain_ms, library_ms=extra["library_ms"])
             r["bound_ms"], r["bound_by"] = bound(extra["flops"], nbytes)
         log("heads-per-block kernel vs plain " + json.dumps(r))
         if not (r["max_abs_err_o"] <= O_ATOL
@@ -498,10 +632,11 @@ def bwd_vs_plain(meta_pipe, dev, gen):
                 # reads q, k, v, do, lse, delta and the time ids; writes
                 # dk and dv (K3) or dq (K4)
                 reads = 4 * io + 2 * B * heads * L * 4 + 2 * B * L * 4
+                r["flops_dkv"], r["flops_dq"] = 8 * d * pairs, 6 * d * pairs
                 r["bound_ms_dkv"], r["bound_by_dkv"] = bound(
-                    8 * d * pairs, reads + 2 * io)
+                    r["flops_dkv"], reads + 2 * io)
                 r["bound_ms_dq"], r["bound_by_dq"] = bound(
-                    6 * d * pairs, reads + io)
+                    r["flops_dq"], reads + io)
             log("backward kernels vs plain " + json.dumps(r))
             results.append(r)
             del o, lse, do, delta, got, ref
@@ -528,9 +663,12 @@ def sdpa_backward_ms(q, k, v, t, do, causal, reps):
 
 
 def conv_bound(b, t, h, w, c, co, front):
-    """Bound of one causal conv: 2 * 27 * C * Co flops per output pixel; x,
-    the weights, the bias (fp32) and the front frames read, y written."""
-    flops = 2 * 27 * c * co * b * t * h * w
+    """Bound of one causal conv: 2 * 9 * C * Co flops per output pixel and
+    temporal tap it reads (27 taps; without front frames, 9 at t = 0 and 18
+    at t = 1, as the kernel skips the rest); x, the weights, the bias (fp32)
+    and the front frames read, y written."""
+    taps = 27 * t if front else 27 * t - 18 - 9 * (t > 1)
+    flops = 2 * c * co * b * h * w * taps
     nbytes = (2 * b * t * h * w * (c + co) + 2 * 27 * c * co + 4 * co
               + front * 2 * b * 2 * h * w * c)
     return flops, bound(flops, nbytes)
@@ -605,6 +743,46 @@ def conv_vs_plain(shapes, dev, gen):
             del y, xl, lib
         del x, carried, weight, bias
         torch.cuda.empty_cache()
+    return results
+
+
+# (B, T, H, W, C, Co, fronts): what the paths' shapes do not reach: one
+# and two frames without front frames (the skipped taps), an H x W that the
+# 16 x 16 tile does not divide, and 512 -> 256 channels
+CONV_EDGES = ((1, 1, 48, 80, 128, 128, (False,)),
+              (1, 2, 96, 160, 256, 256, (False,)),
+              (1, 3, 20, 36, 128, 128, (False, True)),
+              (2, 2, 13, 17, 512, 256, (False, True)))
+
+
+def conv_edge_checks(dev, gen):
+    """K5 against the fp32 plain version at ``CONV_EDGES``, within the path
+    shapes' limit."""
+    results = []
+    for b, t, h, w, c, co, fronts in CONV_EDGES:
+        weight = (torch.randn((co, c, 3, 3, 3), generator=gen, device=dev)
+                  / math.sqrt(27 * c)).bfloat16()
+        weight = weight.contiguous(memory_format=torch.channels_last_3d)
+        bias = (0.1 * torch.randn((co,), generator=gen, device=dev)
+                ).bfloat16()
+        x = torch.randn((b, t, h, w, c), generator=gen, device=dev).bfloat16()
+        carried = torch.randn((b, 2, h, w, c), generator=gen, device=dev
+                              ).bfloat16()
+        for front in fronts:
+            fr = carried if front else None
+            y = cc.causal_conv3d_cuda(x, weight, bias, fr)
+            torch.cuda.synchronize()
+            ref = cc.causal_conv3d_reference(
+                x.float(), weight.float(), bias.float(),
+                carried.float() if front else None)
+            r = dict(shape=f"{c}->{co} {h}x{w}", b=b, t=t, front=front,
+                     max_abs_err=(y.float() - ref).abs().max().item(),
+                     max_abs_ref=ref.abs().max().item())
+            log("conv kernel vs plain, edge " + json.dumps(r))
+            if not (torch.isfinite(y).all()
+                    and r["max_abs_err"] <= CONV_REL * r["max_abs_ref"]):
+                raise AssertionError(f"conv kernel disagrees: {r}")
+            results.append(r)
     return results
 
 
@@ -1177,6 +1355,8 @@ def main() -> int:
     gen = torch.Generator(dev).manual_seed(SEED + 1)
     meta_pipe = PyramidFlowPipeline(None, device=dev)
     checks, hn_checks = kernel_vs_plain(meta_pipe, dev, kgen)
+    fwd_edge_checks(meta_pipe, dev, kgen)
+    fwd_host_cost(meta_pipe, dev, kgen)
     hn_checks += hn_tool_layout(dev)
     hn_empty_rows(dev, kgen)
     bwd_checks = bwd_vs_plain(meta_pipe, dev, kgen)
@@ -1250,6 +1430,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"conv shapes the paths launched: {len(conv_shapes)}")
     conv_checks = conv_vs_plain(conv_shapes, dev, kgen)
+    conv_checks += conv_edge_checks(dev, kgen)
 
     timed = next(r for r in checks if r["layout"] == TIMED_LAYOUT
                  and r["causal"] and r["bounded"])
@@ -1259,7 +1440,15 @@ def main() -> int:
                   and r["d"] == D and r["causal"])
     ctimed = next(r for r in conv_checks if "plain_ms" in r)
     hn_timed = next(r for r in hn_checks if "ms" in r and r["causal"])
-    log(json.dumps({"kernels": [{
+    # operations of each timed call, for the rate
+    conv_flops = conv_bound(*TIMED_CONV)[0]
+    flops = {"flash_fwd": timed["flops"], "flash_fwd_classic": classic["flops"],
+             "flash_bwd_dkv": btimed["flops_dkv"],
+             "flash_bwd_dq": btimed["flops_dq"], "causal_conv3d": conv_flops,
+             "flash_fwd_hn": timed["flops"]}
+    log(json.dumps({"kernels": [dict(
+        e, tflops=flops[e["name"]] / e["ms"] / 1e9,
+        bound_share=e["bound_ms"] / e["ms"]) for e in [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",
@@ -1268,6 +1457,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err_o"] for r in checks
                            if r["bounded"]),
         "ms": timed["ms"],
+        "kernel_ms": timed["kernel_ms"],
         "plain_ms": timed["plain_ms"],
         "bound_ms": timed["bound_ms"],
         "bound_by": timed["bound_by"],
@@ -1281,6 +1471,7 @@ def main() -> int:
         "max_abs_err": max(r["max_abs_err_o"] for r in checks
                            if not r["bounded"]),
         "ms": classic["ms"],
+        "kernel_ms": classic["kernel_ms"],
         "plain_ms": classic["plain_ms"],
         "bound_ms": classic["bound_ms"],
         "bound_by": classic["bound_by"],
@@ -1330,11 +1521,12 @@ def main() -> int:
         "launches": total["flash_fwd_hn"],
         "max_abs_err": max(r["max_abs_err_o"] for r in hn_checks),
         "ms": hn_timed["ms"],
+        "kernel_ms": hn_timed["kernel_ms"],
         "plain_ms": hn_timed["plain_ms"],
         "bound_ms": hn_timed["bound_ms"],
         "bound_by": hn_timed["bound_by"],
         "library_ms": hn_timed["library_ms"],
-    }]}))
+    }]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,11 +15,10 @@
 // k-tile's time ids are loaded into shared memory once per block and its
 // skip decision is taken once for all hs heads, which is what the TPU kernel
 // shares (types_ref, tq_ref, tk_ref). Each group keeps its own q fragments
-// in registers and its own K and V tiles in shared memory. With hs = 1 the
-// block does exactly what flash_fwd.cu's does, in the same order.
+// in registers and its own K and V tiles in shared memory.
 //
-// What bounds it on an H100: as flash_fwd.cu, the tensor cores plus the
-// per-score exp2 and mask work, not device memory. On Hopper the warps of
+// What bounds it on an H100: the tensor cores plus the per-score exp2 and
+// mask work, not device memory. On Hopper the warps of
 // different heads already overlap on an SM when they sit in different
 // blocks, so grouping heads buys no overlap the scheduler did not have; what
 // it costs is resources per block. A group takes 128 threads at the
@@ -33,6 +32,7 @@
 // returns cudaGetLastError() after the launch, and pf_flash_fwd_hn_info.
 
 #include "flash_fwd_tile.cuh"
+#include "row_bounds.cuh"
 
 namespace {
 
@@ -109,11 +109,12 @@ extern "C" int pf_flash_fwd_hn_info(int hs, int causal, int* info) {
 }
 
 // q, k, v, o: [B, H, L, 64] bf16, contiguous, H a multiple of hs. time_q
-// [B, Lq], time_kv [B, Lk] int32. mb, lse: [B, H, Lq] fp32. scale_log2 =
+// [B, Lq], time_kv [B, Lk] int32. mb, lse: [B, H, Lq] fp32; the row bounds
+// (row_bounds.cuh) are written to mb, then read by the kernel. scale_log2 =
 // sm_scale * log2(e). Returns a cudaError_t value (0 = success).
 extern "C" int pf_flash_fwd_hn(const void* q, const void* k, const void* v,
                                const void* time_q, const void* time_kv,
-                               const void* mb, void* o, void* lse, int B,
+                               void* mb, void* o, void* lse, int B,
                                int H, int Lq, int Lk, float scale_log2,
                                int causal, int hs, void* stream) {
   const void* fn = find_kernel(causal, hs);
@@ -121,6 +122,9 @@ extern "C" int pf_flash_fwd_hn(const void* q, const void* k, const void* v,
   const int smem = hs * pf::group_smem_bytes<kD>();
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int bounds = pf::launch_row_bounds<kD>(q, k, mb, B * H, Lq, Lk, scale_log2,
+                                                static_cast<cudaStream_t>(stream));
+  if (bounds != 0) return bounds;
   const dim3 grid((Lq + pf::kBQ - 1) / pf::kBQ, H / hs, B);
   const dim3 block(pf::kThreads * hs);
   void* args[] = {&q, &k, &v, &time_q, &time_kv, &mb, &o, &lse, &H, &Lq, &Lk,

@@ -1,12 +1,12 @@
-// The flash-attention forward's work on one 64-row q-tile of one head, shared
-// by the one-head-per-block forward (flash_fwd.cu) and the heads-per-block
-// forward (flash_fwd_hn.cu).
+// The heads-per-block forward's (flash_fwd_hn.cu) work on one 64-row q-tile
+// of one head, on mma.sync.
 //
 // What it computes, per (batch b, head h, query row i):
 //   visible(i, j) = causal ? t_k[j] <= t_q[i] : t_k[j] != INVALID   (INVALID = 2^30)
 //   s(i, j)       = q_i . k_j * sm_scale * log2(e)                   (log2 domain)
-//   bounded:  shift_i = mb_i, a per-row upper bound of s(i, .) that the caller
-//             computes (|q_i| * max_j |k_j| * sm_scale * log2(e) + 1)
+//   bounded:  shift_i = mb_i, a per-row upper bound of s(i, .), written by
+//             row_bounds.cuh just before (|q_i| * max_j |k_j| * sm_scale *
+//             log2(e) + 1)
 //   classic:  shift_i = running max of the visible s(i, .)
 //   p(i, j)       = visible ? exp2(s(i, j) - shift_i) : 0, rounded to bf16
 //   l_i           = sum_j p(i, j) in fp32

@@ -11,9 +11,11 @@ Two versions:
 * :func:`causal_conv3d_reference`, the plain PyTorch version: the sum of the
   27 shifted taps' matmuls in fp32, which is what the TPU kernel's body
   computes;
-* the CUDA kernel in ``csrc/causal_conv3d.cu``, an implicit GEMM with bf16
-  products and fp32 sums that reads the front frames from their own pointer,
-  launched by :func:`causal_conv3d_cuda`.
+* the CUDA kernel in ``csrc/causal_conv3d.cu``, an implicit GEMM for Hopper
+  (TMA-fed, warp-specialised ``wgmma``, bf16 products and fp32 sums) over
+  16 x 16-pixel tiles that reads the front frames from their own tensor and
+  skips the taps before the first frame when there are none, launched by
+  :func:`causal_conv3d_cuda`.
 
 :func:`supports_kernel` is the one rule for which convs the kernel takes.
 :func:`causal_conv3d` takes the plain version only for CPU tensors; for a
@@ -36,7 +38,7 @@ __all__ = ["causal_conv3d", "causal_conv3d_reference", "causal_conv3d_cuda",
            "supports_kernel", "kernel_library", "TILE_K", "TILE_N"]
 
 KERNEL_SOURCES = ("causal_conv3d.cu",)
-TILE_K = 32   # input channels per K step of the kernel
+TILE_K = 64   # input channels per K step of the kernel (one 128-byte row)
 TILE_N = 128  # output channels per block
 
 
@@ -107,9 +109,6 @@ def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
     channels-last, ``weight`` bf16 in ``torch.channels_last_3d`` (physically
     ``[Co, 3, 3, 3, C]``), ``bias`` any float dtype (the kernel adds it in
     fp32). ``causal_conv3d_cuda.launches`` counts the launches."""
-    if x.device.type != "cuda":
-        raise ValueError(f"causal_conv3d_cuda takes CUDA tensors, got "
-                         f"{x.device}")
     _check_shapes(x, weight, bias, front)
     b, t, h, w, c = x.shape
     co = weight.shape[0]
@@ -117,8 +116,9 @@ def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"the conv kernel takes bf16 with input channels a "
                          f"multiple of {TILE_K} and output channels of "
                          f"{TILE_N}; got {x.dtype}, {c} -> {co}")
-    if b * t > 65535:
-        raise ValueError(f"B * T = {b * t} frames exceed the grid")
+    if x.device.type != "cuda":
+        raise ValueError(f"causal_conv3d_cuda takes CUDA tensors, got "
+                         f"{x.device}")
     tensors = [("x", x, torch.contiguous_format), ("weight", weight,
                                                    torch.channels_last_3d)]
     if front is not None:

@@ -15,8 +15,10 @@ Two versions of the forward and of the backward live here:
 * :func:`attention_reference` and :func:`attention_backward_reference`, the
   plain PyTorch versions in fp32: a masked softmax with an explicit zero for
   rows with no visible key, and the gradient recomputed from the saved lse;
-* the CUDA kernels in ``csrc/flash_fwd.cu`` (bounded and classic softmax)
-  and ``csrc/flash_bwd.cu`` (dK/dV and dQ), head dims 64 and 128, bf16,
+* the CUDA kernels in ``csrc/flash_fwd.cu`` (bounded and classic softmax;
+  TMA-fed and warp-specialised ``wgmma`` for Hopper, which classifies each
+  (64-row, 128-key) tile by :func:`tile_types`' rule) and
+  ``csrc/flash_bwd.cu`` (dK/dV and dQ), head dims 64 and 128, bf16,
   launched by :func:`flash_fwd_cuda` and :func:`flash_bwd_cuda`.
 
 A third forward, ``csrc/flash_fwd_hn.cu`` (:func:`flash_fwd_hn_cuda`), is
@@ -48,8 +50,9 @@ from ..utils.cuda_build import load_library
 __all__ = ["flash_attention", "attention_reference",
            "attention_backward_reference", "bounded_softmax_overshoot",
            "flash_fwd_cuda", "flash_bwd_cuda", "flash_fwd_hn_cuda",
-           "flash_fwd_hn_resources", "FlashAttentionFunction",
-           "INVALID_TIME"]
+           "flash_fwd_hn_resources", "FlashAttentionFunction", "tile_types",
+           "INVALID_TIME", "TILE_SKIP", "TILE_FULL", "TILE_MASKED",
+           "FWD_TILE_Q", "FWD_TILE_K"]
 
 INVALID_TIME = 2**30
 LOG2E = 1.4426950408889634
@@ -60,6 +63,38 @@ BWD_KERNEL_SOURCES = ("flash_bwd.cu",)
 HN_KERNEL_SOURCES = ("flash_fwd_hn.cu",)
 HN_HEADS_PER_BLOCK = (1, 2, 3, 4, 6)  # the hs values the kernel is built for
 HN_GROUP_THREADS = 128  # threads per head in a block
+# tile types, as the JAX package's TILE_*
+TILE_SKIP, TILE_FULL, TILE_MASKED = 0, 1, 2
+# the forward kernel's tiles: query rows per block, keys per k-tile
+FWD_TILE_Q, FWD_TILE_K = 64, 128
+
+
+def tile_types(time_q: torch.Tensor, time_kv: torch.Tensor, bq: int, bk: int,
+               causal: bool) -> torch.Tensor:
+    """``[B, Lq]``, ``[B, Lk]`` time ids -> ``[B, ceil(Lq / bq), ceil(Lk /
+    bk)]`` int32 tile types: ``TILE_SKIP`` (no key of the k-tile is visible
+    to a valid query of the q-tile), ``TILE_FULL`` (every key visible to
+    every query: no mask) or ``TILE_MASKED``. The rule of the JAX package's
+    ``_tile_types``, with the ragged edges padded with ``INVALID_TIME`` as the
+    TPU wrapper pads them; the forward kernel applies it to each (64-row,
+    128-key) tile, ``bq = FWD_TILE_Q`` and ``bk = FWD_TILE_K``."""
+    def tiles(t, size):
+        pad = -t.shape[1] % size
+        t = torch.cat([t, t.new_full((t.shape[0], pad), INVALID_TIME)], 1)
+        return t.reshape(t.shape[0], -1, size)
+
+    tq, tk = tiles(time_q, bq), tiles(time_kv, bk)
+    qmin = tq.amin(-1)[:, :, None]
+    qmax_valid = torch.where(tq == INVALID_TIME, -1, tq).amax(-1)[:, :, None]
+    kmin, kmax = tk.amin(-1)[:, None, :], tk.amax(-1)[:, None, :]
+    if causal:
+        skip = kmin > qmax_valid
+        full = kmax <= qmin
+    else:
+        skip = (kmin == INVALID_TIME) | (qmax_valid < 0)
+        full = (kmax != INVALID_TIME).expand_as(skip)
+    return torch.where(skip, TILE_SKIP,
+                       torch.where(full, TILE_FULL, TILE_MASKED)).int()
 
 
 def attention_reference(q, k, v, time_q, time_kv=None, *, causal=True,
@@ -270,8 +305,9 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 
     q, k, v ``[B, H, L, D]`` bf16 contiguous on one CUDA device, D in
     (64, 128); time ids ``[B, L]`` int32. ``bounded`` shifts the softmax by
-    the per-row bound ``|q_i| * max|k| * sm_scale * log2(e) + 1`` (computed
-    here in fp32 over all keys, padding included) instead of a running max;
+    the per-row bound ``|q_i| * max|k| * sm_scale * log2(e) + 1`` (fp32 sums
+    over all keys, padding included, computed on the card by the library
+    just before the kernel) instead of a running max;
     it is exact while the bound stays within ~120 log2 units of the true row
     max, which RMS-normalised q and k guarantee. ``flash_fwd_cuda.launches``
     counts the launches of both forms, ``.classic_launches`` those of the
@@ -281,7 +317,9 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
     _check_kernel_inputs(q, k, v, time_q, time_kv)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    mb = _row_bounds(q, k, sm_scale) if bounded else None
+    # the bounded form's row bounds, which the library writes and then reads
+    mb = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+          if bounded else None)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = kernel_library()
@@ -301,14 +339,6 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.classic_launches = 0
-
-
-def _row_bounds(q, k, sm_scale):
-    """The bounded forward's per-row shift ``|q_i| * max|k| * sm_scale *
-    log2(e) + 1`` ``[B, H, Lq]`` fp32, over all keys, padding included."""
-    qn = q.float().square().sum(-1).sqrt()
-    kmax = k.float().square().sum(-1).sqrt().amax(-1, keepdim=True)
-    return (qn * kmax * (sm_scale * LOG2E) + 1.0).contiguous()
 
 
 def flash_fwd_hn_cuda(q, k, v, time_q, time_kv, *, causal: bool,
@@ -338,7 +368,7 @@ def flash_fwd_hn_cuda(q, k, v, time_q, time_kv, *, causal: bool,
             f"{res['registers']} registers each can launch with at most "
             f"{res['max_threads']} threads, and needs {res['shared_bytes']} "
             f"of {res['shared_limit']} bytes of shared memory")
-    mb = _row_bounds(q, k, sm_scale)
+    mb = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
     lib = hn_kernel_library()

@@ -31,6 +31,7 @@ from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
     (1, 3, 16, 128, 128, 128),
     (2, 1, 16, 128, 128, 128),   # image frame
     (1, 2, 32, 256, 128, 256),   # channel change
+    (1, 2, 12, 128, 128, 128),   # H not a multiple of the kernel's 16-row tile
 ])
 def test_plain_matches_pallas(shape):
     b, t, h, w, c, co = shape
@@ -98,7 +99,7 @@ def _conv_pair(c, co, stride, seed):
     ((2, 1, 1), (1, 2, 2)),      # temporal downsampler: the last frame only
 ])
 def test_streaming_carry_matches_jax(stride, splits):
-    c, co = 32, 128
+    c, co = 64, 128  # the fewest input channels the kernel admits
     jconv, params, port = _conv_pair(c, co, stride, seed=len(splits))
     x = np.random.default_rng(3).standard_normal(
         (1, sum(splits), 5, 6, c)).astype(np.float32)
@@ -136,6 +137,7 @@ def test_kernel_rule():
     assert not cc.supports_kernel(3, 128, **ok)          # conv_in
     assert not cc.supports_kernel(128, 3, **ok)          # conv_out
     assert not cc.supports_kernel(512, 32, **ok)         # encoder conv_out
+    assert not cc.supports_kernel(96, 128, **ok)         # C % 64
     assert not cc.supports_kernel(128, 128, (3, 3, 3), (1, 2, 2),
                                   torch.bfloat16)        # downsampler
     assert not cc.supports_kernel(128, 128, (1, 1, 1), (1, 1, 1),
@@ -157,3 +159,23 @@ def test_release_vae_kernel_conv_count():
     assert kernel_conv_count(fp32) == 0
     assert all(p.is_contiguous(memory_format=torch.channels_last_3d)
                for p in vae.parameters() if p.dim() == 5)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(monkeypatch):
+    """The admission rule (input channels a multiple of 64: one K step is
+    one 128-byte row) is checked before the device and before the library
+    is touched; nothing is launched or counted."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(cc, "kernel_library", no_library)
+    x = torch.zeros((1, 2, 8, 16, 96), dtype=torch.bfloat16)
+    weight = torch.zeros((128, 96, 3, 3, 3), dtype=torch.bfloat16)
+    bias = torch.zeros(128)
+    before = cc.causal_conv3d_cuda.launches
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cc.causal_conv3d_cuda(x, weight, bias)
+    x, weight = x[..., :64].contiguous(), weight[:, :64].contiguous()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cc.causal_conv3d_cuda(x, weight, bias)
+    assert cc.causal_conv3d_cuda.launches == before

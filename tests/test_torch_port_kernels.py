@@ -97,6 +97,41 @@ def test_kernel_matches_plain(cuda, d, bounded, causal):
     assert dl.max().item() <= LSE_ATOL, dl.max().item()
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_matches_plain_over_several_waves(cuda, causal):
+    """1200 blocks, several waves on the card, on the DiT-like layout whose
+    text padding and padded middle give q-tiles different tile types; L =
+    1600 is not a multiple of the 128-key tile."""
+    q, k, v, t = _inputs(cuda, h=24, l=1600)
+    for bounded in (True, False):
+        o, lse = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                                bounded=bounded)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_reference(q, k, v, t, causal=causal,
+                                             return_lse=True)
+        valid = t[0] != INVALID_TIME
+        assert (o.float() - o_ref.float())[:, :, valid].abs().max() <= O_ATOL
+        assert (lse - lse_ref)[:, :, valid].abs().max() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_kernel_matches_plain_on_all_full_tiles(cuda, causal):
+    """Every key valid and at time 0: every tile is FULL (no mask) under
+    both rules."""
+    q, k, v, _ = _inputs(cuda, l=384)
+    t = torch.zeros((2, 384), dtype=torch.int32, device=cuda)
+    types = fa.tile_types(t, t, fa.FWD_TILE_Q, fa.FWD_TILE_K, causal)
+    assert (types == fa.TILE_FULL).all()
+    for bounded in (True, False):
+        o, lse = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                                bounded=bounded)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = attention_reference(q, k, v, t, causal=causal,
+                                             return_lse=True)
+        assert (o.float() - o_ref.float()).abs().max() <= O_ATOL
+        assert (lse - lse_ref).abs().max() <= LSE_ATOL
+
+
 @pytest.mark.parametrize("bounded", [True, False])
 def test_kernel_matches_plain_cross_lengths(cuda, bounded):
     """Lq != Lk: 200 queries against 333 keys of another layout."""
@@ -282,8 +317,10 @@ def _conv_inputs(dev, b, t, h, w, c, co, front, seed=0):
 
 @pytest.mark.parametrize("front", [False, True])
 @pytest.mark.parametrize("shape", [
-    (1, 3, 20, 36, 128, 128),   # 720 pixels: a ragged last 128-pixel tile
+    (1, 3, 20, 36, 128, 128),   # H, W not multiples of the 16 x 16 tile
     (2, 1, 13, 17, 64, 256),    # B = 2, one frame, two output-channel tiles
+    (1, 2, 24, 32, 128, 128),   # two frames: without front, 2 and 1 taps skipped
+    (1, 2, 9, 18, 512, 256),    # 512 -> 256 channels, ragged
 ])
 def test_conv_kernel_matches_plain(cuda, shape, front):
     x, weight, bias, fr = _conv_inputs(cuda, *shape, front)
@@ -359,16 +396,18 @@ def test_hn_kernel_matches_plain_or_is_refused(cuda, hs, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-def test_hn_kernel_at_one_head_is_the_one_head_kernel_bit_for_bit(cuda,
-                                                                  causal):
-    """hs = 1 runs the same tile code as flash_fwd.cu's bounded forward."""
+def test_hn_kernel_at_one_head_matches_the_one_head_kernel(cuda, causal):
+    """hs = 1 against the bounded forward (flash_fwd.cu), within that
+    kernel's tolerances: the two round in different orders."""
     q, k, v, t = _inputs(cuda, h=3, l=333)
     o1, lse1 = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
                               bounded=True)
     o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
                                hs=1)
     torch.cuda.synchronize()
-    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    valid = t[0] != INVALID_TIME
+    assert (o.float() - o1.float())[:, :, valid].abs().max() <= O_ATOL
+    assert (lse - lse1)[:, :, valid].abs().max() <= LSE_ATOL
 
 
 def test_hn_kernel_rows_without_visible_keys(cuda):
