@@ -1,12 +1,13 @@
 // Flash-attention backward with time-id masking, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels `_bwd_dkv_kernel` (K3) and `_bwd_dq_kernel`
-// (K4) of pyramid_flow_tpu/ops/flash_attention.py. One backward serves both
-// forward forms (bounded and classic softmax): it consumes the natural-log
-// lse the forward saved, which is the same number for both.
+// (K4) of pyramid_flow_tpu/ops/flash_attention.py, and the TPU wrapper's
+// `delta = sum(o * do)`. One backward serves both forward forms (bounded and
+// classic softmax): it consumes the natural-log lse the forward saved, which
+// is the same number for both.
 //
-// What it computes, per (batch b, head h), with the forward's o and lse and
-// the caller's delta_i = sum_d o_id * do_id (fp32):
+// What it computes, per (batch b, head h), with the forward's o and lse:
+//   delta_i       = sum_d o_id * do_id                     (fp32 sums of bf16 products)
 //   visible(i, j) = causal ? t_k[j] <= t_q[i] : t_k[j] != INVALID    (INVALID = 2^30)
 //   p(i, j)       = visible ? exp(q_i . k_j * sm_scale - lse_i) : 0  (fp32)
 //   dv_j          = sum_i p(i, j) do_i                     (p rounded to bf16)
@@ -16,504 +17,678 @@
 // with bf16 operands and fp32 sums, as the TPU kernels do. Under causal a
 // padded query row (t_q = INVALID) sees every key, as on the TPU; the caller's
 // contract is that such rows carry a zero upstream gradient (do = 0, so
-// delta = 0), which makes their every term zero. A row with no visible key has
-// lse = 3e38, so its p underflows to exactly 0.
+// delta = 0 exactly), which makes their every term zero. A row with no
+// visible key has lse = 3e38, so its p underflows to exactly 0.
 //
-// Two kernels and no atomics, as on the TPU, so the result is deterministic:
-//   * pf_flash_bwd_dkv: one block of 4 warps per (b, h, 64-key tile). K and V
-//     stay in shared memory; the block loops over 64-row q-tiles (loading Q,
-//     dO, lse, delta and the query times of each), computes S^T = K Q^T with
-//     the keys as rows, so P^T and dS^T come out of the accumulators already
-//     in the A-operand layout of dV += P^T dO and dK += dS^T Q. Each warp owns
-//     16 keys; dK and dV stay in fp32 registers and are written once.
-//   * pf_flash_bwd_dq: one block of 4 warps per (b, h, 64-row q-tile). Q and
-//     dO stay in shared memory; the block loops over 64-key tiles and
-//     accumulates dQ += dS K in fp32 registers.
+// Three launches on the caller's stream, no atomics, so the result is
+// deterministic bit for bit:
+//   * bwd_delta_kernel: delta, D / 8 lanes per row, each loading 16 bytes of
+//     o and of do (no fp32 copies of either);
+//   * flash_bwd_dkv_kernel (K3): one block per (64-key tile, head, batch
+//     row). A producer warp TMA-loads the tile's K and V once, then walks
+//     the 64-row q-tiles: it classifies each against the k-tile by the
+//     forward's rule (tile_walk.cuh), drops SKIP tiles before loading them,
+//     and TMA-loads Q and dO of every other one into a ring of kStages
+//     stages, with the tile's t_q, lse * log2(e), delta, first row and type
+//     written beside them under the same full barrier. The consumer
+//     warpgroup computes S^T = K Q^T and dP^T = V dO^T (wgmma, both operands
+//     K-major in shared memory), P^T = exp2(S^T scale log2(e) - lse log2(e))
+//     (masked only on MASKED tiles) in registers, where the accumulator
+//     already has the A-fragment layout, dV += P^T dO with dO read
+//     transposed (MN-major), dS^T = P^T (dP^T - delta) sm_scale in
+//     registers, and dK += dS^T Q with Q read transposed. dK and dV stay in
+//     fp32 registers and are written once.
+//   * flash_bwd_dq_kernel (K4): one block per (64-row q-tile, head, batch
+//     row). The producer loads Q and dO once and walks the 64-key k-tiles
+//     with the same rule, TMA-loading K, V and the tile's t_k into the
+//     ring; the consumer computes S = Q K^T, dP = dO V^T, dS in registers
+//     and dQ += dS K with K read transposed; dQ is written once.
+// Q, K, V and dO are read through 3-D tensor maps (D, L, B * H), so rows
+// past L load as zeros; keys past Lk count as INVALID, rows past Lq get
+// lse = +inf (p = 0) and delta = 0, and neither is written.
 //
-// Differences from the TPU kernels, none of which changes the result beyond
-// rounding:
-//   * exp is taken as exp2 of scores scaled by sm_scale * log2(e) against
-//     lse * log2(e);
-//   * the TPU wrapper pads L to block multiples; these kernels mask the ragged
-//     edge themselves (rows past Lq load as zeros with lse = +inf, so p = 0;
-//     keys past Lk count as INVALID and are never written);
-//   * the TPU's per-tile type table becomes block skipping, the forward's rule
-//     seen from either side: a (q-tile, k-tile) pair is skipped when no valid
-//     query of the q-tile (t_q != INVALID) can see any key of the k-tile.
-//     Skipped pairs only hold terms of padded query rows, which are zero by
-//     the contract above. Every other pair is masked element by element.
+// Design. At head dim 64 a block is one consumer warpgroup and one
+// producer warpgroup (one warp of which works), two blocks per SM;
+// setmaxnreg gives the producer's registers to the consumers (dK, dV, S^T,
+// dP^T and two sets of bf16 fragments: about 160 registers in K3). The
+// products of one tile are issued so that the tensor cores overlap the CUDA
+// cores' work: dP^T runs while P^T is computed, dV while dS^T is, and the
+// next tile's S^T and dP^T are issued before this tile's dK (or dQ) is
+// waited for, so a stage is released one tile late (kStages = 3: the tile
+// whose last product runs, the tile in use, one loading). At head dim 128
+// the block holds 128 KiB of shared memory and its accumulators twice as
+// many registers, so it runs one block per SM, without setmaxnreg, and
+// waits for each tile's last product before the next tile.
 //
-// What bounds it on an H100: per (q-tile, k-tile) pair the dkv kernel does
-// four 64 x 64 x D products (S, dP, dV, dK) and the dq kernel three (S, dP,
-// dQ), 2 * 64 * 64 * D flops each, on tiles that mostly come from L2, so the
-// tensor cores and the per-element exp2/mask work are the limit, not device
-// memory. This first version is simple, like the forward: synchronous 16-byte
-// loads into padded shared-memory tiles (row stride D + 8 halves keeps the
-// fragment loads free of bank conflicts), bf16 mma.sync.m16n8k16 with fp32
-// accumulation, operands whose layout does not match the B fragment gathered
-// two halves at a time. Fragments are reloaded from shared memory for every
-// product, so at D = 128 the registers hold only the two 16 x 128 fp32
-// accumulators and two 16 x 64 score tiles (192 floats a thread in dkv).
-// Faster variants (wgmma, TMA, a pipelined ring, one fused pass with atomic
-// dQ) keep the same contract.
+// What bounds it on an H100: per (q-tile, k-tile) pair K3 does four 64 x 64
+// x D products (S, dP, dV, dK) and K4 three (S, dP, dQ), on tiles that
+// mostly come from L2, beside an exp2 and about ten fp32 operations per
+// score; the tensor cores and that per-score work are the limit, not device
+// memory.
 //
-// Entry points: pf_flash_bwd_dkv and pf_flash_bwd_dq (plain C interface,
-// bound with ctypes). Each returns cudaGetLastError() after its launch.
+// Entry point: pf_flash_bwd (plain C interface, bound with ctypes): delta,
+// then K3, then K4. It returns 0 on success (see its comment for the rest).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
+#include "row_bounds.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
-constexpr int kInvalidTime = 1 << 30;
-constexpr int kTile = 64;       // q rows or keys per tile: 4 warps x 16 rows
-constexpr int kThreads = 128;
+using namespace pf;
+
+constexpr int kTile = 64;      // rows of every tile: keys (K3's k-tile) or queries
+constexpr int kStages = 3;     // the ring of Q/dO (K3) or K/V (K4) tiles
+constexpr int kThreads = 256;  // the consumer warpgroup, then the producer's
+constexpr int kDeltaThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 16-bit values in one 32-bit register, `lo` in the low half.
-__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
+// Shared memory, in bytes from a 1024-aligned base: two resident [64 x D]
+// tiles (K and V in K3, Q and dO in K4), the ring of two tiles per stage,
+// and per stage three 64-long rows of 4-byte values (K3: t_q, lse * log2(e),
+// delta; K4: t_k in the first).
+template <int D>
+struct Smem {
+  static constexpr int kHalves = D / 64;                   // 64-wide swizzle atoms of a row
+  static constexpr int kTileBytes = kHalves * kTile * 128;  // [kHalves][64 rows][64]
+  static constexpr int kStage = 2 * kTileBytes;
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kRows = kStage + kStages * kStageBytes;
+  static constexpr int kInfo = kRows + kStages * 3 * kTile * 4;  // [kStages]: first row, type
+  static constexpr int kBars = kInfo + kStages * 8;               // full, empty, resident
+  static constexpr int kBytes = kBars + (2 * kStages + 1) * 8;
+  static constexpr int kLaunchBytes = kBytes + 1024;              // slack for the alignment
+};
+static_assert(2 * (Smem<64>::kLaunchBytes + 1024) <= 233472, "two blocks per SM at D = 64");
+static_assert(Smem<128>::kLaunchBytes <= 232448, "one block per SM at D = 128");
 
 __device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  return pack2(__bfloat16_as_ushort(__float2bfloat16_rn(lo)),
-               __bfloat16_as_ushort(__float2bfloat16_rn(hi)));
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
 }
 
-// Rows [row0, row0 + kTile) of a row-major [L, D] bf16 matrix into shared
-// memory with row stride D + 8. Rows at or past L are zero.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src, int row0,
-                                          int L, int tid) {
-  constexpr int kVec = 8;  // bf16 per 16-byte load
-  constexpr int kPerRow = D / kVec;
-  constexpr int kStride = D + 8;
-  for (int i = tid; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < L) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * kStride + c) = val;
-  }
-}
-
-// c[16 x 64] = A[rows a_row0 .. a_row0 + 15, 0 .. D) . B[rows 0 .. 63, 0 .. D)^T,
-// both row-major tiles in shared memory. Column tile n of c holds B rows
-// n*8 .. n*8+7; the thread holds rows g (c[n][0..1]) and g + 8 (c[n][2..3]),
-// columns n*8 + 2*t4 + {0, 1}.
-template <int D>
-__device__ __forceinline__ void gemm_abt(float (&c)[8][4],
-                                         const __nv_bfloat16* a_tile, int a_row0,
-                                         const __nv_bfloat16* b_tile, int g,
-                                         int t4) {
-  constexpr int kStride = D + 8;
-#pragma unroll
-  for (int n = 0; n < 8; ++n) c[n][0] = c[n][1] = c[n][2] = c[n][3] = 0.f;
-#pragma unroll
-  for (int s = 0; s < D / 16; ++s) {
-    const int col = s * 16 + t4 * 2;
-    uint32_t a[4];
-    a[0] = *reinterpret_cast<const uint32_t*>(&a_tile[(a_row0 + g) * kStride + col]);
-    a[1] = *reinterpret_cast<const uint32_t*>(&a_tile[(a_row0 + g + 8) * kStride + col]);
-    a[2] = *reinterpret_cast<const uint32_t*>(&a_tile[(a_row0 + g) * kStride + col + 8]);
-    a[3] = *reinterpret_cast<const uint32_t*>(&a_tile[(a_row0 + g + 8) * kStride + col + 8]);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const __nv_bfloat16* brow = &b_tile[(n * 8 + g) * kStride + col];
-      mma_16816(c[n], a, *reinterpret_cast<const uint32_t*>(brow),
-                *reinterpret_cast<const uint32_t*>(brow + 8));
-    }
-  }
-}
-
-// The fp32 accumulator of a [16 x 64] product as bf16 A fragments of four
-// 16-deep k-steps: two adjacent 8-column tiles make one k-step.
-__device__ __forceinline__ void to_a_frags(uint32_t (&f)[4][4], const float (&c)[8][4]) {
-#pragma unroll
-  for (int n = 0; n < 8; ++n) {
-    f[n >> 1][(n & 1) * 2 + 0] = pack2f(c[n][0], c[n][1]);
-    f[n >> 1][(n & 1) * 2 + 1] = pack2f(c[n][2], c[n][3]);
-  }
-}
-
-// acc[16 x D] += P[16 x 64] . B[rows 0 .. 63, 0 .. D), P as A fragments and B
-// a row-major tile in shared memory. The B fragment wants two consecutive
-// rows of one column per register, so it is gathered two halves at a time.
-template <int D>
-__device__ __forceinline__ void gemm_pb(float (&acc)[D / 8][4], const uint32_t (&f)[4][4],
-                                        const __nv_bfloat16* b_tile, int g, int t4) {
-  constexpr int kStride = D + 8;
-  const unsigned short* bs = reinterpret_cast<const unsigned short*>(b_tile);
+// A [64 x 64] fp32 accumulator as the bf16 A fragments of four 16-deep
+// k-steps: accumulator columns 16 kk .. 16 kk + 15 are k-step kk.
+__device__ __forceinline__ void to_frags(uint32_t (&f)[4][4], const float (&c)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const int row = kk * 16 + t4 * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      const int col = n * 8 + g;
-      const uint32_t b0 = pack2(bs[row * kStride + col], bs[(row + 1) * kStride + col]);
-      const uint32_t b1 = pack2(bs[(row + 8) * kStride + col], bs[(row + 9) * kStride + col]);
-      mma_16816(acc[n], f[kk], b0, b1);
-    }
+    f[kk][0] = pack2f(c[8 * kk + 0], c[8 * kk + 1]);
+    f[kk][1] = pack2f(c[8 * kk + 2], c[8 * kk + 3]);
+    f[kk][2] = pack2f(c[8 * kk + 4], c[8 * kk + 5]);
+    f[kk][3] = pack2f(c[8 * kk + 6], c[8 * kk + 7]);
   }
 }
 
-// Rows r0 (acc[.][0..1]) and r0 + 8 (acc[.][2..3]) of a [16 x D] fp32
+// c[64 x 64] = A B^T over D: A a resident tile, B a ring tile, both
+// K-major [kHalves][64 rows][64].
+template <int D>
+__device__ __forceinline__ void issue_abt(float (&c)[32], const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kTile * 128 + (kk % 4) * 32;
+    wgmma_m64n64k16_ss(c, desc_sw128(a + off, 16, 1024), desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// acc[64 x D] += F[64 x 64] B over 64 rows of B: F as register fragments,
+// B a [kHalves][64 rows][64] tile read transposed (its rows are the k
+// dimension, its D columns the n dimension).
+template <int D>
+__device__ __forceinline__ void issue_fb(float (&acc)[D / 2], const uint32_t (&f)[4][4],
+                                         const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * 128, kTile * 128, 1024);
+    if constexpr (D == 64) {
+      wgmma_m64n64k16_rs_tb(acc, f[kk], db);
+    } else {
+      wgmma_m64n128k16_rs_tb(acc, f[kk], db);
+    }
+  }
+  wgmma_commit();
+}
+
+// Rows r (acc[4 j + 0..1]) and r + 8 (acc[4 j + 2..3]) of a [64 x D] fp32
 // accumulator to a row-major [L, D] bf16 matrix; rows at or past L are not
 // written.
 template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[D / 8][4],
-                                           int r0, int L, int t4) {
-  if (r0 < L) {
-    __nv_bfloat16* row = out + static_cast<size_t>(r0) * D + t4 * 2;
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&acc)[D / 2], int r,
+                                           int L, int qd) {
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-          __floats2bfloat162_rn(acc[n][0], acc[n][1]);
-    }
-  }
-  if (r0 + 8 < L) {
-    __nv_bfloat16* row = out + static_cast<size_t>(r0 + 8) * D + t4 * 2;
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= L) continue;
+    __nv_bfloat16* row = out + static_cast<size_t>(r + 8 * h) * D + qd * 2;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(row + n * 8) =
-          __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(row + j * 8) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
 }
 
+__device__ __forceinline__ void init_barriers(uint64_t* full, uint64_t* empty, uint64_t* res) {
+  for (int i = 0; i < kStages; ++i) {
+    mbar_init(&full[i], 32);  // the producer warp's lanes
+    mbar_init(&empty[i], 4);  // one lane per consumer warp
+  }
+  mbar_init(res, 1);
+  mbar_fence_init();
+}
+
+// The dot products of the 8 bf16 pairs of two 16-byte words, in fp32.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* pb = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(pa[i]);
+    const float2 y = __bfloat1622float2(pb[i]);
+    s = fmaf(x.x, y.x, fmaf(x.y, y.y, s));
+  }
+  return s;
+}
+
+// delta of `rows` rows of D: D / 8 lanes per row.
 template <int D>
-constexpr int smem_bytes() {
-  // four [kTile, D + 8] bf16 tiles and three kTile-long rows of 4 bytes
-  return 4 * kTile * (D + 8) * 2 + 3 * kTile * 4;
+__global__ void __launch_bounds__(kDeltaThreads)
+bwd_delta_kernel(const uint4* __restrict__ o, const uint4* __restrict__ dout,
+                 float* __restrict__ delta, int rows) {
+  constexpr int kLanes = D / 8;
+  const int part = threadIdx.x % kLanes;
+  const int row = blockIdx.x * (kDeltaThreads / kLanes) + threadIdx.x / kLanes;
+  float s = 0.f;
+  if (row < rows) {
+    const size_t i = static_cast<size_t>(row) * kLanes + part;
+    s = dot8(o[i], dout[i]);
+  }
+  s = row_sum<kLanes>(s);
+  if (part == 0 && row < rows) delta[row] = s;
 }
 
 // K3: dK and dV of one 64-key tile.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const int* __restrict__ time_q,
-                     const int* __restrict__ time_kv,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv,
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const int* __restrict__ time_q, const int* __restrict__ time_kv,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
                      int H, int Lq, int Lk, float sm_scale, float scale_log2) {
-  constexpr int kStride = D + 8;
-  constexpr int kOt = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Vs = Ks + kTile * kStride;
-  __nv_bfloat16* Qs = Vs + kTile * kStride;
-  __nv_bfloat16* dOs = Qs + kTile * kStride;
-  float* s_lse = reinterpret_cast<float*>(dOs + kTile * kStride);  // lse * log2(e)
-  float* s_delta = s_lse + kTile;
-  int* s_tq = reinterpret_cast<int*>(s_delta + kTile);
-  __shared__ int s_kmin;
+  using S = Smem<D>;
+  constexpr bool kPipe = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int* s_rows = reinterpret_cast<int*>(smem + S::kRows);
+  int* s_info = reinterpret_cast<int*>(smem + S::kInfo);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int b = blockIdx.z;
-  const size_t bh = static_cast<size_t>(b) * H + blockIdx.y;
+  // the earliest keys (seen by the most queries under causal) start first
   const int k0 = blockIdx.x * kTile;
+  const int b = blockIdx.z;
+  const int bh = b * H + blockIdx.y;
+  const int* tq = time_q + static_cast<size_t>(b) * Lq;
+  const int* tk = time_kv + static_cast<size_t>(b) * Lk;
+  const int lane = threadIdx.x & 31;
 
-  const __nv_bfloat16* qb = q + bh * Lq * D;
-  const __nv_bfloat16* kb = k + bh * Lk * D;
-  const __nv_bfloat16* vb = v + bh * Lk * D;
-  const __nv_bfloat16* dob = dout + bh * Lq * D;
-  const int* tqb = time_q + static_cast<size_t>(b) * Lq;
-  const int* tkb = time_kv + static_cast<size_t>(b) * Lk;
-  const float* lseb = lse + bh * Lq;
-  const float* deltab = delta + bh * Lq;
-
-  if (tid == 0) s_kmin = kInvalidTime;
-  load_tile<D>(Ks, kb, k0, Lk, tid);
-  load_tile<D>(Vs, vb, k0, Lk, tid);
+  if (threadIdx.x == 0) init_barriers(full, empty, kvbar);
   __syncthreads();
-  if (tid < kTile) {
-    atomicMin(&s_kmin, k0 + tid < Lk ? tkb[k0 + tid] : kInvalidTime);
-  }
-  // this thread's two keys: rows g and g + 8 of the warp's 16
-  const int wr = warp * 16;
-  const int kr0 = k0 + wr + g;
-  const int tk0 = kr0 < Lk ? tkb[kr0] : kInvalidTime;
-  const int tk1 = kr0 + 8 < Lk ? tkb[kr0 + 8] : kInvalidTime;
-  float dk_acc[kOt][4], dv_acc[kOt][4];
-#pragma unroll
-  for (int n = 0; n < kOt; ++n) {
-    dk_acc[n][0] = dk_acc[n][1] = dk_acc[n][2] = dk_acc[n][3] = 0.f;
-    dv_acc[n][0] = dv_acc[n][1] = dv_acc[n][2] = dv_acc[n][3] = 0.f;
-  }
-  __syncthreads();  // s_kmin is final
-  const int kmin = s_kmin;
 
-  const int nq = (Lq + kTile - 1) / kTile;
-  for (int qt = 0; qt < nq; ++qt) {
-    const int q0 = qt * kTile;
-    int tq = kInvalidTime;
-    if (tid < kTile) {
-      const bool in = q0 + tid < Lq;
-      if (in) tq = tqb[q0 + tid];
-      s_tq[tid] = tq;
-      s_lse[tid] = in ? lseb[q0 + tid] * kLog2e : INFINITY;
-      s_delta[tid] = in ? deltab[q0 + tid] : 0.f;
+  if (threadIdx.x >= 128) {
+    // ------------------------------------------------------------ producer
+    if constexpr (kPipe) regs_dealloc<24>();
+    if (threadIdx.x >= 160) return;  // one warp loads
+    int kmin = kInvalidTime, kmax = 0;
+#pragma unroll
+    for (int r = lane; r < kTile; r += 32) {
+      const int t = k0 + r < Lk ? tk[k0 + r] : kInvalidTime;
+      kmin = min(kmin, t);
+      kmax = max(kmax, t);
     }
-    // Skip a q-tile none of whose valid queries sees a key of this tile.
-    const bool unseen = tid >= kTile || tq == kInvalidTime ||
-                        (kCausal ? tq < kmin : kmin == kInvalidTime);
-    if (__syncthreads_and(unseen)) continue;
-
-    load_tile<D>(Qs, qb, q0, Lq, tid);
-    load_tile<D>(dOs, dob, q0, Lq, tid);
-    __syncthreads();
-
-    // P^T: the warp's 16 keys x the tile's 64 queries
-    float pt[8][4];
-    gemm_abt<D>(pt, Ks, wr, Qs, g, t4);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = n * 8 + t4 * 2 + (j & 1);
-        const int tkr = j < 2 ? tk0 : tk1;
-        const bool vis = kCausal ? tkr <= s_tq[qc] : tkr != kInvalidTime;
-        pt[n][j] = vis ? exp2f(pt[n][j] * scale_log2 - s_lse[qc]) : 0.f;
+    kmin = warp_min(kmin);
+    kmax = warp_max(kmax);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kvbar, 2 * S::kTileBytes);
+      for (int hf = 0; hf < S::kHalves; ++hf) {
+        tma_load_3d(smem + hf * kTile * 128, &map_k, kvbar, hf * 64, k0, bh);
+        tma_load_3d(smem + S::kTileBytes + hf * kTile * 128, &map_v, kvbar, hf * 64, k0, bh);
       }
     }
-    // dS^T = P^T * (V dO^T - delta) * sm_scale
-    float dst[8][4];
-    gemm_abt<D>(dst, Vs, wr, dOs, g, t4);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = n * 8 + t4 * 2 + (j & 1);
-        dst[n][j] = pt[n][j] * (dst[n][j] - s_delta[qc]) * sm_scale;
+    const float* lse_bh = lse + static_cast<size_t>(bh) * Lq;
+    const float* delta_bh = delta + static_cast<size_t>(bh) * Lq;
+    int stage = 0;
+    uint32_t phase = 0;
+    const int nq = (Lq + kTile - 1) / kTile;
+    for (int qt = 0; qt <= nq; ++qt) {
+      const int q0 = qt * kTile;
+      const int r = lane * 2;  // this lane's two rows of the q-tile
+      int t0 = kInvalidTime, t1 = kInvalidTime, type = kSkip;
+      if (qt < nq) {
+        if (q0 + r < Lq) t0 = tq[q0 + r];
+        if (q0 + r + 1 < Lq) t1 = tq[q0 + r + 1];
+        const int qmin = warp_min(min(t0, t1));
+        const int qmax = warp_max(max(t0 != kInvalidTime ? t0 : -1, t1 != kInvalidTime ? t1 : -1));
+        type = tile_type<kCausal>(qmin, qmax, kmin, kmax);
+        if (type == kSkip) continue;
+      }
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (qt < nq) {
+        int* rows = s_rows + stage * 3 * kTile;
+        float* rl = reinterpret_cast<float*>(rows + kTile);
+        float* rd = reinterpret_cast<float*>(rows + 2 * kTile);
+        const bool in0 = q0 + r < Lq, in1 = q0 + r + 1 < Lq;
+        *reinterpret_cast<int2*>(rows + r) = make_int2(t0, t1);
+        *reinterpret_cast<float2*>(rl + r) =
+            make_float2(in0 ? lse_bh[q0 + r] * kLog2e : INFINITY,
+                        in1 ? lse_bh[q0 + r + 1] * kLog2e : INFINITY);
+        *reinterpret_cast<float2*>(rd + r) =
+            make_float2(in0 ? delta_bh[q0 + r] : 0.f, in1 ? delta_bh[q0 + r + 1] : 0.f);
+      }
+      if (lane == 0) {
+        s_info[stage * 2 + 0] = qt < nq ? q0 : -1;
+        s_info[stage * 2 + 1] = type;
+      }
+      if (lane == 0 && qt < nq) {
+        unsigned char* st = smem + S::kStage + stage * S::kStageBytes;
+        mbar_arrive_expect_tx(&full[stage], S::kStageBytes);
+        for (int hf = 0; hf < S::kHalves; ++hf) {
+          tma_load_3d(st + hf * kTile * 128, &map_q, &full[stage], hf * 64, q0, bh);
+          tma_load_3d(st + S::kTileBytes + hf * kTile * 128, &map_do, &full[stage], hf * 64, q0,
+                      bh);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    uint32_t f[4][4];
-    to_a_frags(f, pt);
-    gemm_pb<D>(dv_acc, f, dOs, g, t4);  // dV += P^T dO
-    to_a_frags(f, dst);
-    gemm_pb<D>(dk_acc, f, Qs, g, t4);   // dK += dS^T Q
-    __syncthreads();  // Qs, dOs and the row arrays are rewritten next
-  }
+  } else {
+    // ------------------------------------------------------------ consumer
+    if constexpr (kPipe) regs_alloc<232>();
+    const int warp = threadIdx.x / 32;
+    const int g = lane >> 2;  // row within the warp's 8-row group
+    const int qd = lane & 3;  // column pair within the quad
+    const int kr0 = k0 + warp * 16 + g;  // this thread's keys: kr0 and kr0 + 8
+    const int tk0 = kr0 < Lk ? tk[kr0] : kInvalidTime;
+    const int tk1 = kr0 + 8 < Lk ? tk[kr0 + 8] : kInvalidTime;
 
-  store_rows<D>(dk + bh * Lk * D, dk_acc, kr0, Lk, t4);
-  store_rows<D>(dv + bh * Lk * D, dv_acc, kr0, Lk, t4);
+    float dk_acc[D / 2], dv_acc[D / 2];
+    float s[32], dp[32];     // S^T then P^T, and dP^T: 64 keys x 64 queries
+    uint32_t pf[4][4], df[4][4];  // P^T and dS^T as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    const unsigned char* ks = smem;
+    const unsigned char* vs = smem + S::kTileBytes;
+    mbar_wait(kvbar, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    int pending = -1;  // the stage whose dK product may still run
+    while (true) {
+      mbar_wait(&full[stage], phase);
+      if (s_info[stage * 2 + 0] < 0) break;
+      const bool masked = s_info[stage * 2 + 1] == kMasked;
+      const int cur = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      const unsigned char* qs = smem + S::kStage + cur * S::kStageBytes;
+      const unsigned char* dos = qs + S::kTileBytes;
+      const int* rt = s_rows + cur * 3 * kTile;
+      const float* rl = reinterpret_cast<const float*>(rt + kTile);
+      const float* rd = reinterpret_cast<const float*>(rt + 2 * kTile);
+
+      wgmma_fence();
+      issue_abt<D>(s, ks, qs);    // S^T = K Q^T
+      issue_abt<D>(dp, vs, dos);  // dP^T = V dO^T
+      wgmma_wait<1>();            // S^T, and the previous tile's dK, are done
+      reg_fence(s);
+      if (pending >= 0) release(pending);
+
+      // P^T: rows are keys, columns queries (8 j + 2 qd + {0, 1})
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l = *reinterpret_cast<const float2*>(rl + j * 8 + qd * 2);
+        s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], scale_log2, -l.x));
+        s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -l.y));
+        s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -l.x));
+        s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -l.y));
+        if (masked) {
+          const int2 t = *reinterpret_cast<const int2*>(rt + j * 8 + qd * 2);
+          const bool v0 = kCausal ? tk0 <= t.x : tk0 != kInvalidTime;
+          const bool v1 = kCausal ? tk0 <= t.y : tk0 != kInvalidTime;
+          const bool v2 = kCausal ? tk1 <= t.x : tk1 != kInvalidTime;
+          const bool v3 = kCausal ? tk1 <= t.y : tk1 != kInvalidTime;
+          s[4 * j + 0] = v0 ? s[4 * j + 0] : 0.f;
+          s[4 * j + 1] = v1 ? s[4 * j + 1] : 0.f;
+          s[4 * j + 2] = v2 ? s[4 * j + 2] : 0.f;
+          s[4 * j + 3] = v3 ? s[4 * j + 3] : 0.f;
+        }
+      }
+      to_frags(pf, s);
+      wgmma_fence();
+      issue_fb<D>(dv_acc, pf, dos);  // dV += P^T dO
+      wgmma_wait<1>();               // dP^T is done
+      reg_fence(dp);
+
+      // dS^T = P^T (dP^T - delta) sm_scale
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d = *reinterpret_cast<const float2*>(rd + j * 8 + qd * 2);
+        dp[4 * j + 0] = s[4 * j + 0] * (dp[4 * j + 0] - d.x) * sm_scale;
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d.y) * sm_scale;
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d.x) * sm_scale;
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d.y) * sm_scale;
+      }
+      to_frags(df, dp);
+      wgmma_fence();
+      issue_fb<D>(dk_acc, df, qs);  // dK += dS^T Q
+      if constexpr (kPipe) {
+        pending = cur;
+      } else {
+        wgmma_wait<0>();
+        release(cur);
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(dk_acc);
+    reg_fence(dv_acc);
+    const size_t base = static_cast<size_t>(bh) * Lk * D;
+    store_rows<D>(dk + base, dk_acc, kr0, Lk, qd);
+    store_rows<D>(dv + base, dv_acc, kr0, Lk, qd);
+  }
 }
 
 // K4: dQ of one 64-row q-tile.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const int* __restrict__ time_q,
-                    const int* __restrict__ time_kv,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq,
-                    int H, int Lq, int Lk, float sm_scale, float scale_log2) {
-  constexpr int kStride = D + 8;
-  constexpr int kOt = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* dOs = Qs + kTile * kStride;
-  __nv_bfloat16* Ks = dOs + kTile * kStride;
-  __nv_bfloat16* Vs = Ks + kTile * kStride;
-  int* s_tk = reinterpret_cast<int*>(Vs + kTile * kStride);
-  __shared__ int s_qmax;
+__global__ void __launch_bounds__(kThreads, D == 64 ? 2 : 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const int* __restrict__ time_q, const int* __restrict__ time_kv,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int H, int Lq, int Lk, float sm_scale,
+                    float scale_log2) {
+  using S = Smem<D>;
+  constexpr bool kPipe = D == 64;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  int* s_rows = reinterpret_cast<int*>(smem + S::kRows);
+  int* s_info = reinterpret_cast<int*>(smem + S::kInfo);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+  // the latest q-tiles (the most visible keys under causal) start first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTile;
   const int b = blockIdx.z;
-  const size_t bh = static_cast<size_t>(b) * H + blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
+  const int bh = b * H + blockIdx.y;
+  const int* tq = time_q + static_cast<size_t>(b) * Lq;
+  const int* tk = time_kv + static_cast<size_t>(b) * Lk;
+  const int lane = threadIdx.x & 31;
 
-  const __nv_bfloat16* qb = q + bh * Lq * D;
-  const __nv_bfloat16* kb = k + bh * Lk * D;
-  const __nv_bfloat16* vb = v + bh * Lk * D;
-  const __nv_bfloat16* dob = dout + bh * Lq * D;
-  const int* tqb = time_q + static_cast<size_t>(b) * Lq;
-  const int* tkb = time_kv + static_cast<size_t>(b) * Lk;
-
-  // Q and dO stay staged; find the largest valid query time of the tile (-1
-  // if there is none).
-  if (tid == 0) s_qmax = -1;
-  load_tile<D>(Qs, qb, q0, Lq, tid);
-  load_tile<D>(dOs, dob, q0, Lq, tid);
+  if (threadIdx.x == 0) init_barriers(full, empty, qbar);
   __syncthreads();
-  if (tid < kTile && q0 + tid < Lq) {
-    const int t = tqb[q0 + tid];
-    if (t != kInvalidTime) atomicMax(&s_qmax, t);
-  }
-  // this thread's two rows: r0 (elements 0, 1) and r0 + 8 (2, 3)
-  const int wr = warp * 16;
-  const int r0 = q0 + wr + g;
-  const int r1 = r0 + 8;
-  const int tq0 = r0 < Lq ? tqb[r0] : kInvalidTime;
-  const int tq1 = r1 < Lq ? tqb[r1] : kInvalidTime;
-  const float lse0 = r0 < Lq ? lse[bh * Lq + r0] * kLog2e : INFINITY;
-  const float lse1 = r1 < Lq ? lse[bh * Lq + r1] * kLog2e : INFINITY;
-  const float dl0 = r0 < Lq ? delta[bh * Lq + r0] : 0.f;
-  const float dl1 = r1 < Lq ? delta[bh * Lq + r1] : 0.f;
-  float dq_acc[kOt][4];
-#pragma unroll
-  for (int n = 0; n < kOt; ++n) dq_acc[n][0] = dq_acc[n][1] = dq_acc[n][2] = dq_acc[n][3] = 0.f;
-  __syncthreads();  // s_qmax is final
-  const int qmax = s_qmax;
 
-  const int nk = (Lk + kTile - 1) / kTile;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    int tk = kInvalidTime;
-    if (tid < kTile) {
-      if (k0 + tid < Lk) tk = tkb[k0 + tid];
-      s_tk[tid] = tk;
+  if (threadIdx.x >= 128) {
+    // ------------------------------------------------------------ producer
+    if constexpr (kPipe) regs_dealloc<24>();
+    if (threadIdx.x >= 160) return;  // one warp loads
+    int qmin = kInvalidTime, qmax = -1;
+#pragma unroll
+    for (int r = lane; r < kTile; r += 32) {
+      const int t = q0 + r < Lq ? tq[q0 + r] : kInvalidTime;
+      qmin = min(qmin, t);
+      if (t != kInvalidTime) qmax = max(qmax, t);
     }
-    // Skip a k-tile that no valid query of this q-tile can see.
-    const bool unseen =
-        tid >= kTile || (kCausal ? tk > qmax : (tk == kInvalidTime || qmax < 0));
-    if (__syncthreads_and(unseen)) continue;
-
-    load_tile<D>(Ks, kb, k0, Lk, tid);
-    load_tile<D>(Vs, vb, k0, Lk, tid);
-    __syncthreads();
-
-    // P: the warp's 16 queries x the tile's 64 keys
-    float p[8][4];
-    gemm_abt<D>(p, Qs, wr, Ks, g, t4);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int tkc = s_tk[n * 8 + t4 * 2 + (j & 1)];
-        const int tqr = j < 2 ? tq0 : tq1;
-        const bool vis = kCausal ? tkc <= tqr : tkc != kInvalidTime;
-        p[n][j] = vis ? exp2f(p[n][j] * scale_log2 - (j < 2 ? lse0 : lse1)) : 0.f;
+    qmin = warp_min(qmin);
+    qmax = warp_max(qmax);
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * S::kTileBytes);
+      for (int hf = 0; hf < S::kHalves; ++hf) {
+        tma_load_3d(smem + hf * kTile * 128, &map_q, qbar, hf * 64, q0, bh);
+        tma_load_3d(smem + S::kTileBytes + hf * kTile * 128, &map_do, qbar, hf * 64, q0, bh);
       }
     }
-    // dS = P * (dO V^T - delta) * sm_scale
-    float ds[8][4];
-    gemm_abt<D>(ds, dOs, wr, Vs, g, t4);
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ds[n][j] = p[n][j] * (ds[n][j] - (j < 2 ? dl0 : dl1)) * sm_scale;
+    int stage = 0;
+    uint32_t phase = 0;
+    const int nk = (Lk + kTile - 1) / kTile;
+    for (int kt = 0; kt <= nk; ++kt) {
+      const int k0 = kt * kTile;
+      const int r = lane * 2;  // this lane's two keys of the k-tile
+      int t0 = kInvalidTime, t1 = kInvalidTime, type = kSkip;
+      if (kt < nk) {
+        if (k0 + r < Lk) t0 = tk[k0 + r];
+        if (k0 + r + 1 < Lk) t1 = tk[k0 + r + 1];
+        type = tile_type<kCausal>(qmin, qmax, warp_min(min(t0, t1)), warp_max(max(t0, t1)));
+        if (type == kSkip) continue;
+      }
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (kt < nk) {
+        *reinterpret_cast<int2*>(s_rows + stage * 3 * kTile + r) = make_int2(t0, t1);
+      }
+      if (lane == 0) {
+        s_info[stage * 2 + 0] = kt < nk ? k0 : -1;
+        s_info[stage * 2 + 1] = type;
+      }
+      if (lane == 0 && kt < nk) {
+        unsigned char* st = smem + S::kStage + stage * S::kStageBytes;
+        mbar_arrive_expect_tx(&full[stage], S::kStageBytes);
+        for (int hf = 0; hf < S::kHalves; ++hf) {
+          tma_load_3d(st + hf * kTile * 128, &map_k, &full[stage], hf * 64, k0, bh);
+          tma_load_3d(st + S::kTileBytes + hf * kTile * 128, &map_v, &full[stage], hf * 64, k0,
+                      bh);
+        }
+      } else {
+        mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    uint32_t f[4][4];
-    to_a_frags(f, ds);
-    gemm_pb<D>(dq_acc, f, Ks, g, t4);  // dQ += dS K
-    __syncthreads();  // Ks, Vs and s_tk are rewritten by the next tile
-  }
+  } else {
+    // ------------------------------------------------------------ consumer
+    if constexpr (kPipe) regs_alloc<232>();
+    const int warp = threadIdx.x / 32;
+    const int g = lane >> 2;
+    const int qd = lane & 3;
+    const int r0 = q0 + warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const int r1 = r0 + 8;
+    const size_t row_base = static_cast<size_t>(bh) * Lq;
+    const int tq0 = r0 < Lq ? tq[r0] : kInvalidTime;
+    const int tq1 = r1 < Lq ? tq[r1] : kInvalidTime;
+    const float l0 = r0 < Lq ? lse[row_base + r0] * kLog2e : INFINITY;
+    const float l1 = r1 < Lq ? lse[row_base + r1] * kLog2e : INFINITY;
+    const float d0 = r0 < Lq ? delta[row_base + r0] : 0.f;
+    const float d1 = r1 < Lq ? delta[row_base + r1] : 0.f;
 
-  store_rows<D>(dq + bh * Lq * D, dq_acc, r0, Lq, t4);
+    float dq_acc[D / 2];
+    float s[32], dp[32];  // S then P, and dP: 64 rows x 64 keys
+    uint32_t df[4][4];    // dS as bf16 A fragments
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
+    const unsigned char* qs = smem;
+    const unsigned char* dos = smem + S::kTileBytes;
+    mbar_wait(qbar, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    int pending = -1;  // the stage whose dQ product may still run
+    while (true) {
+      mbar_wait(&full[stage], phase);
+      if (s_info[stage * 2 + 0] < 0) break;
+      const bool masked = s_info[stage * 2 + 1] == kMasked;
+      const int cur = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      const unsigned char* ks = smem + S::kStage + cur * S::kStageBytes;
+      const unsigned char* vs = ks + S::kTileBytes;
+      const int* rt = s_rows + cur * 3 * kTile;
+
+      wgmma_fence();
+      issue_abt<D>(s, qs, ks);    // S = Q K^T
+      issue_abt<D>(dp, dos, vs);  // dP = dO V^T
+      wgmma_wait<1>();            // S, and the previous tile's dQ, are done
+      reg_fence(s);
+      if (pending >= 0) release(pending);
+
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[4 * j + 0] = exp2f(fmaf(s[4 * j + 0], scale_log2, -l0));
+        s[4 * j + 1] = exp2f(fmaf(s[4 * j + 1], scale_log2, -l0));
+        s[4 * j + 2] = exp2f(fmaf(s[4 * j + 2], scale_log2, -l1));
+        s[4 * j + 3] = exp2f(fmaf(s[4 * j + 3], scale_log2, -l1));
+        if (masked) {
+          const int2 t = *reinterpret_cast<const int2*>(rt + j * 8 + qd * 2);
+          const bool v0 = kCausal ? t.x <= tq0 : t.x != kInvalidTime;
+          const bool v1 = kCausal ? t.y <= tq0 : t.y != kInvalidTime;
+          const bool v2 = kCausal ? t.x <= tq1 : t.x != kInvalidTime;
+          const bool v3 = kCausal ? t.y <= tq1 : t.y != kInvalidTime;
+          s[4 * j + 0] = v0 ? s[4 * j + 0] : 0.f;
+          s[4 * j + 1] = v1 ? s[4 * j + 1] : 0.f;
+          s[4 * j + 2] = v2 ? s[4 * j + 2] : 0.f;
+          s[4 * j + 3] = v3 ? s[4 * j + 3] : 0.f;
+        }
+      }
+      wgmma_wait<0>();  // dP is done
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dp[4 * j + 0] = s[4 * j + 0] * (dp[4 * j + 0] - d0) * sm_scale;
+        dp[4 * j + 1] = s[4 * j + 1] * (dp[4 * j + 1] - d0) * sm_scale;
+        dp[4 * j + 2] = s[4 * j + 2] * (dp[4 * j + 2] - d1) * sm_scale;
+        dp[4 * j + 3] = s[4 * j + 3] * (dp[4 * j + 3] - d1) * sm_scale;
+      }
+      to_frags(df, dp);
+      wgmma_fence();
+      issue_fb<D>(dq_acc, df, ks);  // dQ += dS K
+      if constexpr (kPipe) {
+        pending = cur;
+      } else {
+        wgmma_wait<0>();
+        release(cur);
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(dq_acc);
+    store_rows<D>(dq + row_base * D, dq_acc, r0, Lq, qd);
+  }
+}
+
+// Q, K, V and dO as (D, L, B * H) bf16 maps with boxes of 64 x 64 rows.
+bool encode_maps(CUtensorMap* maps, const void* q, const void* k, const void* v, const void* dout,
+                 int BH, int Lq, int Lk, int D) {
+  const uint64_t dq[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(Lq),
+                          static_cast<uint64_t>(BH)};
+  const uint64_t dk[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(Lk),
+                          static_cast<uint64_t>(BH)};
+  const uint64_t sq[2] = {static_cast<uint64_t>(D) * 2, static_cast<uint64_t>(Lq) * D * 2};
+  const uint64_t sk[2] = {static_cast<uint64_t>(D) * 2, static_cast<uint64_t>(Lk) * D * 2};
+  const uint32_t box[3] = {64, kTile, 1};
+  return encode_map(&maps[0], q, 3, dq, sq, box) && encode_map(&maps[1], k, 3, dk, sk, box) &&
+         encode_map(&maps[2], v, 3, dk, sk, box) && encode_map(&maps[3], dout, 3, dq, sq, box);
 }
 
 struct Args {
-  const __nv_bfloat16 *q, *k, *v, *dout;
   const int *time_q, *time_kv;
   const float *lse, *delta;
   int B, H, Lq, Lk;
   float sm_scale;
 };
 
-Args make_args(const void* q, const void* k, const void* v, const void* dout,
-               const void* time_q, const void* time_kv, const void* lse,
-               const void* delta, int B, int H, int Lq, int Lk, float sm_scale) {
-  return Args{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-              static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-              static_cast<const int*>(time_q), static_cast<const int*>(time_kv),
-              static_cast<const float*>(lse), static_cast<const float*>(delta),
-              B, H, Lq, Lk, sm_scale};
-}
-
 template <int D, bool kCausal>
-int launch_dkv(const Args& a, void* dk, void* dv, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<D, kCausal>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+int launch(const CUtensorMap* maps, const Args& a, void* dq, void* dk, void* dv,
+           cudaStream_t stream) {
+  constexpr int kBytes = Smem<D>::kLaunchBytes;
+  auto dkv = flash_bwd_dkv_kernel<D, kCausal>;
+  auto dqk = flash_bwd_dq_kernel<D, kCausal>;
+  // once per process and instance: the backward launches hundreds of times
+  // per train step, and the port runs on one card
+  static const cudaError_t attr = [&] {
+    const cudaError_t e =
+        cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    return e != cudaSuccess
+               ? e
+               : cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  }();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const float scale_log2 = a.sm_scale * kLog2e;
+  dkv<<<dim3((a.Lk + kTile - 1) / kTile, a.H, a.B), kThreads, kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.time_q, a.time_kv, a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H, a.Lq, a.Lk,
+      a.sm_scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lk + kTile - 1) / kTile, a.H, a.B);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.time_q, a.time_kv, a.lse, a.delta,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.H,
-      a.Lq, a.Lk, a.sm_scale, a.sm_scale * kLog2e);
+  dqk<<<dim3((a.Lq + kTile - 1) / kTile, a.H, a.B), kThreads, kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], a.time_q, a.time_kv, a.lse, a.delta,
+      static_cast<__nv_bfloat16*>(dq), a.H, a.Lq, a.Lk, a.sm_scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kCausal>
-int launch_dq(const Args& a, void* dq, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<D, kCausal>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((a.Lq + kTile - 1) / kTile, a.H, a.B);
-  kernel<<<grid, kThreads, kSmem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.time_q, a.time_kv, a.lse, a.delta,
-      static_cast<__nv_bfloat16*>(dq), a.H, a.Lq, a.Lk, a.sm_scale,
-      a.sm_scale * kLog2e);
+template <int D>
+int launch_delta(const void* o, const void* dout, void* delta, int rows, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kDeltaThreads / (D / 8);
+  bwd_delta_kernel<D><<<(rows + kRowsPerBlock - 1) / kRowsPerBlock, kDeltaThreads, 0, stream>>>(
+      static_cast<const uint4*>(o), static_cast<const uint4*>(dout), static_cast<float*>(delta),
+      rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, dout: [B, H, L, D] bf16, contiguous. time_q [B, Lq], time_kv
-// [B, Lk] int32. lse, delta [B, H, Lq] fp32 (natural-log lse of the forward;
-// delta = rowsum(o * dout)). dk, dv [B, H, Lk, D] bf16. Returns a cudaError_t
-// value (0 = success).
-extern "C" int pf_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                const void* dout, const void* time_q,
-                                const void* time_kv, const void* lse,
-                                const void* delta, void* dk, void* dv, int B,
-                                int H, int Lq, int Lk, int D, float sm_scale,
-                                int causal, void* stream) {
-  const Args a = make_args(q, k, v, dout, time_q, time_kv, lse, delta, B, H,
-                           Lq, Lk, sm_scale);
+// q, k, v, o, dout: [B, H, L, D] bf16, contiguous, 16-byte aligned (o and
+// dout [B, H, Lq, D]). time_q [B, Lq], time_kv [B, Lk] int32. lse [B, H, Lq]
+// fp32, the forward's natural-log lse. delta [B, H, Lq] fp32 scratch: the
+// library writes rowsum(o * dout) there and the two kernels read it. dq
+// [B, H, Lq, D], dk and dv [B, H, Lk, D] bf16. Returns 0 on success, -1 if
+// the sizes are refused, -2 if cuTensorMapEncodeTiled refuses a map, else the
+// cudaError_t value of the launch that failed.
+extern "C" int pf_flash_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* time_q, const void* time_kv,
+                            const void* lse, void* delta, void* dq, void* dk, void* dv, int B,
+                            int H, int Lq, int Lk, int D, float sm_scale, int causal,
+                            void* stream) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Lq <= 0 || Lk <= 0 || H > 65535 ||
+      B > 65535) {
+    return -1;
+  }
+  CUtensorMap maps[4];
+  if (!encode_maps(maps, q, k, v, dout, B * H, Lq, Lk, D)) return -2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return causal ? launch_dkv<64, true>(a, dk, dv, s) : launch_dkv<64, false>(a, dk, dv, s);
-  if (D == 128) return causal ? launch_dkv<128, true>(a, dk, dv, s) : launch_dkv<128, false>(a, dk, dv, s);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// As pf_flash_bwd_dkv; dq [B, H, Lq, D] bf16.
-extern "C" int pf_flash_bwd_dq(const void* q, const void* k, const void* v,
-                               const void* dout, const void* time_q,
-                               const void* time_kv, const void* lse,
-                               const void* delta, void* dq, int B, int H,
-                               int Lq, int Lk, int D, float sm_scale,
-                               int causal, void* stream) {
-  const Args a = make_args(q, k, v, dout, time_q, time_kv, lse, delta, B, H,
-                           Lq, Lk, sm_scale);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return causal ? launch_dq<64, true>(a, dq, s) : launch_dq<64, false>(a, dq, s);
-  if (D == 128) return causal ? launch_dq<128, true>(a, dq, s) : launch_dq<128, false>(a, dq, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = B * H * Lq;
+  int err = D == 64 ? launch_delta<64>(o, dout, delta, rows, s)
+                    : launch_delta<128>(o, dout, delta, rows, s);
+  if (err != 0) return err;
+  const Args a{static_cast<const int*>(time_q), static_cast<const int*>(time_kv),
+               static_cast<const float*>(lse), static_cast<const float*>(delta), B, H, Lq, Lk,
+               sm_scale};
+  if (D == 64) {
+    return causal ? launch<64, true>(maps, a, dq, dk, dv, s)
+                  : launch<64, false>(maps, a, dq, dk, dv, s);
+  }
+  return causal ? launch<128, true>(maps, a, dq, dk, dv, s)
+                : launch<128, false>(maps, a, dq, dk, dv, s);
 }

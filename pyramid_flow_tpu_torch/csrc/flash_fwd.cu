@@ -24,11 +24,11 @@
 // works.
 //   * The producer loads the q tile once, then walks the k-tiles of 128 keys:
 //     it reads their time ids and classifies each against the q tile by the
-//     rules of the TPU's `_tile_types` (SKIP, FULL, MASKED). It drops SKIP
-//     tiles and TMA-loads K and V of every other one into a ring of kStages
-//     stages, with the tile's time ids, its first key and its type written
-//     beside them under the same full barrier. A stage whose first key is
-//     -1 ends the walk.
+//     rules of the TPU's `_tile_types` (SKIP, FULL, MASKED; tile_walk.cuh).
+//     It drops SKIP tiles and TMA-loads K and V of every other one into a
+//     ring of kStages stages, with the tile's time ids, its first key and
+//     its type written beside them under the same full barrier. A stage
+//     whose first key is -1 ends the walk.
 //   * The consumer runs a FULL tile without the per-element compare and
 //     select; a MASKED tile pays it.
 //   * S = Q K^T is a wgmma with both operands in shared memory (K-major,
@@ -63,12 +63,12 @@
 
 #include "hopper.cuh"
 #include "row_bounds.cuh"
+#include "tile_walk.cuh"
 
 namespace {
 
 using namespace pf;
 
-constexpr int kInvalidTime = 1 << 30;
 constexpr int kBQ = 64;      // query rows per block
 constexpr int kBK = 128;     // keys per k-tile
 constexpr int kStages = 3;   // K/V ring: the tile in P.V, the tile in Q.K^T, one loading
@@ -78,7 +78,6 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Initial running max of the classic form (as INIT_M_VALUE on the TPU): far
 // below any score, yet finite, so exp2(m_old - m_new) never sees inf - inf.
 constexpr float kInitM = -0.35f * 3.402823466e38f;
-enum : int { kSkip = 0, kFull = 1, kMasked = 2 };  // as TILE_* on the TPU
 
 // Shared memory, in bytes from a 1024-aligned base.
 template <int D>
@@ -97,38 +96,12 @@ struct Smem {
 static_assert(2 * (Smem<64>::kLaunchBytes + 1024) <= 233472, "two blocks per SM at D = 64");
 static_assert(Smem<128>::kLaunchBytes <= 232448, "one block per SM at D = 128");
 
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi, float& sum) {
   const __nv_bfloat16 a = __float2bfloat16_rn(lo);
   const __nv_bfloat16 b = __float2bfloat16_rn(hi);
   sum += __bfloat162float(a) + __bfloat162float(b);
   return static_cast<uint32_t>(__bfloat16_as_ushort(a)) |
          (static_cast<uint32_t>(__bfloat16_as_ushort(b)) << 16);
-}
-
-// The k-tile's type for the q-tile, by the rules of the TPU's `_tile_types`:
-// qmin over the q-tile's rows (INVALID and rows past Lq included), qmax over
-// its valid rows (-1 if none), kmin and kmax over the k-tile's keys (past
-// Lk: INVALID).
-template <bool kCausal>
-__device__ __forceinline__ int tile_type(int qmin, int qmax, int kmin, int kmax) {
-  if (kCausal) {
-    if (kmin > qmax) return kSkip;
-    return kmax <= qmin ? kFull : kMasked;
-  }
-  if (kmin == kInvalidTime || qmax < 0) return kSkip;
-  return kmax != kInvalidTime ? kFull : kMasked;
 }
 
 template <int D, bool kBounded, bool kCausal>

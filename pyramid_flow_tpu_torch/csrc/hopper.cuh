@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the TMA-fed, warp-specialised
-// kernels (flash_fwd.cu, causal_conv3d.cu): mbarriers, TMA tile loads,
+// kernels (flash_fwd.cu, flash_bwd.cu, causal_conv3d.cu): mbarriers, TMA tile loads,
 // wgmma shared-memory descriptors and issue/commit/wait, register
 // rebalancing, and the host-side tensor-map encoder.
 //
@@ -174,6 +174,20 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64]; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 64] += A[64 x 16] * B[16 x 64]; A in registers (the m16n8k16
 // A-fragment layout per warp), B MN-major (transposed) in shared memory.
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
@@ -233,6 +247,16 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled needs a current context. A thread that has not
+// called this library's runtime yet (the autograd engine's, whose first
+// CUDA work may be a backward) has none, and the encoder refuses every map
+// there; so the first call from each thread makes the device's primary
+// context current.
+inline bool bind_context() {
+  thread_local const bool bound = cudaFree(nullptr) == cudaSuccess;
+  return bound;
+}
+
 // A bf16 tensor map of `rank` dimensions, innermost first:
 // dims[i] elements, strides[i] the byte stride of dimension i + 1, box[i]
 // the tile's extent, with the 128-byte swizzle.
@@ -240,7 +264,7 @@ inline EncodeTiledFn encode_tiled_fn() {
 inline bool encode_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
                        const uint64_t* strides, const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_context()) return false;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {

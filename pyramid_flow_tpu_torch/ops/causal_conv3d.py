@@ -17,6 +17,15 @@ Two versions:
   skips the taps before the first frame when there are none, launched by
   :func:`causal_conv3d_cuda`.
 
+The gradient: :func:`causal_conv3d_backward` is the plain backward, over the
+front-padded input with SAME padding in space (``torch.nn.grad``'s
+``conv3d_input`` and ``conv3d_weight`` on channels-last tensors, and the sum
+of ``dy`` for the bias). The JAX VAE's conv has no Pallas backward (XLA
+differentiates its convs), so there is no TPU kernel to port here.
+:class:`CausalConv3dFunction` launches the kernel forward and takes that
+backward, so a conv routed to the kernel passes gradients to ``x``, the
+front frames, the weight and the bias.
+
 :func:`supports_kernel` is the one rule for which convs the kernel takes.
 :func:`causal_conv3d` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel, or raises if the kernel does not take the
@@ -35,6 +44,7 @@ import torch.nn.functional as F
 from ..utils.cuda_build import load_library
 
 __all__ = ["causal_conv3d", "causal_conv3d_reference", "causal_conv3d_cuda",
+           "causal_conv3d_backward", "CausalConv3dFunction",
            "supports_kernel", "kernel_library", "TILE_K", "TILE_N"]
 
 KERNEL_SOURCES = ("causal_conv3d.cu",)
@@ -72,17 +82,18 @@ def causal_conv3d_reference(x: torch.Tensor, weight: torch.Tensor,
                             bias: torch.Tensor,
                             front: Optional[torch.Tensor] = None
                             ) -> torch.Tensor:
-    """The plain version: 27 shifted-tap matmuls summed in fp32, plus the
-    bias; the result in ``x``'s dtype."""
+    """The plain version: 27 shifted-tap matmuls summed in fp32 (fp64 for
+    fp64 inputs), plus the bias; the result in ``x``'s dtype."""
     _check_shapes(x, weight, bias, front)
     b, t, h, w, c = x.shape
     if front is None:
         front = x.new_zeros((b, 2, h, w, c))
+    acc = torch.promote_types(x.dtype, torch.float32)
     with torch.autocast(x.device.type, enabled=False):
-        xp = torch.cat([front.to(x.dtype), x], dim=1).float()
+        xp = torch.cat([front.to(x.dtype), x], dim=1).to(acc)
         xp = F.pad(xp, (0, 0, 1, 1, 1, 1))  # SAME: one pixel in W and H
-        wf = weight.float()
-        out = bias.float().expand(b, t, h, w, -1).clone()
+        wf = weight.to(acc)
+        out = bias.to(acc).expand(b, t, h, w, -1).clone()
         for kt in range(3):
             for kh in range(3):
                 for kw in range(3):
@@ -152,10 +163,79 @@ def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
 causal_conv3d_cuda.launches = 0
 
 
+def causal_conv3d_backward(x: torch.Tensor, weight: torch.Tensor,
+                           front: Optional[torch.Tensor], dy: torch.Tensor, *,
+                           input_grad: bool = True, weight_grad: bool = True):
+    """The plain gradient of the causal conv, ``(dx, dfront, dweight,
+    dbias)``, for ``dy`` ``[B, T, H, W, Co]``.
+
+    The conv is a valid conv in time and a SAME conv in space over the
+    front-padded input ``cat(front or zeros, x)``, so ``torch.nn.grad``'s
+    ``conv3d_input`` and ``conv3d_weight`` with padding ``(0, 1, 1)`` give
+    that input's gradient, sliced back into ``dfront`` (None without
+    ``front``) and ``dx``, and the weight's, in the weight's memory layout;
+    ``dbias`` is the sum of ``dy`` (fp32 sums, in ``dy``'s dtype). The
+    tensors go to the convolutions as channels-last views, without copies.
+    ``input_grad=False`` or ``weight_grad=False`` leaves those gradients
+    None."""
+    b, t, h, w, c = x.shape
+    if dy.shape != (b, t, h, w, weight.shape[0]):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match the output "
+                         f"{(b, t, h, w, weight.shape[0])}")
+    dy_ncdhw = dy.contiguous().permute(0, 4, 1, 2, 3)
+    xp = torch.cat([x.new_zeros((b, 2, h, w, c)) if front is None
+                    else front.to(x.dtype), x], dim=1)
+    dx = dfront = dweight = None
+    if input_grad:
+        dxp = torch.nn.grad.conv3d_input(
+            (b, c, t + 2, h, w), weight, dy_ncdhw, padding=(0, 1, 1))
+        dxp = dxp.permute(0, 2, 3, 4, 1)
+        dx = dxp[:, 2:].contiguous()
+        if front is not None:
+            dfront = dxp[:, :2].contiguous()
+    if weight_grad:
+        fmt = (torch.channels_last_3d if weight.is_contiguous(
+            memory_format=torch.channels_last_3d) else torch.contiguous_format)
+        dweight = torch.nn.grad.conv3d_weight(
+            xp.permute(0, 4, 1, 2, 3), weight.shape, dy_ncdhw,
+            padding=(0, 1, 1)).contiguous(memory_format=fmt)
+    dbias = dy.sum(dim=(0, 1, 2, 3), dtype=torch.float32).to(dy.dtype)
+    return dx, dfront, dweight, dbias
+
+
+class CausalConv3dFunction(torch.autograd.Function):
+    """The kernel forward with the plain gradient: ``forward`` launches K5
+    through :func:`causal_conv3d_cuda` (its checks, raises and launch
+    counter), ``backward`` is :func:`causal_conv3d_backward`. Under
+    ``torch.no_grad`` nothing is saved.
+
+    ``apply(x, weight, bias, front)``; ``front`` may be None."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, front):
+        y = causal_conv3d_cuda(x, weight, bias, front)
+        ctx.save_for_backward(x, weight, front)
+        ctx.bias_dtype = bias.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, front = ctx.saved_tensors
+        need_x, need_w, need_b, need_f = ctx.needs_input_grad
+        dx, dfront, dweight, dbias = causal_conv3d_backward(
+            x, weight, front, dy, input_grad=need_x or need_f,
+            weight_grad=need_w)
+        return (dx if need_x else None, dweight,
+                dbias.to(ctx.bias_dtype) if need_b else None,
+                dfront if need_f else None)
+
+
 def causal_conv3d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                   front: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The causal 3x3x3 stride-1 conv: the plain version for CPU tensors,
-    the kernel for CUDA tensors (or an error if it does not take them)."""
+    """The causal 3x3x3 stride-1 conv, differentiable in every input: the
+    plain version under autograd for CPU tensors, the kernel with the plain
+    gradient (:class:`CausalConv3dFunction`) for CUDA tensors, or an error
+    if the kernel does not take them."""
     if x.device.type == "cpu":
         return causal_conv3d_reference(x, weight, bias, front)
-    return causal_conv3d_cuda(x, weight, bias, front)
+    return CausalConv3dFunction.apply(x, weight, bias, front)

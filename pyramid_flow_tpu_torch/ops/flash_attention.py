@@ -15,10 +15,11 @@ Two versions of the forward and of the backward live here:
 * :func:`attention_reference` and :func:`attention_backward_reference`, the
   plain PyTorch versions in fp32: a masked softmax with an explicit zero for
   rows with no visible key, and the gradient recomputed from the saved lse;
-* the CUDA kernels in ``csrc/flash_fwd.cu`` (bounded and classic softmax;
-  TMA-fed and warp-specialised ``wgmma`` for Hopper, which classifies each
-  (64-row, 128-key) tile by :func:`tile_types`' rule) and
-  ``csrc/flash_bwd.cu`` (dK/dV and dQ), head dims 64 and 128, bf16,
+* the CUDA kernels in ``csrc/flash_fwd.cu`` (bounded and classic softmax)
+  and ``csrc/flash_bwd.cu`` (delta, then dK/dV and dQ), TMA-fed and
+  warp-specialised ``wgmma`` for Hopper, each of which classifies its
+  tiles by :func:`tile_types`' rule (64-row by 128-key tiles in the
+  forward, 64 by 64 in the backward), head dims 64 and 128, bf16,
   launched by :func:`flash_fwd_cuda` and :func:`flash_bwd_cuda`.
 
 A third forward, ``csrc/flash_fwd_hn.cu`` (:func:`flash_fwd_hn_cuda`), is
@@ -216,12 +217,8 @@ def bwd_kernel_library() -> ctypes.CDLL:
     """The built and loaded backward kernel library (built on first call)."""
     lib = load_library("flash_bwd", BWD_KERNEL_SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pf_flash_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i,
-                                     i, i, ctypes.c_float, i, p]
-    lib.pf_flash_bwd_dkv.restype = ctypes.c_int
-    lib.pf_flash_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i,
-                                    i, ctypes.c_float, i, p]
-    lib.pf_flash_bwd_dq.restype = ctypes.c_int
+    lib.pf_flash_bwd.argtypes = [p] * 12 + [i] * 5 + [ctypes.c_float, i, p]
+    lib.pf_flash_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -389,16 +386,20 @@ def flash_fwd_hn_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 flash_fwd_hn_cuda.launches = 0
 
 
-def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,
-                   causal: bool, sm_scale: float
+def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, *,
+                   causal: bool, sm_scale: float,
+                   delta: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch the CUDA backward kernels. Returns ``(dq, dk, dv)``.
+    """Launch the CUDA backward. Returns ``(dq, dk, dv)``.
 
     q, k, v, o, do ``[B, H, L, D]`` bf16 contiguous on one CUDA device, D in
-    (64, 128); time ids ``[B, L]`` int32; ``lse`` (the forward's, natural
-    log) and ``delta = rowsum(o * do)`` ``[B, H, Lq]`` fp32. Padded query
-    rows must carry ``do = 0``. ``flash_bwd_cuda.dkv_launches`` and
-    ``.dq_launches`` count the launches of the two kernels."""
+    (64, 128); time ids ``[B, L]`` int32; ``lse`` ``[B, H, Lq]`` fp32, the
+    forward's (natural log). Padded query rows must carry ``do = 0``. The
+    library computes ``delta = rowsum(o * do)`` on the card, then launches
+    the dK/dV kernel and the dQ kernel; ``delta``, a ``[B, H, Lq]`` fp32
+    tensor, receives it if given (scratch otherwise).
+    ``flash_bwd_cuda.dkv_launches`` and ``.dq_launches`` count the launches
+    of the two."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_cuda takes CUDA tensors, got {q.device}")
     _check_kernel_inputs(q, k, v, time_q, time_kv)
@@ -407,8 +408,12 @@ def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} do not "
                          f"match q {tuple(q.shape)}")
-    if lse.shape != (b, h, lq) or delta.shape != (b, h, lq):
-        raise ValueError("lse and delta must be [B, H, Lq]")
+    if lse.shape != (b, h, lq):
+        raise ValueError("lse must be [B, H, Lq]")
+    if delta is None:
+        delta = torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
+    if delta.shape != (b, h, lq):
+        raise ValueError("delta must be [B, H, Lq]")
     _check_tensors(q, (("o", o, torch.bfloat16), ("do", do, torch.bfloat16),
                        ("lse", lse, torch.float32),
                        ("delta", delta, torch.float32)))
@@ -416,24 +421,20 @@ def flash_bwd_cuda(q, k, v, time_q, time_kv, o, lse, do, delta, *,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = bwd_kernel_library()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            time_q.data_ptr(), time_kv.data_ptr(), lse.data_ptr(),
-            delta.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pf_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h,
-                                   lq, lk, d, float(sm_scale), int(causal),
-                                   stream)
-        if err != 0:
-            raise RuntimeError(
-                f"flash_bwd_dkv kernel launch failed: CUDA error {err}")
-        flash_bwd_cuda.dkv_launches += 1
-        err = lib.pf_flash_bwd_dq(*ptrs, dq.data_ptr(), b, h, lq, lk, d,
-                                  float(sm_scale), int(causal), stream)
-        if err != 0:
-            raise RuntimeError(
-                f"flash_bwd_dq kernel launch failed: CUDA error {err}")
-        flash_bwd_cuda.dq_launches += 1
+        err = lib.pf_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), time_q.data_ptr(), time_kv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, lq, lk, d, float(sm_scale), int(causal),
+            stream)
+    if err != 0:
+        why = {-1: "sizes refused", -2: "tensor map refused"}.get(
+            err, f"CUDA error {err}")
+        raise RuntimeError(f"flash_bwd kernel launch failed: {why}")
+    flash_bwd_cuda.dkv_launches += 1
+    flash_bwd_cuda.dq_launches += 1
     return dq, dk, dv
 
 
@@ -478,11 +479,9 @@ class FlashAttentionFunction(torch.autograd.Function):
                 q, k, v, time_q, time_kv, o, lse, do, causal=ctx.causal,
                 sm_scale=ctx.sm_scale)
         else:
-            # delta outside the kernels, in fp32, as the TPU wrapper does
-            delta = (o.float() * do.float()).sum(-1)
             dq, dk, dv = flash_bwd_cuda(
-                q, k, v, time_q, time_kv, o, lse, do, delta,
-                causal=ctx.causal, sm_scale=ctx.sm_scale)
+                q, k, v, time_q, time_kv, o, lse, do, causal=ctx.causal,
+                sm_scale=ctx.sm_scale)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -1,14 +1,16 @@
 """Card-only tests of the port's CUDA kernels.
 
 Each test compares a kernel (the flash-attention forward, the forward with
-several heads per block, its dK/dV and dQ backward, or the VAE's causal conv)
-with the plain PyTorch version on the
+several heads per block, its delta, dK/dV and dQ backward, or the VAE's causal
+conv and its gradient route) with the plain PyTorch version on the
 same CUDA inputs, checks a launch counter, or checks that a wrapper refuses
 what its kernel does not take. They carry the ``gpu`` marker and skip without a CUDA device. This file
 imports torch and the port only, so on a machine without JAX it runs as
 
     python -m pytest tests/test_torch_port_kernels.py -m gpu --noconftest
 """
+
+import threading
 
 import numpy as np
 import pytest
@@ -189,13 +191,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         flash_attention(q, k, v.cpu(), t)
 
 
-def _bwd_inputs(dev, d=64, lq=333, lk=None, causal=True, seed=0):
+def _bwd_inputs(dev, d=64, lq=333, lk=None, causal=True, seed=0, h=3,
+                full=False):
     """q, k, v, times, o and lse from the forward kernel, and an upstream
-    gradient that is random on valid query rows and zero on padded ones."""
-    q, k, v, t = _inputs(dev, l=lq, d=d, seed=seed)
+    gradient that is random on valid query rows and zero on padded ones.
+    ``full``: every time 0, so that every tile is FULL."""
+    q, k, v, t = _inputs(dev, h=h, l=lq, d=d, seed=seed)
     tk = t
     if lk is not None:
-        _, k, v, tk = _inputs(dev, l=lk, d=d, seed=seed + 1)
+        _, k, v, tk = _inputs(dev, h=h, l=lk, d=d, seed=seed + 1)
+    if full:
+        t = tk = torch.zeros_like(t)
     o, lse = flash_fwd_cuda(q, k, v, t, tk, causal=causal, sm_scale=d ** -0.5,
                             bounded=True)
     gen = torch.Generator(dev).manual_seed(seed)
@@ -215,19 +221,81 @@ def _assert_grads_close(got, ref):
 
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("lengths", [(333, None), (200, 333), (64, 64)])
-def test_bwd_kernels_match_plain(cuda, d, causal, lengths):
-    """K3/K4 against the plain backward; lengths not a multiple of 64, and
-    Lq != Lk."""
-    lq, lk = lengths
-    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda, d, lq, lk, causal)
-    delta = (o.float() * do.float()).sum(-1)
-    got = flash_bwd_cuda(q, k, v, t, tk, o, lse, do, delta, causal=causal,
+@pytest.mark.parametrize("case", [
+    dict(lq=333),                # not a multiple of the 64-row tile
+    dict(lq=200, lk=333),        # Lq != Lk, ragged
+    dict(lq=64, lk=64),          # one tile
+    dict(lq=1600, h=24),         # 1200 blocks per kernel: several waves
+    dict(lq=384, full=True),     # every tile FULL (no mask)
+], ids=["ragged", "cross", "one-tile", "waves", "all-full"])
+def test_bwd_kernels_match_plain(cuda, d, causal, case):
+    """K3/K4 against the plain backward."""
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda, d, causal=causal, **case)
+    if case.get("full"):
+        types = fa.tile_types(t, tk, 64, 64, causal)
+        assert (types == fa.TILE_FULL).all()
+    got = flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=causal,
                          sm_scale=d ** -0.5)
     torch.cuda.synchronize()
     ref = attention_backward_reference(q, k, v, t, tk, o, lse, do,
                                        causal=causal)
     _assert_grads_close(got, ref)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_repeats_are_bit_identical(cuda, d):
+    """Two passes and no atomics: the same inputs give the same bits."""
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda, d, lq=1600, h=8)
+    first = flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                           sm_scale=d ** -0.5)
+    second = flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                            sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_delta_matches_rowsum(cuda, d):
+    """The library's delta kernel against rowsum(o * do) in fp32; zero on
+    the padded rows, whose do is zero."""
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda, d, lq=333)
+    delta = torch.full(lse.shape, float("nan"), device=cuda)
+    flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                   sm_scale=d ** -0.5, delta=delta)
+    torch.cuda.synchronize()
+    ref = (o.float() * do.float()).sum(-1)
+    torch.testing.assert_close(delta, ref, rtol=1e-5, atol=1e-5)
+    assert (delta[:, :, t[0] == INVALID_TIME] == 0).all()
+
+
+def test_kernels_launch_from_a_fresh_thread(cuda):
+    """A thread whose first CUDA work is a kernel call (the autograd
+    engine's, when a backward starts at the attention) gets the same bits
+    from the forward, the backward and the conv as this thread: the
+    libraries make the context current before they encode tensor maps."""
+    q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda)
+    x, weight, bias, fr = _conv_inputs(cuda, 1, 2, 8, 8, 64, 128, True)
+
+    def run():
+        return (flash_fwd_cuda(q, k, v, t, tk, causal=True, sm_scale=0.125,
+                               bounded=True),
+                flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                               sm_scale=0.125),
+                causal_conv3d_cuda(x, weight, bias, fr))
+
+    here, there = run(), []
+    worker = threading.Thread(target=lambda: there.append(run()))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert there, "the thread's calls raised"
+    def flat(r):
+        (o_, lse_), grads, y = r
+        return [o_, lse_, *grads, y]
+
+    for a, b in zip(flat(here), flat(there[0])):
+        assert torch.equal(a, b)
 
 
 def test_bwd_rows_without_visible_keys(cuda):
@@ -238,8 +306,7 @@ def test_bwd_rows_without_visible_keys(cuda):
     o, lse = flash_fwd_cuda(q, k, v, tq, tk, causal=True, sm_scale=0.125,
                             bounded=False)
     do = torch.randn_like(o)
-    delta = (o.float() * do.float()).sum(-1)
-    for g in flash_bwd_cuda(q, k, v, tq, tk, o, lse, do, delta, causal=True,
+    for g in flash_bwd_cuda(q, k, v, tq, tk, o, lse, do, causal=True,
                             sm_scale=0.125):
         torch.cuda.synchronize()
         assert (g == 0).all()
@@ -280,21 +347,22 @@ def test_bwd_launch_counters_count_launches(cuda):
 
 def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     q, k, v, t, tk, o, lse, do = _bwd_inputs(cuda)
-    delta = (o.float() * do.float()).sum(-1)
     with pytest.raises(TypeError):
-        flash_bwd_cuda(q, k, v, t, tk, o, lse, do.float(), delta,
-                       causal=True, sm_scale=0.125)
+        flash_bwd_cuda(q, k, v, t, tk, o, lse, do.float(), causal=True,
+                       sm_scale=0.125)
     with pytest.raises(ValueError):
         flash_bwd_cuda(q, k, v, t, tk, o, lse[:, :, :-1].contiguous(), do,
-                       delta, causal=True, sm_scale=0.125)
+                       causal=True, sm_scale=0.125)
     with pytest.raises(ValueError):
         flash_bwd_cuda(q, k, v, t, tk, o, lse, do.transpose(2, 3)
-                       .contiguous().transpose(2, 3), delta, causal=True,
+                       .contiguous().transpose(2, 3), causal=True,
                        sm_scale=0.125)
+    with pytest.raises(TypeError):
+        flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                       sm_scale=0.125, delta=lse.double())
     with pytest.raises(ValueError):
         flash_bwd_cuda(q.cpu(), k.cpu(), v.cpu(), t.cpu(), tk.cpu(), o.cpu(),
-                       lse.cpu(), do.cpu(), delta.cpu(), causal=True,
-                       sm_scale=0.125)
+                       lse.cpu(), do.cpu(), causal=True, sm_scale=0.125)
 
 
 # the conv: bf16 products of 27 * C terms against the fp32 plain version
@@ -352,6 +420,44 @@ def test_conv_launch_counter_counts_launches(cuda):
     whole = conv(xs)  # monolithic, equal to the two windows
     out = torch.cat([first, second], 2)
     assert (out.float() - whole.float()).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("shape,front", [
+    ((1, 1, 48, 80, 512, 512), False),  # the decoder's first window
+    ((1, 2, 48, 80, 512, 512), True),   # a later window, carried front
+])
+def test_conv_function_gradients_match_conv3d(cuda, shape, front):
+    """A conv routed to the kernel (CausalConv3dFunction) passes the
+    gradients of x, the front frames, the weight and the bias, within
+    GRAD_REL of autograd through F.conv3d on the front-padded input."""
+    x, weight, bias, fr = _conv_inputs(cuda, *shape, front)
+    dy = _conv_inputs(cuda, *shape[:4], shape[5], shape[5], False,
+                      seed=1)[0]
+
+    def grads(fn):
+        leaves = [t.detach().clone().requires_grad_()
+                  for t in (x, weight, bias) + ((fr,) if front else ())]
+        out = fn(*leaves)
+        return out, torch.autograd.grad(out, leaves, dy)
+
+    before = causal_conv3d_cuda.launches
+    y, got = grads(lambda x, w, b, f=None: causal_conv3d(x, w, b, f))
+    assert causal_conv3d_cuda.launches == before + 1
+    assert y.grad_fn is not None
+
+    def conv3d(x, w, b, f=None):
+        front = x.new_zeros((x.shape[0], 2) + x.shape[2:]) if f is None else f
+        xp = torch.cat([front, x], 1).permute(0, 4, 1, 2, 3)
+        return torch.nn.functional.conv3d(xp, w, b, padding=(0, 1, 1)
+                                          ).permute(0, 2, 3, 4, 1)
+
+    _, ref = grads(conv3d)
+    assert got[1].is_contiguous(memory_format=torch.channels_last_3d)
+    for name, a, b in zip(("dx", "dweight", "dbias", "dfront"), got, ref):
+        assert torch.isfinite(a).all(), name
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        assert scale > 0 and err <= GRAD_REL * scale, (name, err, scale)
 
 
 def test_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):

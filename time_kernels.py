@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the forward kernels (K1, K2, K6 at hs=2) and the conv kernel (K5) of
+"""Time the forward kernels (K1, K2, K6 at hs=2), the backward (K3 and K4,
+and the delta kernel where the checkout has one) and the conv kernel (K5) of
 one checkout as its paths call them, so that a parent commit and a change
 can be compared on one card in one call.
 
@@ -15,8 +16,12 @@ attention layout (B=2, H=24, D=64, L=3072, causal) and ``TIMED_CONV``;
 beside it, the kernel's own device time from a profiler trace of the same
 calls (``kernel_ms``; for the forwards also every kernel a call launches,
 ``by_kernel``, and their sum, ``device_ms``), and SDPA with the time-id mask
-and cuDNN's ``F.conv3d`` on the same inputs. Prints the card's name and
-power limit, then one JSON object. Without a CUDA device it exits 1.
+and cuDNN's ``F.conv3d`` on the same inputs. The backward is timed as the
+training path calls it: ``torch.autograd.grad`` through ``flash_attention``
+less its forward (``chip_smoke.bwd_path_ms``), beside SDPA's backward timed
+the same way, and every kernel a forward plus backward launches
+(``by_kernel``). Prints the card's name and power limit, then one JSON
+object. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -72,6 +77,15 @@ def time_attention(smoke, dev, gen, reps: int) -> dict:
                           if kernel in kname),
             device_ms=sum(by_kernel.values()),
             by_kernel={kname[:80]: ms for kname, ms in by_kernel.items()})
+
+    # the backward: upstream gradient zero on padded rows, its contract
+    valid = (t != fa.INVALID_TIME)[:, None, :, None]
+    do = (torch.randn(q.shape, generator=gen, device=dev) * valid).bfloat16()
+    timed, by_kernel = smoke.bwd_path_ms(q, k, v, t, do, True, reps)
+    out["flash_bwd"] = dict(
+        timed, by_kernel={kname[:80]: ms for kname, ms in by_kernel.items()})
+    out["sdpa_bwd_ms"] = smoke.sdpa_backward_ms(q, k, v, t, do, True,
+                                                reps)["library_ms"]
     return out
 
 
