@@ -11,7 +11,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 2. build: the four kernel libraries from ``pyramid_flow_tpu_torch/csrc``
    (the flash-attention forward, the heads-per-block forward, the backward
    and the causal conv), one nvcc each, started together; ptxas's register,
-   spill and wgmma-serialisation lines;
+   spill and wgmma-serialisation (C7518) lines, and per library the count
+   of kernels and of C7518 warnings;
 3. kernel vs plain: the forward kernel against the plain PyTorch version on the
    DiT's packed attention layouts (384x640 unit 0 stage 0, 384x640 unit 15
    stage 2, 768x1280 unit 15 stage 2) at B=2, H=24, D=64 in bf16, bounded
@@ -1425,8 +1426,16 @@ def build_libraries():
         libs = {name: f.result() for name, f in libs.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
-        log(f"build {name}: nvcc {lib.build_seconds:.2f} s")
-        for line in lib.build_log.splitlines():
+        if not lib.build_seconds:
+            log(f"build {name}: an earlier build of the same sources, "
+                f"loaded (no compiler output)")
+            continue
+        lines = lib.build_log.splitlines()
+        log(f"build {name}: nvcc {lib.build_seconds:.2f} s, "
+            f"{sum('Compiling entry' in x for x in lines)} kernels, "
+            f"{sum('C7518' in x for x in lines)} C7518 warnings (wgmma "
+            f"serialised)")
+        for line in lines:
             if "Compiling entry" in line or "registers" in line \
                     or "spill" in line or "Performance Loss" in line:
                 log("  " + line.strip())

@@ -23,9 +23,12 @@ Two versions of the forward and of the backward live here:
   launched by :func:`flash_fwd_cuda` and :func:`flash_bwd_cuda`.
 
 A third forward, ``csrc/flash_fwd_hn.cu`` (:func:`flash_fwd_hn_cuda`), is
-the bounded forward with ``hs`` heads per block, head dim 64; only the
-``tools/exp_flash_h2`` experiment runs it, and its plain version is
-``attention_reference(..., return_lse=True)``.
+the bounded forward with ``hs`` heads per block, head dim 64: the forward
+kernel's block (``csrc/flash_fwd_block.cuh``) with one consumer warpgroup
+per head and one producer for all of them, so each head's output is the
+one-head kernel's, bit for bit. Only the ``tools/exp_flash_h2`` experiment
+runs it, and its plain version is ``attention_reference(...,
+return_lse=True)``.
 
 :func:`flash_attention` is differentiable through
 :class:`FlashAttentionFunction`, the counterpart of the JAX package's
@@ -63,7 +66,7 @@ KERNEL_SOURCES = ("flash_fwd.cu",)
 BWD_KERNEL_SOURCES = ("flash_bwd.cu",)
 HN_KERNEL_SOURCES = ("flash_fwd_hn.cu",)
 HN_HEADS_PER_BLOCK = (1, 2, 3, 4, 6)  # the hs values the kernel is built for
-HN_GROUP_THREADS = 128  # threads per head in a block
+WARPGROUP = 128  # threads of a block's producer, and of each head's consumer
 # tile types, as the JAX package's TILE_*
 TILE_SKIP, TILE_FULL, TILE_MASKED = 0, 1, 2
 # the forward kernel's tiles: query rows per block, keys per k-tile
@@ -240,7 +243,8 @@ def hn_kernel_library() -> ctypes.CDLL:
 def flash_fwd_hn_resources(hs: int, causal: bool = True) -> dict:
     """What a block of the heads-per-block forward needs and what the card
     gives, read from the built kernel of (hs, causal): ``registers`` per
-    thread, ``threads`` per block (128 * hs), ``max_threads`` (the most a
+    thread at launch, ``threads`` per block (128 * (hs + 1): a consumer
+    warpgroup per head and the producer's), ``max_threads`` (the most a
     block of this kernel can launch with at its registers),
     ``shared_bytes`` (static plus dynamic) and ``shared_limit`` (the card's
     opt-in limit per block). ``fits`` says whether a block can launch."""
@@ -252,7 +256,7 @@ def flash_fwd_hn_resources(hs: int, causal: bool = True) -> dict:
     if err != 0:
         raise RuntimeError(f"flash_fwd_hn info failed: CUDA error {err}")
     regs, max_threads, static, dynamic, limit = info
-    threads = HN_GROUP_THREADS * hs
+    threads = WARPGROUP * (hs + 1)
     return dict(hs=hs, registers=regs, threads=threads,
                 max_threads=max_threads, shared_bytes=static + dynamic,
                 shared_limit=limit,

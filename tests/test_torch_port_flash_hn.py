@@ -3,9 +3,10 @@ the CPU.
 
 The port's ``flash_h2`` takes its plain version for CPU tensors; it is held
 against the JAX tool's ``flash_h2`` (the Pallas kernel
-``_fwd_kernel_bounded_hn`` in interpret mode, hs=2, 256-row blocks) at the
-tool's mixed layout (text, four frames, INVALID padding), causal and not,
-and on rows with no visible key. fp32 on both sides: o and lse atol 1e-5
+``_fwd_kernel_bounded_hn`` in interpret mode, 256-row blocks, at hs 1, 2
+and 4 heads per grid cell of the four heads) at the tool's mixed layout
+(text, four frames, INVALID padding), causal and not, and on rows with no
+visible key. fp32 on both sides: o and lse atol 1e-5
 on valid rows (the same softmax, summed in another order; measured about
 1e-7). The 768p stage-2 layout's time ids and the JAX tool's
 ``reference_lse`` are matched exactly and to 1e-5. The kernel itself runs only on the card
@@ -36,14 +37,15 @@ def _mixed_inputs():
     return q, k, v, np.broadcast_to(t, (B, L)).copy()
 
 
+@pytest.mark.parametrize("hs", [1, 2, 4])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_route_matches_jax_kernel(causal):
+def test_plain_route_matches_jax_kernel(causal, hs):
     q, k, v, t = _mixed_inputs()
     want, want_lse = jtool.flash_h2(*map(jnp.asarray, (q, k, v, t)),
                                     causal=causal, block_q=256, block_k=256,
-                                    return_lse=True, hs=2)
+                                    return_lse=True, hs=hs)
     got, got_lse = tool.flash_h2(*map(torch.from_numpy, (q, k, v, t)),
-                                 causal=causal, return_lse=True, hs=2)
+                                 causal=causal, return_lse=True, hs=hs)
     valid = t[0] != fa.INVALID_TIME
     np.testing.assert_allclose(got.numpy()[:, :, valid],
                                np.asarray(want)[:, :, valid], **TOL)

@@ -11,6 +11,7 @@ imports torch and the port only, so on a machine without JAX it runs as
 """
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -503,17 +504,16 @@ def test_hn_kernel_matches_plain_or_is_refused(cuda, hs, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_hn_kernel_at_one_head_matches_the_one_head_kernel(cuda, causal):
-    """hs = 1 against the bounded forward (flash_fwd.cu), within that
-    kernel's tolerances: the two round in different orders."""
+    """hs = 1 against the bounded forward (flash_fwd.cu): the same block
+    (csrc/flash_fwd_block.cuh) at the same tile, ring and registers, so the
+    same bits."""
     q, k, v, t = _inputs(cuda, h=3, l=333)
     o1, lse1 = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
                               bounded=True)
     o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
                                hs=1)
     torch.cuda.synchronize()
-    valid = t[0] != INVALID_TIME
-    assert (o.float() - o1.float())[:, :, valid].abs().max() <= O_ATOL
-    assert (lse - lse1)[:, :, valid].abs().max() <= LSE_ATOL
+    _assert_same_bits((o, lse), (o1, lse1))
 
 
 def test_hn_kernel_rows_without_visible_keys(cuda):
@@ -529,7 +529,7 @@ def test_hn_kernel_rows_without_visible_keys(cuda):
 def test_hn_two_heads_fit_and_a_block_that_does_not_is_refused(cuda,
                                                                monkeypatch):
     res = flash_fwd_hn_resources(2)
-    assert res["fits"] and res["threads"] == 256
+    assert res["fits"] and res["threads"] == 384  # two consumers, a producer
     q, k, v, t = _inputs(cuda, h=4, d=128)  # K1 takes it, K6 does not
     with pytest.raises(ValueError, match="head dim 64"):
         flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125, hs=2)
@@ -543,3 +543,175 @@ def test_hn_two_heads_fit_and_a_block_that_does_not_is_refused(cuda,
     with pytest.raises(ValueError, match="does not fit"):
         flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125, hs=2)
     assert flash_fwd_hn_cuda.launches == before
+
+
+def _same_bits(a, b):
+    """Elements of a and b (bf16 or fp32) whose bits differ."""
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.view(view) != b.view(view)).sum()
+
+
+def _assert_same_bits(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert _same_bits(a, b).item() == 0
+
+
+def _fitting_hs(causal=True):
+    return [hs for hs in fa.HN_HEADS_PER_BLOCK
+            if flash_fwd_hn_resources(hs, causal)["fits"]]
+
+
+# chip_smoke.py's three DiT layouts: (height, width, unit, stage)
+DIT_LAYOUTS = {"384x640 u0 s0": (384, 640, 0, 0),
+               "384x640 u15 s2": (384, 640, 15, 2),
+               "768x1280 u15 s2": (768, 1280, 15, 2)}
+
+
+def _dit_time_ids(dev, height, width, unit, stage, b=2):
+    """[b, L] time ids of the DiT's attention at one (unit, stage): 128 text
+    tokens (the last 28 INVALID), then the pipeline's packed latent
+    layout, as chip_smoke.py builds them."""
+    from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
+        PyramidFlowPipeline)
+    pipe = PyramidFlowPipeline(None, device=dev)
+    h_lat, w_lat = height // 8, width // 8
+    budget = pipe._cond_token_budget(unit, h_lat, w_lat)[stage]
+    _, time_ids, _ = pipe._stage_metadata(b, 1, h_lat, w_lat, unit, stage,
+                                          budget)
+    text = np.zeros(128, np.int32)
+    text[100:] = INVALID_TIME
+    t = np.concatenate([text, np.asarray(time_ids, np.int32)])
+    return torch.as_tensor(np.broadcast_to(t, (b, t.size)).copy(),
+                           device=dev)
+
+
+def _rms_inputs(dev, t, h=24, d=64, seed=0):
+    """q and k of RMS 1 per row (the DiT's qk-norm), v standard normal,
+    bf16, [B, h, L, d] for the time ids t."""
+    rng = np.random.default_rng(seed)
+    shape = (t.shape[0], h, t.shape[1], d)
+    q, k = (rng.standard_normal(shape) for _ in range(2))
+    q, k = (x / np.sqrt((x * x).mean(-1, keepdims=True)) for x in (q, k))
+    v = rng.standard_normal(shape)
+    return [torch.tensor(x, dtype=torch.bfloat16, device=dev)
+            for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("layout", list(DIT_LAYOUTS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_hn_kernel_matches_the_one_head_kernel_on_dit_layouts(cuda, layout,
+                                                              causal):
+    """(a) At hs = 1 and 2, K6 against K1's bounded forward on the DiT's
+    layouts at full width (B=2, H=24, D=64): every consumer runs K1's
+    consumer (csrc/flash_fwd_block.cuh) on its own head's slice, with K1's
+    tile, ring and shift, so the bits must be K1's."""
+    t = _dit_time_ids(cuda, *DIT_LAYOUTS[layout])
+    q, k, v = _rms_inputs(cuda, t)
+    want = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                          bounded=True)
+    for hs in (1, 2):
+        got = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                                hs=hs)
+        torch.cuda.synchronize()
+        _assert_same_bits(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_hn_heads_of_one_block_keep_their_own_slices(cuda, causal):
+    """(b) The heads of a block differ 10x in their key norms (odd heads),
+    so their scores, row bounds and outputs differ: a consumer that read
+    another head's stage slice or row bound would show, against K1 (bit
+    for bit at hs 1 and 2) and against the plain version (K1's
+    tolerances) at every hs that fits."""
+    rng = np.random.default_rng(3)
+    t = torch.tensor(_layout(2, 700), device=cuda)
+    shape = (2, 12, 700, 64)
+    q = 0.3 * rng.standard_normal(shape)
+    k = 0.3 * rng.standard_normal(shape)
+    k[:, 1::2] *= 10.0
+    v = rng.standard_normal(shape)
+    q, k, v = (torch.tensor(x, dtype=torch.bfloat16, device=cuda)
+               for x in (q, k, v))
+    kn = k.float().norm(dim=-1).amax(-1)[0]
+    assert (kn[1::2] > 5 * kn[0::2]).all()
+    o1, lse1 = flash_fwd_cuda(q, k, v, t, t, causal=causal, sm_scale=0.125,
+                              bounded=True)
+    o_ref, lse_ref = attention_reference(q, k, v, t, causal=causal,
+                                         return_lse=True)
+    valid = t[0] != INVALID_TIME
+    for hs in _fitting_hs(causal):
+        o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=causal,
+                                   sm_scale=0.125, hs=hs)
+        torch.cuda.synchronize()
+        if hs <= 2:
+            _assert_same_bits((o, lse), (o1, lse1))
+        assert (o.float() - o_ref.float())[:, :, valid].abs().max() <= O_ATOL
+        assert (lse - lse_ref)[:, :, valid].abs().max() <= LSE_ATOL
+
+
+@pytest.mark.parametrize("lq,lk", [(333, 333), (1000, 3072)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_hn_kernel_at_ragged_lengths(cuda, lq, lk, causal):
+    """(c) L not a multiple of the tiles (333; 1000 queries against 3072
+    keys), on layouts whose tiles are SKIP, FULL and MASKED: rows past L
+    load as zeros, never the next head's rows, and the TMA byte count of a
+    stage holds at the ragged edge. At every hs that fits, against the
+    plain version (K1's tolerances) on the valid rows that see a key, and
+    bit for bit against K1 at hs 1 and 2."""
+    def time_ids(l):
+        # 64 text tokens at t=0, then frames of 96 tokens from t=1, with 20
+        # INVALID tokens at 200
+        t = np.zeros(l, np.int32)
+        t[64:] = 1 + np.arange(l - 64) // 96
+        t[200:220] = INVALID_TIME
+        return torch.tensor(np.stack([t, t]), device=cuda)
+
+    q = _inputs(cuda, h=12, l=lq, seed=4)[0]
+    k, v = _inputs(cuda, h=12, l=lk, seed=5)[1:3]
+    tq, tk = time_ids(lq), time_ids(lk)
+    types = fa.tile_types(tq, tk, fa.FWD_TILE_Q, fa.FWD_TILE_K, causal)
+    if causal:
+        assert {fa.TILE_SKIP, fa.TILE_FULL, fa.TILE_MASKED} <= set(
+            types.unique().tolist())
+    o1, lse1 = flash_fwd_cuda(q, k, v, tq, tk, causal=causal, sm_scale=0.125,
+                              bounded=True)
+    o_ref, lse_ref = attention_reference(q, k, v, tq, tk, causal=causal,
+                                         return_lse=True)
+    seen = (lse_ref < 1e38) & (tq != INVALID_TIME)[:, None, :]
+    assert seen.any()
+    for hs in _fitting_hs(causal):
+        o, lse = flash_fwd_hn_cuda(q, k, v, tq, tk, causal=causal,
+                                   sm_scale=0.125, hs=hs)
+        torch.cuda.synchronize()
+        if hs <= 2:
+            _assert_same_bits((o, lse), (o1, lse1))
+        assert (o.float() - o_ref.float()).abs()[seen].max() <= O_ATOL
+        assert (lse - lse_ref).abs()[seen].max() <= LSE_ATOL
+
+
+def test_hn_kernel_finishes_200_launches_with_the_same_bits(cuda):
+    """(d) 200 back-to-back launches at hs = 2 on the DiT's 384x640 unit 15
+    stage 2 layout (B=2, H=24): all finish within a minute (two consumers
+    walk one ring; a hang fails here instead of blocking), and every launch
+    gives the first one's bits."""
+    t = _dit_time_ids(cuda, *DIT_LAYOUTS["384x640 u15 s2"])
+    q, k, v = _rms_inputs(cuda, t, seed=6)
+    first = flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125,
+                              hs=2)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first[0]).all()
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(200):
+        o, lse = flash_fwd_hn_cuda(q, k, v, t, t, causal=True, sm_scale=0.125,
+                                   hs=2)
+        differ += _same_bits(o, first[0]) + _same_bits(lse, first[1])
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + 60.0
+    while not done.query():
+        if time.monotonic() > deadline:
+            pytest.fail("200 launches of the hs=2 forward did not finish "
+                        "within 60 s")
+        time.sleep(0.01)
+    assert differ.item() == 0

@@ -20,8 +20,10 @@ and cuDNN's ``F.conv3d`` on the same inputs. The backward is timed as the
 training path calls it: ``torch.autograd.grad`` through ``flash_attention``
 less its forward (``chip_smoke.bwd_path_ms``), beside SDPA's backward timed
 the same way, and every kernel a forward plus backward launches
-(``by_kernel``). Prints the card's name and power limit, then one JSON
-object. Without a CUDA device it exits 1.
+(``by_kernel``). K6 is also timed at every hs whose block fits
+(``flash_fwd_hn_by_hs``), and K1 and K6 at the short 384x640 unit 0 stage 0
+layout (``stage0``). Prints the card's name and power limit, then
+one JSON object. Without a CUDA device it exits 1.
 """
 
 from __future__ import annotations
@@ -77,6 +79,19 @@ def time_attention(smoke, dev, gen, reps: int) -> dict:
                           if kernel in kname),
             device_ms=sum(by_kernel.values()),
             by_kernel={kname[:80]: ms for kname, ms in by_kernel.items()})
+    # K6 at every hs whose block fits the card
+    out["flash_fwd_hn_by_hs"] = {}
+    for hs in fa.HN_HEADS_PER_BLOCK:
+        if not fa.flash_fwd_hn_resources(hs, True)["fits"]:
+            continue
+
+        def fn(hs=hs):
+            return fa.flash_fwd_hn_cuda(q, k, v, t, t, causal=True,
+                                        sm_scale=d ** -0.5, hs=hs)
+        out["flash_fwd_hn_by_hs"][hs] = dict(
+            ms=smoke.cuda_ms(fn, reps),
+            kernel_ms=smoke.kernel_device_ms(fn, reps,
+                                             "flash_fwd_hn_kernel"))
 
     # the backward: upstream gradient zero on padded rows, its contract
     valid = (t != fa.INVALID_TIME)[:, None, :, None]
@@ -86,6 +101,30 @@ def time_attention(smoke, dev, gen, reps: int) -> dict:
         timed, by_kernel={kname[:80]: ms for kname, ms in by_kernel.items()})
     out["sdpa_bwd_ms"] = smoke.sdpa_backward_ms(q, k, v, t, do, True,
                                                 reps)["library_ms"]
+    out["stage0"] = time_stage0(smoke, meta_pipe, dev, gen, reps)
+    return out
+
+
+def time_stage0(smoke, meta_pipe, dev, gen, reps: int) -> dict:
+    """K1 and K6 (hs=2) at the short 384x640 unit 0 stage 0 layout, causal,
+    where a grid of 64-row q-tiles has fewer blocks than the card has SMs
+    for K6's blocks of two heads."""
+    torch, fa = smoke.torch, smoke.fa
+    _, t = smoke.layout_time_ids(meta_pipe, smoke.HEIGHT, smoke.WIDTH, 0, 0,
+                                 dev)
+    b, h, d, L = smoke.B, smoke.H, smoke.D, t.shape[1]
+    q, k = (smoke.rms_normal((b, h, L, d), gen, dev) for _ in range(2))
+    v = torch.randn((b, h, L, d), generator=gen, device=dev).bfloat16()
+    calls = (
+        ("flash_fwd", "flash_fwd_kernel", lambda: fa.flash_fwd_cuda(
+            q, k, v, t, t, causal=True, sm_scale=d ** -0.5, bounded=True)),
+        ("flash_fwd_hn", "flash_fwd_hn_kernel", lambda: fa.flash_fwd_hn_cuda(
+            q, k, v, t, t, causal=True, sm_scale=d ** -0.5,
+            hs=smoke.HN_TIMED_HS)))
+    out = dict(L=L)
+    for name, kernel, fn in calls:
+        out[name] = dict(ms=smoke.cuda_ms(fn, reps),
+                         kernel_ms=smoke.kernel_device_ms(fn, reps, kernel))
     return out
 
 
