@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
-for both DiT families, and the heads-per-block attention experiment, once on
-one CUDA card.
+for both DiT families, the string-prompt path from a release-layout
+checkpoint, and the heads-per-block attention experiment, once on one CUDA
+card.
 
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
-1. the card: its name and power limit as nvidia-smi reports them;
+1. the card: its name and power limit as nvidia-smi reports them, the
+   torch and CUDA versions, and whether ``transformers``, ``safetensors``
+   and ``PIL`` import;
 2. build: the four kernel libraries from ``pyramid_flow_tpu_torch/csrc``
    (the flash-attention forward, the heads-per-block forward, the backward
    and the causal conv), one nvcc each, started together; ptxas's register,
@@ -71,6 +74,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
    latents must be finite, the frames not constant, the flash forward
    launched exactly 57 times per DiT forward and the conv kernel exactly
    once per admitted conv and VAE window;
+8b. a string prompt from a checkpoint: a full-width CLIP-L (12 x 768) and
+   T5-XXL (24 x 4096, 64 x 64 heads, d_ff 10240) in bf16 with seeded random
+   weights (a generator of their own), written with the serving miniFLUX
+   and VAE as a release-layout checkpoint under ``build/smoke_checkpoint``
+   (safetensors by this script's own writer, the T5 in two shards, a
+   ``config.json`` each; the free disk space checked first; removed at the
+   end, whatever happens), then
+   ``PyramidFlowRunner.from_pretrained(..., "pyramid_flux")`` with
+   ``encoder._load_tokenizer`` patched to a word-hash tokenizer (the
+   checkpoint has no tokenizer files). Every loaded tensor must equal the
+   written one bit for bit, the VAE's conv weights stay channels-last, the
+   bf16 text features (valid tokens' embeddings, pooled) must be within
+   relative L2 2e-2 of an fp32 copy of the same encoders, and
+   ``runner.generate("a cat walks on grass")`` (384x640, temp 1, the steps
+   and guidance of phase 8) must give frames as phase 8 checks them, with
+   57 flash launches per DiT forward and one conv launch per admitted conv
+   and window. Prints the bytes, write, load and text-encode seconds, the
+   request's wall seconds and the peak memory;
 9. full-width DiT gradient: the release DiT with fp32 parameters, bf16
    autocast and remat, one training-loss backward of a batch row at the
    384x640 unit-16 stage-2 training layout (L = 3068), through the kernels
@@ -91,7 +112,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    kernel vs plain (relative L2 <= 2e-2, with the table's crop origin); one
    T2V request through ``PyramidFlowPipeline(model_name="pyramid_mmdit")``
    with the release VAE (384x640, temp 4, 128 text tokens of width 4096,
-   100 valid, pooled 2048; 24 flash launches per DiT forward); then with
+   100 valid, pooled 2048; 24 flash launches per DiT forward), and one
+   string-prompt request (temp 1) through ``PyramidFlowRunner`` with the
+   SD3 text encoders at full width (CLIP-L projected, CLIP-G 32 x 1280
+   projected to 1280, T5-XXL; seeded random weights from a generator of
+   their own, the word-hash tokenizers; pooled 2048 wide); then with
    fp32 parameters and remat the gradient check of phase 9 (every
    parameter nonzero but the last block's text-query projection, which it
    discards) and two latent train steps at the shape of phase 10;
@@ -107,8 +132,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tile does not divide, and 512 -> 256 channels.
 
 Each path (the experiment, the VAE decode gradient, text-to-video,
-image-to-video, latent training, raw-pixel training, MMDiT text-to-video,
-MMDiT latent training) runs with every launch counter set to 0 just before
+image-to-video, the string prompt from the checkpoint, latent training,
+raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
+latent training) runs with every launch counter set to 0 just before
 it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
@@ -129,9 +155,12 @@ runs, has an entry of its own with 0 launches. The last line is
 from __future__ import annotations
 
 import copy
+import dataclasses
 import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -139,6 +168,7 @@ import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
+import numpy as np
 import torch
 
 import torch.nn.functional as F
@@ -149,6 +179,12 @@ from pyramid_flow_tpu_torch.models.flux.model import (
     FluxConfig, PyramidFluxTransformer)
 from pyramid_flow_tpu_torch.models.mmdit.model import (
     MMDiTConfig, PyramidDiffusionMMDiT)
+from pyramid_flow_tpu_torch.models.text import encoder as text_encoder
+from pyramid_flow_tpu_torch.models.text.clip import (
+    CLIPTextConfig, CLIPTextEncoder)
+from pyramid_flow_tpu_torch.models.text.encoder import (
+    FluxTextEncoder, SD3TextEncoder)
+from pyramid_flow_tpu_torch.models.text.t5 import T5Config, T5Encoder
 from pyramid_flow_tpu_torch.models.vae import layers as vae_layers
 from pyramid_flow_tpu_torch.models.vae import model as vae_model
 from pyramid_flow_tpu_torch.models.vae.model import (
@@ -160,7 +196,8 @@ from pyramid_flow_tpu_torch.pipeline.noising import (
 from pyramid_flow_tpu_torch.pipeline.packing import pack_clips, patchify
 from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
     PyramidFlowPipeline)
-from pyramid_flow_tpu_torch.pipeline.runner import PyramidFlowRunner
+from pyramid_flow_tpu_torch.pipeline.runner import (
+    DEFAULT_NEGATIVE_PROMPT, PROMPT_SUFFIX, PyramidFlowRunner)
 from pyramid_flow_tpu_torch.schedulers.flow_matching import (
     PyramidFlowMatchEulerDiscreteScheduler)
 from pyramid_flow_tpu_torch.training.lr_schedules import cosine_schedule
@@ -198,6 +235,12 @@ MMDIT_TEMP, MMDIT_TRAIN_STEPS = 4, 2
 HN_TIMED_HS = 2  # the heads per block timed beside K1 (the JAX default)
 TOOL_ITERS = 8   # the tool's timed launches per kernel
 RAW_FRAMES = 1 + 8 * (TRAIN_FRAMES - 1)  # 121 pixel frames, 16 latent
+# the release-layout checkpoint the string-prompt phase writes and deletes
+CKPT_DIR = os.path.join("build", "smoke_checkpoint")
+CKPT_VARIANT = "diffusion_transformer_384p"
+CKPT_T5_SHARDS = 2
+TEXT_PROMPT = "a cat walks on grass"
+TEXT_REL_L2 = 2e-2  # bf16 text features against an fp32 copy
 # NVIDIA H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -1396,6 +1439,7 @@ def mmdit_paths(vae, meta_pipe, dev, gen, paths):
     reset_launch_counts()
     serve(pipe, dev, gen, "mmdit", MMDIT_TEMP)
     paths["MMDiT text-to-video"] = launch_counts()
+    mmdit_text_request(pipe, dev, paths)
     del pipe, mmdit
     gc.collect()
     torch.cuda.empty_cache()
@@ -1413,6 +1457,379 @@ def mmdit_paths(vae, meta_pipe, dev, gen, paths):
     del tmm, state
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def installed_line() -> str:
+    """Whether the optional packages the checkpoint path could use import
+    here: the port reads safetensors itself, tokenizes with transformers
+    only when a checkpoint's tokenizers are loaded, and saves PNGs with
+    PIL."""
+    found = []
+    for name in ("transformers", "safetensors", "PIL"):
+        try:
+            __import__(name)
+            found.append(f"{name} yes")
+        except ImportError:
+            found.append(f"{name} no")
+    return "installed: " + ", ".join(found)
+
+
+SAFETENSORS_DTYPE = {torch.float32: "F32", torch.float16: "F16",
+                     torch.bfloat16: "BF16", torch.int64: "I64",
+                     torch.int32: "I32", torch.bool: "BOOL"}
+
+
+def write_safetensors(tensors: dict, path: str) -> int:
+    """``tensors`` as one safetensors file: an 8-byte little-endian header
+    length, a JSON header (``dtype``, ``shape``, ``data_offsets``) padded
+    with spaces to 8 bytes, then each tensor's bytes in row-major order.
+    Returns the file's size."""
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": SAFETENSORS_DTYPE[t.dtype],
+                        "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.detach().contiguous().cpu().reshape(-1)
+                    .view(torch.uint8).numpy())
+    return 8 + len(raw) + offset
+
+
+def write_component(directory: str, state: dict, config: dict,
+                    shards: int = 1) -> int:
+    """One component directory of the released layout: ``config.json`` and
+    ``state`` in ``shards`` safetensors files. Returns the bytes written."""
+    os.makedirs(directory)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(config, f)
+    keys, size = list(state), 0
+    for i in range(shards):
+        name = ("diffusion_pytorch_model.safetensors" if shards == 1 else
+                f"model-{i + 1:05d}-of-{shards:05d}.safetensors")
+        size += write_safetensors({k: state[k] for k in keys[i::shards]},
+                                  os.path.join(directory, name))
+    return size
+
+
+def state_bytes(state: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in state.values())
+
+
+def clip_config_json(cfg: CLIPTextConfig) -> dict:
+    """The HF ``config.json`` keys ``clip_config_from_dir`` reads."""
+    return {"architectures": ["CLIPTextModelWithProjection"
+                              if cfg.use_projection else "CLIPTextModel"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size,
+            "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "layer_norm_eps": cfg.layer_norm_eps,
+            "eos_token_id": cfg.eos_token_id, "hidden_act": cfg.hidden_act,
+            "projection_dim": cfg.projection_dim}
+
+
+def t5_config_json(cfg: T5Config) -> dict:
+    """The HF ``config.json`` keys ``t5_config_from_dir`` reads."""
+    return {"architectures": ["T5EncoderModel"],
+            "feed_forward_proj": "gated-gelu",
+            **{k: getattr(cfg, k) for k in (
+                "vocab_size", "d_model", "d_kv", "d_ff", "num_layers",
+                "num_heads", "relative_attention_num_buckets",
+                "relative_attention_max_distance", "layer_norm_epsilon")}}
+
+
+class HashTokenizer:
+    """A deterministic stand-in for the checkpoint's tokenizers, whose files
+    this script does not write: each whitespace word of the lowercased
+    prompt becomes a vocabulary id from its CRC-32 (clear of the special
+    ids), then EOS (after BOS for CLIP), padded to ``max_length`` (CLIP
+    pads with EOS, T5 with 0). Returns numpy ``input_ids`` and
+    ``attention_mask``, as a HF tokenizer called with
+    ``return_tensors="np"``."""
+
+    def __init__(self, kind: str):
+        if kind == "clip":  # vocab 49408: BOS 49406, EOS 49407
+            self.model_max_length, self.first, self.span = 77, 0, 49406
+            self.head, self.eos, self.pad = [49406], 49407, 49407
+        else:  # T5: pad 0, EOS 1, unk 2; sentencepiece ids below 32100
+            self.model_max_length, self.first, self.span = 128, 3, 32097
+            self.head, self.eos, self.pad = [], 1, 0
+
+    def __call__(self, prompts, padding="max_length", max_length=None,
+                 truncation=True, return_tensors="np"):
+        n = max_length or self.model_max_length
+        ids = np.full((len(prompts), n), self.pad, np.int64)
+        mask = np.zeros((len(prompts), n), np.int64)
+        for i, p in enumerate(prompts):
+            words = [self.first + zlib.crc32(w.encode()) % self.span
+                     for w in p.lower().split()]
+            toks = self.head + words[:n - 1 - len(self.head)] + [self.eos]
+            ids[i, :len(toks)] = toks
+            mask[i, :len(toks)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def hash_tokenizers(path, kind):
+    """Stands in for ``encoder._load_tokenizer``."""
+    return HashTokenizer(kind)
+
+
+@torch.no_grad()
+def randomize_text_(module: torch.nn.Module, gen: torch.Generator):
+    """HF's initialisation of T5 and CLIP, drawn from ``gen``: Linear
+    weights N(0, 1/fan_in) (T5's q also over d_kv), T5's shared embedding
+    N(0, 1) and relative bias N(0, 1/d_model), CLIP's embeddings
+    N(0, 0.02^2); norm weights 1 + N(0, 0.02^2) and biases N(0, 0.02^2), so
+    no layer is zero."""
+    cfg = module.config
+    for name, p in module.named_parameters():
+        if name == "shared.weight":
+            std = 1.0
+        elif "relative_attention_bias" in name:
+            std = cfg.d_model ** -0.5
+        elif "embedding" in name:
+            std = 0.02
+        elif p.dim() == 2:
+            std = p.shape[1] ** -0.5
+            if name.endswith("SelfAttention.q.weight"):
+                std *= cfg.d_kv ** -0.5
+        else:
+            std = 0.02
+        p.normal_(0.0, std, generator=gen)
+        if p.dim() == 1 and "norm" in name and name.endswith("weight"):
+            p.add_(1.0)
+
+
+def assert_loaded(name: str, module: torch.nn.Module, written: dict):
+    """Every tensor of ``module`` equals the one written, bit for bit."""
+    got = module.state_dict()
+    if sorted(got) != sorted(written):
+        raise AssertionError(f"{name}: loaded keys differ from the written")
+    for k, w in written.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                g.reshape(-1).view(torch.uint8),
+                w.reshape(-1).view(torch.uint8)):
+            raise AssertionError(f"{name}: {k} differs from the written")
+
+
+def text_features_check(te: FluxTextEncoder, dev):
+    """The bf16 encoders' features against an fp32 copy of the same
+    weights on the same tokens: relative L2 of the valid tokens'
+    embeddings and of the pooled vectors, each <= ``TEXT_REL_L2``. Returns
+    (embeddings error, pooled error, encode seconds of the prompt, of the
+    negative prompt)."""
+    prompts = [TEXT_PROMPT + PROMPT_SUFFIX, DEFAULT_NEGATIVE_PROMPT]
+    seconds = []
+    for p in prompts:  # each as the runner encodes it, timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        te([p])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    emb, mask, pooled = te(prompts)
+    clip32 = CLIPTextEncoder(te.clip.config, device=dev)
+    clip32.load_state_dict(te.clip.state_dict())
+    t532 = T5Encoder(te.t5.config, device=dev)
+    t532.load_state_dict(te.t5.state_dict())
+    emb32, mask32, pooled32 = FluxTextEncoder(
+        clip32, t532, tokenizers=(te.clip_tokenizer, te.t5_tokenizer)
+    )(prompts)
+    if not torch.equal(mask, mask32):
+        raise AssertionError("bf16 and fp32 masks differ")
+    if not (torch.isfinite(emb).all() and torch.isfinite(pooled).all()):
+        raise AssertionError("non-finite text features")
+    rel = (rel_l2(emb[mask], emb32[mask]), rel_l2(pooled, pooled32))
+    log(f"text features (CLIP-L 12x768 + T5-XXL 24x4096, bf16) against "
+        f"fp32: embeddings of {int(mask.sum())} valid tokens relative L2 "
+        f"{rel[0]:.3e}, pooled {rel[1]:.3e} (limit {TEXT_REL_L2})")
+    if not max(rel) <= TEXT_REL_L2:
+        raise AssertionError(f"text features relative L2 {rel}")
+    return rel + tuple(seconds)
+
+
+def checkpoint_path(pipe, dev, paths):
+    """Phase 8b: the serving miniFLUX and VAE with a full-width CLIP-L and
+    T5-XXL (seeded random weights, a generator of their own) written as a
+    release-layout checkpoint under ``CKPT_DIR``, loaded through
+    ``PyramidFlowRunner.from_pretrained`` with the hash tokenizers, checked
+    bit for bit, and one string-prompt request served from it. The
+    directory is removed at the end, whatever happens."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 3)
+    # the released FLUX CLIP-L config carries the legacy eos_token_id 2
+    clip_cfg, t5_cfg = CLIPTextConfig(eos_token_id=2), T5Config()
+    clip = CLIPTextEncoder(clip_cfg, dtype=torch.bfloat16, device=dev)
+    randomize_text_(clip, gen)
+    t5 = T5Encoder(t5_cfg, dtype=torch.bfloat16, device=dev)
+    randomize_text_(t5, gen)
+    components = {
+        CKPT_VARIANT: (pipe.dit, dataclasses.asdict(pipe.dit.config), 1),
+        "causal_video_vae": (pipe.vae, dataclasses.asdict(pipe.vae.config),
+                             1),
+        "text_encoder": (clip, clip_config_json(clip_cfg), 1),
+        "text_encoder_2": (t5, t5_config_json(t5_cfg), CKPT_T5_SHARDS),
+    }
+    written = {sub: m.state_dict() for sub, (m, _, _) in components.items()}
+    need = sum(state_bytes(sd) for sd in written.values())
+    log(f"checkpoint: T5-XXL {sum(p.numel() for p in t5.parameters()) / 1e9:.3f}"
+        f" B params, CLIP-L {sum(p.numel() for p in clip.parameters()) / 1e6:.1f}"
+        f" M params; {need / 1e9:.3f} GB to write")
+    os.makedirs(os.path.dirname(CKPT_DIR), exist_ok=True)
+    free = shutil.disk_usage(os.path.dirname(CKPT_DIR)).free
+    log(f"checkpoint: {free / 1e9:.1f} GB free under "
+        f"{os.path.abspath(os.path.dirname(CKPT_DIR))}")
+    if free < need + 2 ** 30:
+        raise RuntimeError(f"{free / 1e9:.1f} GB free, the checkpoint needs "
+                           f"{need / 1e9:.1f} GB and 1 GiB of margin")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        nbytes = sum(write_component(os.path.join(CKPT_DIR, sub),
+                                     written[sub], config, shards)
+                     for sub, (_, config, shards) in components.items())
+        write_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mock.patch.object(text_encoder, "_load_tokenizer",
+                               hash_tokenizers):
+            runner = PyramidFlowRunner.from_pretrained(
+                CKPT_DIR, CKPT_VARIANT, "pyramid_flux", device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        loaded = {CKPT_VARIANT: runner.pipeline.dit,
+                  "causal_video_vae": runner.pipeline.vae,
+                  "text_encoder": runner.text_encoder.clip,
+                  "text_encoder_2": runner.text_encoder.t5}
+        for sub, module in loaded.items():
+            assert_loaded(sub, module, written[sub])
+        convs = [m.conv.weight for m in runner.pipeline.vae.modules()
+                 if isinstance(m, vae_layers.CausalConv3d)]
+        if not all(w.is_contiguous(memory_format=torch.channels_last_3d)
+                   for w in convs):
+            raise AssertionError("loaded VAE conv weights not channels-last")
+        log(f"checkpoint: wrote {nbytes / 1e9:.3f} GB in {write_s:.1f} s, "
+            f"from_pretrained loaded it in {load_s:.1f} s; every tensor "
+            f"equal to the written one bit for bit, {len(convs)} VAE conv "
+            f"weights channels-last")
+        del written, components, clip, t5
+        gc.collect()
+        torch.cuda.empty_cache()
+        rel_emb, rel_pooled, enc_s, neg_s = text_features_check(
+            runner.text_encoder, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        seen = []
+        decode = runner.pipeline.decode_latent
+
+        def spy(latents, plan):
+            seen.append(latents)
+            return decode(latents, plan)
+
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        with mock.patch.object(runner.pipeline, "decode_latent", spy):
+            t0 = time.perf_counter()
+            frames = runner.generate(
+                TEXT_PROMPT, seed=SEED, height=HEIGHT, width=WIDTH, temp=1,
+                num_inference_steps=STEPS,
+                video_num_inference_steps=VIDEO_STEPS, guidance_scale=7.0,
+                video_guidance_scale=5.0, output_type="pixels")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        paths["flux from checkpoint, string prompt"] = launched = \
+            launch_counts()
+        windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
+        want = expected(runner.pipeline.dit.num_attention_calls * sum(STEPS),
+                        conv=kernel_conv_count(runner.pipeline.vae.decoder)
+                        * windows)
+        check_request(frames, seen, launched, want, 1)
+        r = dict(request="checkpoint", prompt=TEXT_PROMPT, temp=1,
+                 bytes=nbytes, write_s=write_s, load_s=load_s,
+                 text_encode_s=enc_s, negative_encode_s=neg_s,
+                 text_rel_l2=rel_emb, pooled_rel_l2=rel_pooled,
+                 launches=launched, wall_s=wall,
+                 dit_s=runner.pipeline.last_dit_seconds,
+                 decode_s=runner.pipeline.last_decode_seconds,
+                 peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                 frame_std=frames.float().std().item(),
+                 phase_s=time.perf_counter() - t_phase)
+        log("request " + json.dumps(r))
+        del runner
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def mmdit_text_request(pipe, dev, paths):
+    """One T2V request (temp 1) through ``PyramidFlowRunner`` with the SD3
+    text encoders at full width: CLIP-L projected (12 x 768), CLIP-G
+    (32 x 1280, projected to 1280) and T5-XXL, seeded random weights from
+    a generator of their own, the hash tokenizers. Pooled must be 2048
+    wide."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 4)
+    kw = dict(dtype=torch.bfloat16, device=dev)
+    encoders = [CLIPTextEncoder(CLIPTextConfig(use_projection=True), **kw),
+                CLIPTextEncoder(CLIPTextConfig.clip_g(), **kw),
+                T5Encoder(T5Config(), **kw)]
+    for m in encoders:
+        randomize_text_(m, gen)
+    te = SD3TextEncoder(*encoders, tokenizers=(
+        HashTokenizer("clip"), HashTokenizer("clip"), HashTokenizer("t5")))
+    emb, mask, pooled = te(TEXT_PROMPT + PROMPT_SUFFIX)
+    if tuple(emb.shape) != (1, TEXT_LEN, 4096) or \
+            tuple(pooled.shape) != (1, 2048):
+        raise AssertionError(f"SD3 text features {tuple(emb.shape)}, "
+                             f"pooled {tuple(pooled.shape)}")
+    if not (torch.isfinite(emb).all() and torch.isfinite(pooled).all()):
+        raise AssertionError("non-finite SD3 text features")
+    runner = PyramidFlowRunner(pipe, te)
+    seen = []
+    decode = pipe.decode_latent
+
+    def spy(latents, plan):
+        seen.append(latents)
+        return decode(latents, plan)
+
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with mock.patch.object(pipe, "decode_latent", spy):
+        t1 = time.perf_counter()
+        frames = runner.generate(
+            TEXT_PROMPT, seed=SEED, height=HEIGHT, width=WIDTH, temp=1,
+            num_inference_steps=STEPS, video_num_inference_steps=VIDEO_STEPS,
+            guidance_scale=7.0, video_guidance_scale=5.0,
+            output_type="pixels")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    paths["MMDiT from text, string prompt"] = launched = launch_counts()
+    windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
+    want = expected(pipe.dit.num_attention_calls * sum(STEPS),
+                    conv=kernel_conv_count(pipe.vae.decoder) * windows)
+    check_request(frames, seen, launched, want, 1)
+    r = dict(request="mmdit text", prompt=TEXT_PROMPT, temp=1,
+             pooled_width=pooled.shape[-1], launches=launched, wall_s=wall,
+             dit_s=pipe.last_dit_seconds, decode_s=pipe.last_decode_seconds,
+             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             frame_std=frames.float().std().item(),
+             phase_s=time.perf_counter() - t0)
+    log("request " + json.dumps(r))
+    del runner, te, encoders
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
 
 
 def build_libraries():
@@ -1451,6 +1868,7 @@ def main() -> int:
     log(card_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device count {torch.cuda.device_count()}")
+    log(installed_line())
     build_libraries()
 
     # the kernel checks draw from their own generator, so that a check added
@@ -1501,6 +1919,9 @@ def main() -> int:
         reset_launch_counts()
         serve_i2v(pipe, dev, gen)
         paths["image-to-video"] = launch_counts()
+        # a string prompt through from_pretrained, from a checkpoint of the
+        # serving models and full-width text encoders
+        checkpoint_path(pipe, dev, paths)
 
         # training: free the serving DiT first; the VAE stays for raw pixels
         del pipe, dit

@@ -113,6 +113,45 @@ class PyramidFlowPipeline:
         self.last_dit_seconds = None
         self.last_decode_seconds = None
 
+    @classmethod
+    def from_pretrained(cls, model_path: str,
+                        model_variant: str = "diffusion_transformer_768p",
+                        model_name: str = "pyramid_flux",
+                        load_vae: bool = True,
+                        dtype: torch.dtype = torch.bfloat16, device="cuda",
+                        components: Optional[dict] = None, **kwargs):
+        """A pipeline from a released checkpoint directory
+        (``utils.checkpoint``): the DiT from ``<model_variant>/`` and the
+        VAE from ``causal_video_vae/``, each built on ``device`` in
+        ``dtype`` from its ``config.json`` and loaded by copy with
+        ``strict=True`` (so the VAE's conv weights keep their
+        ``channels_last_3d`` layout). The latent width comes from the VAE's
+        config. ``components``: state dicts already read by
+        ``load_pretrained_components``. ``cpu_offloading`` is accepted and
+        ignored (the card holds the whole pipeline); text encoding is
+        separate (``PyramidFlowRunner.from_pretrained``)."""
+        from ..utils.checkpoint import (build_dit, build_vae,
+                                        load_pretrained_components,
+                                        require_components)
+
+        kwargs.pop("cpu_offloading", None)
+        if components is None:
+            components = load_pretrained_components(
+                model_path, model_variant, model_name, load_vae=load_vae,
+                load_text_encoders=False)
+        require_components(components, ["dit"] + ["vae"] * load_vae,
+                           model_path)
+        dit = build_dit(model_path, model_variant, model_name,
+                        components["dit"], dtype=dtype, device=device)
+        vae = None
+        if load_vae:
+            vae = build_vae(model_path, components["vae"], dtype=dtype,
+                            device=device).eval()
+            # the latent width is a property of the checkpoint, not a knob
+            kwargs.setdefault("latent_channels", vae.config.latent_channels)
+        return cls(dit.eval(), vae, dtype=dtype, device=device,
+                   model_name=model_name, **kwargs)
+
     # ------------------------------------------------------------ helpers
     def normalize_latent(self, x):
         """VAE latent -> model space; frame 0 uses the image statistics."""

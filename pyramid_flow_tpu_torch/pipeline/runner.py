@@ -3,7 +3,9 @@
 Bundles a text encoder with :class:`~.pyramid_pipeline.PyramidFlowPipeline`
 so that callers pass raw prompts, with the reference's quality suffix and
 default negative prompt. The text encoder is any callable that maps a list
-of prompts to ``(embeddings, mask, pooled)``.
+of prompts to ``(embeddings, mask, pooled)``; ``from_pretrained`` builds
+the pipeline and the checkpoint's own encoders (``models/text``) from a
+released checkpoint directory.
 """
 
 from __future__ import annotations
@@ -46,11 +48,28 @@ class PyramidFlowRunner:
         self.text_encoder = text_encoder
 
     @classmethod
-    def from_pretrained(cls, *args, **kwargs):
-        raise NotImplementedError(
-            "loading the released checkpoints and text encoders is not "
-            "ported yet (ROADMAP A8); build PyramidFlowRunner(pipeline, "
-            "text_encoder) from models you hold")
+    def from_pretrained(cls, model_path: str,
+                        model_variant: str = "diffusion_transformer_768p",
+                        model_name: str = "pyramid_flux",
+                        dtype: torch.dtype = torch.bfloat16, device="cuda",
+                        **kwargs):
+        """Pipeline and text encoders from a released checkpoint directory,
+        each file read once: ``PyramidFlowPipeline.from_pretrained`` (its
+        kwargs too) and ``FluxTextEncoder`` (CLIP-L + T5) or
+        ``SD3TextEncoder`` (CLIP-L + CLIP-G + T5), with the checkpoint's
+        tokenizers."""
+        from ..models.text.encoder import build_text_encoder
+        from ..utils.checkpoint import load_pretrained_components
+
+        comps = load_pretrained_components(
+            model_path, model_variant, model_name,
+            load_vae=kwargs.get("load_vae", True))
+        te = build_text_encoder(comps, model_path, model_name, dtype=dtype,
+                                device=device)
+        pipe = PyramidFlowPipeline.from_pretrained(
+            model_path, model_variant, model_name, dtype=dtype,
+            device=device, components=comps, **kwargs)
+        return cls(pipe, te)
 
     def _encode_prompts(self, prompt, negative_prompt):
         if isinstance(prompt, str):

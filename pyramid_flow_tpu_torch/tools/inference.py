@@ -1,0 +1,112 @@
+"""Text- and image-to-video inference CLI of the port.
+
+    python -m pyramid_flow_tpu_torch.tools.inference \\
+        --model_path CKPT --variant diffusion_transformer_384p \\
+        --prompt "a hiker on a ridge" --temp 16 --height 384 --width 640 \\
+        --output out/
+
+The flags are those of the JAX package's ``tools/inference.py``, but
+``--fps`` (the port writes PNG frames only, no mp4), plus ``--device``.
+``PyramidFlowRunner.from_pretrained`` loads the released layout under
+``--model_path`` (the DiT of ``--variant``, the VAE, the text encoders and
+their tokenizers); ``--input_image`` makes the request image-to-video. The
+DiT is dropped before the VAE decodes, as in JAX's CLI. On the CUDA device
+(the default) the models compute in bf16; ``--device cpu`` computes in fp32
+(tiny checkpoints, tests). ``--sp > 1`` needs the port's parallelism,
+ROADMAP A11, and exits.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+__all__ = ["main", "parse_args"]
+
+
+def parse_args(argv=None):
+    from ..pipeline.runner import DEFAULT_NEGATIVE_PROMPT
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--model_path", required=True,
+                   help="released checkpoint root (HF snapshot layout)")
+    p.add_argument("--variant", default="diffusion_transformer_768p")
+    p.add_argument("--model_name", default="pyramid_flux",
+                   choices=["pyramid_flux", "pyramid_mmdit"])
+    p.add_argument("--prompt", default="")
+    p.add_argument("--negative_prompt", default=DEFAULT_NEGATIVE_PROMPT)
+    p.add_argument("--input_image", default=None, help="i2v input image path")
+    p.add_argument("--temp", type=int, default=16,
+                   help="latent temporal units; frames = (temp-1)*8+1")
+    p.add_argument("--height", type=int, default=768)
+    p.add_argument("--width", type=int, default=1280)
+    p.add_argument("--num_inference_steps", type=int, default=20)
+    p.add_argument("--video_num_inference_steps", type=int, default=10)
+    p.add_argument("--guidance_scale", type=float, default=9.0)
+    p.add_argument("--video_guidance_scale", type=float, default=5.0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways")
+    p.add_argument("--save_memory", action="store_true",
+                   help="tile overlap 1/8 instead of 1/4 (frames above a "
+                        "192x192 latent)")
+    p.add_argument("--output", default="output")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def save_frames(frames: np.ndarray, output: str) -> None:
+    """[F, H, W, 3] uint8 -> ``<output>/frame_0000.png``, ..."""
+    from PIL import Image
+
+    os.makedirs(output, exist_ok=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(os.path.join(output, f"frame_{i:04d}.png"))
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    if args.sp > 1:
+        sys.exit("--sp > 1: the port runs on one device; sequence "
+                 "parallelism is not ported yet (ROADMAP A11)")
+    from ..pipeline.pyramid_pipeline import DecodePlan
+    from ..pipeline.runner import PyramidFlowRunner
+
+    device = torch.device(args.device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    print(f"loading checkpoints from {args.model_path} ...", file=sys.stderr)
+    runner = PyramidFlowRunner.from_pretrained(
+        args.model_path, args.variant, args.model_name, dtype=dtype,
+        device=device)
+    common = dict(
+        negative_prompt=args.negative_prompt, seed=args.seed,
+        height=args.height, width=args.width, temp=args.temp,
+        num_inference_steps=args.num_inference_steps,
+        video_num_inference_steps=args.video_num_inference_steps,
+        guidance_scale=args.guidance_scale,
+        video_guidance_scale=args.video_guidance_scale,
+        output_type="pixels", release_dit_before_decode=True,
+        decode_plan=DecodePlan() if args.save_memory
+        else DecodePlan(overlap=0.25))
+    t0 = time.perf_counter()
+    if args.input_image:
+        from PIL import Image
+        image = np.asarray(Image.open(args.input_image).convert("RGB"))
+        frames = runner.generate_i2v(args.prompt, image, **common)
+    else:
+        frames = runner.generate(args.prompt, **common)
+    frames = frames[0].cpu().numpy()
+    print(f"generated {frames.shape[0]} frames in "
+          f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    save_frames(frames, args.output)
+    print(f"wrote {frames.shape[0]} PNG frames to {args.output}",
+          file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

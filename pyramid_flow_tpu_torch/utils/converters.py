@@ -1,9 +1,15 @@
-"""JAX parameter trees -> state dicts of the port's modules.
+"""Checkpoint files -> state dicts, and JAX parameter trees -> state dicts.
+
+Reading: :func:`load_state_dict` reads a checkpoint file or a component
+directory of the released layout (safetensors, read by this module's own
+reader, or torch pickles) into ``{key: tensor}`` in the stored dtypes;
+:func:`strip_component_prefix` takes one component out of a trainer
+checkpoint.
 
 The JAX package keeps flax variables as nested dicts; the port's modules are
-keyed like the released torch checkpoint. These converters take the JAX
-variables as nested dicts of numpy arrays and return state dicts that
-``load_state_dict(strict=True)`` accepts:
+keyed like the released torch checkpoint. The ``*_from_jax`` converters take
+the JAX variables as nested dicts of numpy arrays and return state dicts
+that ``load_state_dict(strict=True)`` accepts:
 
 * the scanned block stacks (a leading layer axis) become per-layer keys
   ``transformer_blocks.{i}.`` (the MMDiT's separate last block, too);
@@ -17,14 +23,114 @@ variables as nested dicts of numpy arrays and return state dicts that
 
 from __future__ import annotations
 
+import json
+import math
+import os
 import re
+import sys
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["flux_state_dict_from_jax", "mmdit_state_dict_from_jax",
-           "vae_state_dict_from_jax"]
+__all__ = ["load_state_dict", "read_safetensors", "strip_component_prefix",
+           "flux_state_dict_from_jax", "mmdit_state_dict_from_jax",
+           "vae_state_dict_from_jax", "t5_state_dict_from_jax",
+           "clip_state_dict_from_jax"]
+
+SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
+                      "BF16": torch.bfloat16, "I64": torch.int64,
+                      "I32": torch.int32, "BOOL": torch.bool}
+_TORCH_SUFFIXES = (".bin", ".pth", ".pt")
+
+
+def load_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A checkpoint file, or every checkpoint file of a component directory
+    in sorted order (so the shards of a sharded T5 read whole), as CPU
+    tensors in their stored dtypes. ``*.safetensors`` go through
+    :func:`read_safetensors`; ``.bin``/``.pth``/``.pt`` through
+    ``torch.load(weights_only=True)``, a ``"state_dict"`` entry unwrapped."""
+    if os.path.isdir(path):
+        out: Dict[str, torch.Tensor] = {}
+        for name in sorted(os.listdir(path)):
+            f = os.path.join(path, name)
+            if name.endswith(".safetensors"):
+                out.update(read_safetensors(f))
+            elif name.endswith(_TORCH_SUFFIXES):
+                out.update(_load_torch(f))
+        return out
+    if path.endswith(".safetensors"):
+        return read_safetensors(path)
+    return _load_torch(path)
+
+
+def _load_torch(path: str) -> Dict[str, torch.Tensor]:
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """One ``.safetensors`` file: an 8-byte little-endian header length, a
+    JSON header of ``{name: {dtype, shape, data_offsets}}`` (and an optional
+    ``__metadata__``), then the raw little-endian buffers. The file is read
+    once into memory and each tensor is a ``torch.frombuffer`` view of it
+    (a copy where its offset is not a multiple of its item size). Raises on
+    a dtype outside ``SAFETENSORS_DTYPES`` and on a truncated file."""
+    if sys.byteorder != "little":
+        raise RuntimeError("safetensors buffers are little-endian; this "
+                           "reader runs on little-endian hosts only")
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = bytearray(os.fstat(f.fileno()).st_size - 8 - n)
+        view, got = memoryview(data), 0
+        while got < len(data):
+            r = f.readinto(view[got:])
+            if not r:
+                raise ValueError(f"{path}: file ends before its data")
+            got += r
+    header.pop("__metadata__", None)
+    out = {}
+    for name, info in header.items():
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}; "
+                             f"the reader takes {sorted(SAFETENSORS_DTYPES)}")
+        dtype = SAFETENSORS_DTYPES[info["dtype"]]
+        shape = info["shape"]
+        begin, end = info["data_offsets"]
+        numel, itemsize = math.prod(shape), dtype.itemsize
+        if end - begin != numel * itemsize or end > len(data):
+            raise ValueError(f"{path}: {name} has offsets {begin}..{end} "
+                             f"for {numel} x {itemsize} bytes in "
+                             f"{len(data)}")
+        if numel == 0:
+            t = torch.empty(shape, dtype=dtype)
+        elif begin % itemsize == 0:
+            t = torch.frombuffer(data, dtype=dtype, count=numel,
+                                 offset=begin)
+        else:
+            t = torch.frombuffer(data, dtype=torch.uint8, count=end - begin,
+                                 offset=begin).clone().view(dtype)
+        out[name] = t.reshape(shape)
+    return out
+
+
+def strip_component_prefix(sd: Dict[str, torch.Tensor], component: str
+                           ) -> Dict[str, torch.Tensor]:
+    """One component of a trainer checkpoint whose keys carry the wrapper's
+    attribute (``dit.``, ``vae.``), with the prefix removed. For ``dit``,
+    keys with no prefix pass through too, except the VAE's and the text
+    encoders'."""
+    prefix = component + "."
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(prefix):
+            out[k[len(prefix):]] = v
+        elif component == "dit" and not k.startswith(("vae.", "text_encoder")):
+            out[k] = v
+    return out
 
 _STACKED = ("transformer_blocks", "single_transformer_blocks")
 _FLUX_RENAMES = {
@@ -151,3 +257,54 @@ def vae_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
                         _VAE_RENAMES.get(seg, seg)) for seg in path]
         entries.update(_module_entries(".".join(names), leaves))
     return _to_torch(entries)
+
+
+def t5_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``T5Encoder`` variables -> the port's ``T5Encoder`` state dict
+    (fp32 tensors), keyed like HF ``T5EncoderModel``."""
+    p = _unwrap(params)
+    attn = "encoder.block.{}.layer.0"
+    ff = "encoder.block.{}.layer.1"
+    out = {"shared.weight": p["embed_tokens"]["embedding"],
+           attn.format(0) + ".SelfAttention.relative_attention_bias.weight":
+               p["relative_attention_bias"],
+           "encoder.final_layer_norm.weight": p["final_layer_norm"]["weight"]}
+    i = 0
+    while f"block_{i}" in p:
+        blk = p[f"block_{i}"]
+        for name in ("q", "k", "v", "o"):
+            out[f"{attn.format(i)}.SelfAttention.{name}.weight"] = \
+                blk["attn"][name]["kernel"].T
+        out[f"{attn.format(i)}.layer_norm.weight"] = blk["ln_attn"]["weight"]
+        for name in ("wi_0", "wi_1", "wo"):
+            out[f"{ff.format(i)}.DenseReluDense.{name}.weight"] = \
+                blk[name]["kernel"].T
+        out[f"{ff.format(i)}.layer_norm.weight"] = blk["ln_ff"]["weight"]
+        i += 1
+    return _to_torch(out)
+
+
+def clip_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextEncoder`` variables -> the port's ``CLIPTextEncoder``
+    state dict (fp32 tensors), keyed like HF ``CLIPTextModel`` (and
+    ``text_projection.weight`` when the tree has the projection)."""
+    p = _unwrap(params)
+    emb = "text_model.embeddings"
+    out = {f"{emb}.token_embedding.weight": p["token_embedding"]["embedding"],
+           f"{emb}.position_embedding.weight": p["position_embedding"]}
+    out.update(_module_entries("text_model.final_layer_norm",
+                               p["final_layer_norm"]))
+    i = 0
+    while f"layers_{i}" in p:
+        layer, t = p[f"layers_{i}"], f"text_model.encoder.layers.{i}"
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            out.update(_module_entries(f"{t}.self_attn.{name}",
+                                       layer["self_attn"][name]))
+        for name in ("layer_norm1", "layer_norm2"):
+            out.update(_module_entries(f"{t}.{name}", layer[name]))
+        for name in ("fc1", "fc2"):
+            out.update(_module_entries(f"{t}.mlp.{name}", layer[name]))
+        i += 1
+    if "text_projection" in p:
+        out.update(_module_entries("text_projection", p["text_projection"]))
+    return _to_torch(out)
