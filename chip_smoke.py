@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
 for both DiT families, the string-prompt path from a release-layout
-checkpoint, and the heads-per-block attention experiment, once on one CUDA
-card.
+checkpoint, GAN-VAE training and the heads-per-block attention experiment,
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -120,9 +120,25 @@ Phases, each of which raises on failure (the script then exits non-zero):
    fp32 parameters and remat the gradient check of phase 9 (every
    parameter nonzero but the last block's text-query projection, which it
    discards) and two latent train steps at the shape of phase 10;
+11b. GAN-VAE training: the release VAE (335.4 M parameters) in fp32 under
+   bf16 autocast, a frozen random LPIPS (VGG16, 14.7 M) and
+   ``PatchDiscriminator2D()`` (7.0 M), each from a generator of its own
+   (SEED + 5 to SEED + 7; the clips from SEED + 8). First the generator's
+   gradient of the GAN loss (``make_vae_train_step(grads_only=True)``, the
+   discriminator on) on a smooth 9-frame 128x128 clip through the conv
+   kernel, the plain version and fp32: every admitted encoder and decoder
+   conv's weight gets a finite, nonzero gradient, the kernel route is
+   within 1.1x of the plain route's distance to fp32, and it launches the
+   conv kernel once per admitted conv (54). Then three steps at the
+   reference's stage-1 recipe shape (batch 1, 17 frames of 256x256) with
+   ``disc_start=1``: at step 0 the adaptive weight is 0 and the
+   discriminator does not move, at steps 1-2 the weight is positive and it
+   does; every metric finite; exactly 54 conv launches per step and no
+   other kernel. Prints each step's seconds and the peak memory beside the
+   card's name and power limit;
 12. conv kernel vs plain, with the models freed: the causal 3x3x3 conv
    against the plain fp32 version at every (B, T, H, W, C, Co) the VAE ran
-   it at in phases 7-11 (recorded by a patch of its conv call), each with
+   it at in phases 7-11b (recorded by a patch of its conv call), each with
    zero front frames and with a carried front; max|err| <= 2e-2 *
    max|ref|, and a second launch equal bit for bit; the kernel and
    ``F.conv3d`` (cuDNN, bf16, channels-last) timed at each, the plain
@@ -134,8 +150,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 Each path (the experiment, the VAE decode gradient, text-to-video,
 image-to-video, the string prompt from the checkpoint, latent training,
 raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
-latent training) runs with every launch counter set to 0 just before
-it and read just after. Before the
+latent training, the GAN-VAE generator gradient, GAN-VAE training) runs
+with every launch counter set to 0 just before it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
 time, the plain version's, the least time the card could take (bytes or
@@ -187,6 +203,9 @@ from pyramid_flow_tpu_torch.models.text.encoder import (
 from pyramid_flow_tpu_torch.models.text.t5 import T5Config, T5Encoder
 from pyramid_flow_tpu_torch.models.vae import layers as vae_layers
 from pyramid_flow_tpu_torch.models.vae import model as vae_model
+from pyramid_flow_tpu_torch.models.vae.discriminator import (
+    PatchDiscriminator2D)
+from pyramid_flow_tpu_torch.models.vae.lpips import LPIPS
 from pyramid_flow_tpu_torch.models.vae.model import (
     CausalVideoVAE, VAEConfig, kernel_conv_count)
 from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
@@ -206,6 +225,8 @@ from pyramid_flow_tpu_torch.training.train_state import (
 from pyramid_flow_tpu_torch.tools import exp_flash_h2
 from pyramid_flow_tpu_torch.training.trainer import (
     VIDEO_ENCODE_WINDOW, make_train_step)
+from pyramid_flow_tpu_torch.training.vae_trainer import (
+    VAETrainConfig, create_vae_train_state, make_vae_train_step)
 
 SEED = 0
 B, H, D = 2, 24, 64
@@ -241,6 +262,11 @@ CKPT_VARIANT = "diffusion_transformer_384p"
 CKPT_T5_SHARDS = 2
 TEXT_PROMPT = "a cat walks on grass"
 TEXT_REL_L2 = 2e-2  # bf16 text features against an fp32 copy
+# GAN-VAE training: the reference's stage-1 recipe clip
+# (scripts/train_causal_video_vae.sh: batch 1, 17 frames at 256p), and the
+# generator-gradient check's smaller clip (frames, side)
+VAE_TRAIN_CLIP, VAE_TRAIN_STEPS = (17, 256), 3
+VAE_GRAD_CLIP = (9, 128)
 # NVIDIA H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 
@@ -1006,9 +1032,7 @@ def vae_grad_check(vae, dev, gen):
 def randomize_(module: torch.nn.Module, gen: torch.Generator, std=0.02):
     """N(0, std) for every weight and bias, 1 + N(0, std) for norm weights:
     no layer is zero, and q/k keep the RMS the qk-norm gives them."""
-    for name, p in module.named_parameters():
-        if name == "pos_embed.pos_embed":
-            continue  # the MMDiT's sincos table keeps its values
+    for name, p in module.named_parameters():  # the MMDiT's table is a buffer
         p.normal_(0.0, std, generator=gen)
         if p.dim() == 1 and "norm" in name and name.endswith("weight"):
             p.add_(1.0)
@@ -1455,6 +1479,175 @@ def mmdit_paths(vae, meta_pipe, dev, gen, paths):
     _, paths["MMDiT train (latents)"], _, state = train(
         tmm, dev, gen, MMDIT_TRAIN_STEPS)
     del tmm, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@torch.no_grad()
+def randomize_lpips_(lpips: LPIPS, gen: torch.Generator):
+    """He-normal VGG weights (each ReLU keeps its input's scale), zero
+    biases, and heads |N(0, 1/C)| (non-negative, as the released ones)."""
+    for name, p in lpips.named_parameters():
+        if name.startswith("lin"):
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=gen).abs_()
+        elif name.endswith("weight"):
+            p.normal_(0.0, math.sqrt(2.0 / p[0].numel()), generator=gen)
+        else:
+            p.zero_()
+
+
+@torch.no_grad()
+def randomize_disc_(disc: torch.nn.Module, gen: torch.Generator):
+    """N(0, 0.02) conv weights and zero biases, as JAX initialises them."""
+    for name, p in disc.named_parameters():
+        if name.endswith("weight"):
+            p.normal_(0.0, 0.02, generator=gen)
+        else:
+            p.zero_()
+
+
+def gan_grad_check(vae, lpips, disc, dev, gen):
+    """The generator's gradient of the GAN-VAE loss (``make_vae_train_step``
+    with ``grads_only``, the discriminator on, so the adaptive weight is in
+    it) on a smooth ``VAE_GRAD_CLIP`` clip of the fp32-master VAE: under
+    bf16 autocast through the conv kernel, the same with the plain version
+    patched in, and in fp32 (no autocast: every conv on fp32 ``F.conv3d``).
+    Every conv that the kernel takes, in the encoder and the decoder, must
+    get a finite, nonzero weight gradient; the kernel route's distance to
+    fp32 must be within 1.1x of the plain route's; and the kernel route must
+    launch the conv kernel once per admitted conv. Returns (result,
+    launches)."""
+    frames, side = VAE_GRAD_CLIP
+    clip = smooth_video(gen, dev, frames, side, side)
+    config = VAETrainConfig(disc_start=0)
+
+    def grads(compute_dtype):
+        state = create_vae_train_state(vae, disc, config)
+        step = make_vae_train_step(vae, lpips, disc, grads_only=True,
+                                   compute_dtype=compute_dtype)
+        g, _, m = step(state, clip,
+                       GeneratorDraws(torch.Generator(dev).manual_seed(SEED)))
+        torch.cuda.synchronize()
+        return g["vae"], m
+
+    reset_launch_counts()
+    g_k, m_k = grads(torch.bfloat16)
+    launched = launch_counts()
+    with mock.patch.object(vae_layers, "causal_conv3d",
+                           cc.causal_conv3d_reference):
+        g_p, m_p = grads(torch.bfloat16)
+    g_32, m_32 = grads(None)
+    routed = [f"{n}.conv.weight" for n, m in vae.named_modules()
+              if isinstance(m, vae_layers.CausalConv3d)
+              and m.admits(torch.bfloat16)]
+    bad = [n for n in routed if not bool(torch.isfinite(g_k[n]).all())
+           or not bool((g_k[n] != 0).any())]
+    names = sorted(g_k)
+    flat = {route: torch.cat([g[n].float().flatten() for n in names])
+            for route, g in (("kernel", g_k), ("plain", g_p), ("fp32", g_32))}
+    r = dict(clip=[1, frames, side, side, 3], routed_convs=len(routed),
+             rel_l2=rel_l2(flat["kernel"], flat["plain"]),
+             kernel_vs_fp32=rel_l2(flat["kernel"], flat["fp32"]),
+             plain_vs_fp32=rel_l2(flat["plain"], flat["fp32"]),
+             d_weight={"kernel": m_k["vae/d_weight"],
+                       "plain": m_p["vae/d_weight"],
+                       "fp32": m_32["vae/d_weight"]},
+             total_loss={"kernel": m_k["vae/total_loss"],
+                         "plain": m_p["vae/total_loss"],
+                         "fp32": m_32["vae/total_loss"]},
+             launches=launched, bad_convs=bad)
+    log("GAN-VAE generator gradient, kernel vs plain vs fp32 "
+        + json.dumps(r))
+    if bad or len(routed) != kernel_conv_count(vae, torch.bfloat16):
+        raise AssertionError(f"kernel-routed convs without a finite nonzero "
+                             f"weight gradient: {bad}")
+    if launched != expected(conv=len(routed)):
+        raise AssertionError(f"generator gradient launches {launched}, "
+                             f"expected {expected(conv=len(routed))}")
+    if not (torch.isfinite(flat["kernel"]).all()
+            and r["kernel_vs_fp32"] <= 1.1 * r["plain_vs_fp32"]):
+        raise AssertionError(f"generator gradient kernel route off: {r}")
+    return r, launched
+
+
+def vae_gan_train(vae, lpips, disc, dev, gen):
+    """``VAE_TRAIN_STEPS`` steps of ``make_vae_train_step`` (fp32 masters,
+    bf16 autocast) on a smooth clip of the stage-1 recipe's shape, with
+    ``disc_start=1``: at step 0 the adaptive weight is 0 and the
+    discriminator's weights do not move (its AdamW takes zero gradients),
+    at steps 1-2 the weight is positive and every one moves. Every
+    metric finite; exactly one conv launch per admitted conv and step, no
+    other kernel. Returns (steps, launches, peak GB)."""
+    frames, side = VAE_TRAIN_CLIP
+    clip = smooth_video(gen, dev, frames, side, side)
+    state = create_vae_train_state(vae, disc, VAETrainConfig(disc_start=1))
+    step_fn = make_vae_train_step(vae, lpips, disc,
+                                  compute_dtype=torch.bfloat16)
+    draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
+    per_step = expected(conv=kernel_conv_count(vae, torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = []
+    reset_launch_counts()
+    for i in range(VAE_TRAIN_STEPS):
+        # the biases before an instance norm get no gradient: the weights
+        weights = [p for n, p in disc.named_parameters()
+                   if n.endswith("weight")]
+        disc0 = [p.detach().clone() for p in weights]
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(state, clip, draws)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launched = counted(before)
+        moved = sum(not torch.equal(a, p) for a, p in zip(disc0, weights))
+        r = dict(step=i, clip=[1, frames, side, side, 3], seconds=seconds,
+                 conv_launches=launched["causal_conv3d"],
+                 disc_weights_moved=moved, **m)
+        log("GAN-VAE train step " + json.dumps(r))
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite GAN-VAE train step {r}")
+        if launched != per_step:
+            raise AssertionError(f"GAN-VAE step launches {launched}, "
+                                 f"expected {per_step}")
+        if i == 0 and (m["vae/d_weight"] != 0 or moved):
+            raise AssertionError(f"step 0 has the discriminator on: {r}")
+        if i > 0 and not (m["vae/d_weight"] > 0 and moved == len(disc0)):
+            raise AssertionError(f"step {i} has the discriminator off: {r}")
+        steps.append(r)
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"GAN-VAE train: {card_line()}, peak memory {peak:.3f} GB, step "
+        f"seconds {[round(r['seconds'], 3) for r in steps]}, launches "
+        f"{launched}")
+    return steps, launched, peak
+
+
+def gan_vae_paths(dev, paths):
+    """GAN-VAE training at the release VAE's width: the VAE with fp32
+    parameters (bf16 autocast in the steps), a frozen random LPIPS (VGG16)
+    and ``PatchDiscriminator2D()``, each drawn from a generator of its own;
+    the generator-gradient check, then the train steps. Adds both paths'
+    launches to ``paths``."""
+    t0 = time.perf_counter()
+    vae = CausalVideoVAE(VAEConfig(), device=dev)
+    randomize_(vae, torch.Generator(dev).manual_seed(SEED + 5))
+    lpips = LPIPS(device=dev)
+    randomize_lpips_(lpips, torch.Generator(dev).manual_seed(SEED + 6))
+    disc = PatchDiscriminator2D(device=dev)
+    randomize_disc_(disc, torch.Generator(dev).manual_seed(SEED + 7))
+    gen = torch.Generator(dev).manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters()) / 1e6  # noqa
+    log(f"GAN-VAE: VAE {count(vae):.1f} M fp32 params "
+        f"({kernel_conv_count(vae, torch.bfloat16)} convs on the conv kernel "
+        f"under bf16 autocast), LPIPS {count(lpips):.1f} M (frozen), "
+        f"discriminator {count(disc):.1f} M, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _, paths["GAN-VAE generator gradient"] = gan_grad_check(
+        vae, lpips, disc, dev, gen)
+    _, paths["GAN-VAE train"], _ = vae_gan_train(vae, lpips, disc, dev, gen)
+    del vae, lpips, disc
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1945,6 +2138,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mmdit_paths(vae, meta_pipe, dev, gen, paths)
+        # GAN-VAE training: an fp32-master VAE of its own under bf16 autocast
+        gan_vae_paths(dev, paths)
     log("launches by path " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
     unused = [k for k, n in total.items()

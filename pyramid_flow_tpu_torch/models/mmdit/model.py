@@ -15,8 +15,16 @@ packed-token interface as :class:`~..flux.model.PyramidFluxTransformer` plus
 Parameters are keyed like the released checkpoint: ``pos_embed.proj.weight``
 keeps the checkpoint's conv2d shape ``[D, C, p, p]`` and is applied as a
 linear over the patchified ``(p1, p2, c)`` token features; the table is
-``pos_embed.pos_embed`` ``[1, G*G, D]``, a trainable parameter as in the JAX
-model; the last block is ``transformer_blocks.{num_layers - 1}``.
+``pos_embed.pos_embed`` ``[1, G*G, D]``; the last block is
+``transformer_blocks.{num_layers - 1}``.
+
+The table is a persistent buffer, as in the released checkpoint (a diffusers
+``PatchEmbed`` buffer under the same key), so strict loads and
+``mmdit_state_dict_from_jax`` see it as before. This departs from the JAX
+model on purpose: JAX makes the table a parameter, so its AdamW decays the
+table and the table's gradient enters the global-norm clip. Here the table
+takes no gradient, no update and no part in the clip; every other
+parameter's step is JAX's wherever the clip does not bind.
 
 The default config is the release architecture (24 blocks, 24 heads x 64,
 16 latent channels, patch 2, T5 dim 4096, pooled CLIP-L+G dim 2048).
@@ -124,7 +132,7 @@ class PatchEmbed(nn.Module):
 
     ``proj`` holds the checkpoint's conv2d weight ``[D, C, p, p]`` and is
     applied as a linear over already patchified ``(p1, p2, c)`` tokens;
-    ``pos_embed`` is the table ``[1, G*G, D]``."""
+    ``pos_embed`` is the table ``[1, G*G, D]``, a persistent buffer."""
 
     def __init__(self, cfg: MMDiTConfig, **kw):
         super().__init__()
@@ -132,7 +140,7 @@ class PatchEmbed(nn.Module):
         self.grid = g
         self.proj = nn.Conv2d(cfg.in_channels, d, p, stride=p, **kw)
         table = sincos_pos_embed_table(d, g, cfg.sample_size // p)
-        self.pos_embed = nn.Parameter(torch.as_tensor(
+        self.register_buffer("pos_embed", torch.as_tensor(
             table.reshape(1, g * g, d), **kw))
 
     def forward(self, tokens, latent_pos, pos_offset):

@@ -9,10 +9,14 @@ public ``encode``/``decode`` take and return ``[B, T, H, W, C]``.
 * :class:`CausalConv3d`: a temporally-causal 3D conv (``k_t - 1`` frames in
   front, symmetric zero padding in space). A conv that
   :func:`~pyramid_flow_tpu_torch.ops.causal_conv3d.supports_kernel` admits
-  runs through :func:`~pyramid_flow_tpu_torch.ops.causal_conv3d.causal_conv3d`
-  (the CUDA kernel on the card), which reads the front frames from their own
-  tensor; the others (the 3-, 16- and 32-channel ends, the 1x1x1 convs, the
-  strided downsamplers) run ``F.conv3d`` on the frames concatenated. For
+  at the dtype it computes in (bf16 weights, or fp32 master weights under
+  CUDA bf16 autocast) runs through
+  :func:`~pyramid_flow_tpu_torch.ops.causal_conv3d.causal_conv3d` (the CUDA
+  kernel on the card, with ``x`` and the weight cast to bf16 and the
+  weight's gradient flowing back through that cast), which reads the front
+  frames from their own tensor; the others (the 3-, 16- and 32-channel
+  ends, the 1x1x1 convs, the strided downsamplers) run ``F.conv3d`` on the
+  frames concatenated. For
   windowed coding the conv reads the previous window's last two input frames
   from an explicit ``state`` dict and writes its own there.
 * :func:`causal_group_norm`: GroupNorm with statistics per (batch, frame),
@@ -29,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ...ops.causal_conv3d import causal_conv3d, supports_kernel
+from ...ops.causal_conv3d import (causal_conv3d, compute_dtype,
+                                  supports_kernel)
 
 __all__ = ["CausalConv3d", "causal_group_norm", "GroupNorm",
            "SpatialAttention", "ATTN_CHUNK_TOKENS", "channels_last"]
@@ -76,12 +81,18 @@ class CausalConv3d(nn.Module):
                               stride=self.stride,
                               padding=(0, kh // 2, kw_ // 2), **kw)
 
-    @property
-    def uses_kernel(self) -> bool:
-        """Whether this conv runs through ``causal_conv3d``."""
+    def admits(self, dtype: torch.dtype) -> bool:
+        """Whether this conv runs through ``causal_conv3d`` when it
+        computes in ``dtype``."""
         w = self.conv.weight
         return supports_kernel(w.shape[1], w.shape[0], self.kernel_size,
-                               self.stride, w.dtype)
+                               self.stride, dtype)
+
+    @property
+    def uses_kernel(self) -> bool:
+        """Whether this conv runs through ``causal_conv3d`` now: admitted at
+        the dtype it computes in under the current autocast state."""
+        return self.admits(compute_dtype(self.conv.weight))
 
     def forward(self, x, state: Optional[dict] = None, is_init: bool = True):
         kt, st = self.kernel_size[0], self.stride[0]
@@ -93,8 +104,12 @@ class CausalConv3d(nn.Module):
                 front = cached[:, -1:] if st == 2 else cached
             state[self.cache_key] = _carry(front, xc, kt)
         if self.uses_kernel:
-            y = causal_conv3d(xc.contiguous(), self.conv.weight,
-                              self.conv.bias, front)
+            # the kernel computes in bf16; .to keeps the weight's
+            # channels-last layout, the bias stays as it is (added in fp32)
+            bf16 = torch.bfloat16
+            y = causal_conv3d(xc.to(bf16).contiguous(),
+                              self.conv.weight.to(bf16), self.conv.bias,
+                              None if front is None else front.to(bf16))
             return y.permute(0, 4, 1, 2, 3)
         if kt > 1:
             if front is None:

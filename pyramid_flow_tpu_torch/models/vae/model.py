@@ -10,6 +10,8 @@ windowed and tiled coding.
   The causal convs' carry (the last two input frames of every temporal conv)
   is an explicit ``state`` dict threaded from one window to the next, so
   windowed coding equals monolithic coding under any split.
+* ``CausalVideoVAE.decode_features`` is ``decode`` up to the decoder's
+  ``conv_out``, which the GAN trainer applies itself.
 * :func:`tiled_encode` and :func:`tiled_decode` code overlapping spatial
   tiles and crossfade their seams; :func:`reconstruct` is encode -> posterior
   -> decode.
@@ -107,12 +109,17 @@ class Decoder(nn.Module):
         self.conv_out = CausalConv3d(rev[-1], cfg.in_channels, (3, 3, 3),
                                      **kw)
 
-    def forward(self, z, state=None, is_init=True):
+    def forward(self, z, state=None, is_init=True, skip_conv_out=False):
+        """``skip_conv_out``: return the features ``conv_out`` would take
+        (after the norm and SiLU), for the GAN trainer's adaptive weight."""
         z = self.conv_in(z, state, is_init)
         z = self.mid_block(z, state, is_init)
         for block in self.up_blocks:
             z = block(z, state, is_init)
-        return self.conv_out(F.silu(self.conv_norm_out(z)), state, is_init)
+        z = F.silu(self.conv_norm_out(z))
+        if skip_conv_out:
+            return z
+        return self.conv_out(z, state, is_init)
 
 
 class CausalVideoVAE(nn.Module):
@@ -162,12 +169,28 @@ class CausalVideoVAE(nn.Module):
                                  is_init)
         return self.decoder(x, state, is_init).permute(0, 2, 3, 4, 1)
 
+    def decode_features(self, z: torch.Tensor, is_init: bool = True
+                        ) -> torch.Tensor:
+        """``decode`` without the decoder's ``conv_out``: z [B, T, h, w, Zc]
+        -> the features it would take, ``[B, C, T', 8h, 8w]`` channels-last
+        (the layout ``decoder.conv_out`` takes). The GAN trainer applies
+        ``conv_out`` itself, to differentiate the losses with respect to its
+        weight alone."""
+        x = self.post_quant_conv(channels_last(z.to(self.dtype)), None,
+                                 is_init)
+        return self.decoder(x, None, is_init, skip_conv_out=True)
 
-def kernel_conv_count(module: nn.Module) -> int:
+
+def kernel_conv_count(module: nn.Module,
+                      dtype: Optional[torch.dtype] = None) -> int:
     """How many of ``module``'s causal convs run through the conv kernel:
-    each launches it once per window."""
-    return sum(m.uses_kernel for m in module.modules()
-               if isinstance(m, CausalConv3d))
+    each launches it once per window. ``dtype`` is the dtype they compute
+    in; None reads it as the forward does (``CausalConv3d.uses_kernel``:
+    the weights' dtype, or CUDA autocast's while it is on)."""
+    convs = [m for m in module.modules() if isinstance(m, CausalConv3d)]
+    if dtype is None:
+        return sum(m.uses_kernel for m in convs)
+    return sum(m.admits(dtype) for m in convs)
 
 
 # ----------------------------------------------------------- posterior math

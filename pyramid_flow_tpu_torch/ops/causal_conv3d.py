@@ -26,7 +26,10 @@ differentiates its convs), so there is no TPU kernel to port here.
 backward, so a conv routed to the kernel passes gradients to ``x``, the
 front frames, the weight and the bias.
 
-:func:`supports_kernel` is the one rule for which convs the kernel takes.
+:func:`supports_kernel` is the one rule for which convs the kernel takes,
+given the dtype the conv computes in (:func:`compute_dtype`: CUDA autocast's
+dtype while it is on for a CUDA weight, else the weight's), so an fp32
+master weight under bf16 autocast is admitted as a bf16 one is.
 :func:`causal_conv3d` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel, or raises if the kernel does not take the
 input. It never falls back.
@@ -45,7 +48,8 @@ from ..utils.cuda_build import load_library
 
 __all__ = ["causal_conv3d", "causal_conv3d_reference", "causal_conv3d_cuda",
            "causal_conv3d_backward", "CausalConv3dFunction",
-           "supports_kernel", "kernel_library", "TILE_K", "TILE_N"]
+           "supports_kernel", "compute_dtype", "kernel_library", "TILE_K",
+           "TILE_N"]
 
 KERNEL_SOURCES = ("causal_conv3d.cu",)
 TILE_K = 64   # input channels per K step of the kernel (one 128-byte row)
@@ -55,13 +59,23 @@ TILE_N = 128  # output channels per block
 def supports_kernel(in_channels: int, out_channels: int,
                     kernel_size: Sequence[int], stride: Sequence[int],
                     dtype: torch.dtype) -> bool:
-    """Whether the kernel computes this conv: 3x3x3, stride 1, bf16, input
-    channels a multiple of ``TILE_K`` and output channels of ``TILE_N``. On
-    the release VAE that is every resnet, mid-block and upsampler conv; the
-    3-, 16- and 32-channel ends and the strided downsamplers are not."""
+    """Whether the kernel computes this conv: 3x3x3, stride 1, computing in
+    bf16 (``dtype``, see :func:`compute_dtype`), input channels a multiple
+    of ``TILE_K`` and output channels of ``TILE_N``. On the release VAE that
+    is every resnet, mid-block and upsampler conv; the 3-, 16- and
+    32-channel ends and the strided downsamplers are not."""
     return (tuple(kernel_size) == (3, 3, 3) and tuple(stride) == (1, 1, 1)
             and dtype == torch.bfloat16 and in_channels % TILE_K == 0
             and out_channels % TILE_N == 0)
+
+
+def compute_dtype(weight: torch.Tensor) -> torch.dtype:
+    """The dtype a conv with this weight computes in: CUDA autocast's while
+    it is on and the weight is on a CUDA device, else the weight's own (a
+    CPU conv computes as before, whatever CUDA autocast says)."""
+    if weight.is_cuda and torch.is_autocast_enabled("cuda"):
+        return torch.get_autocast_dtype("cuda")
+    return weight.dtype
 
 
 def _check_shapes(x, weight, bias, front):

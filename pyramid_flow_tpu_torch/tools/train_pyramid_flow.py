@@ -130,8 +130,11 @@ def save_checkpoint(output_dir: str, step: int, state) -> None:
     os.makedirs(output_dir, exist_ok=True)
     torch.save(state.state_dict(),
                os.path.join(output_dir, f"checkpoint-{step}.pt"))
-    # inference-ready weights, loadable without the optimizer's structure
-    torch.save(state.ema, os.path.join(output_dir, f"checkpoint-{step}-ema.pt"))
+    # inference-ready weights, loadable without the optimizer's structure:
+    # the EMA of every parameter and the persistent buffers (the MMDiT's
+    # sincos table)
+    torch.save({**state.model.state_dict(), **state.ema},
+               os.path.join(output_dir, f"checkpoint-{step}-ema.pt"))
 
 
 def fill_text_features(batch_np: dict, text_encoder) -> dict:

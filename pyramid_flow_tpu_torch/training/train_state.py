@@ -22,12 +22,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
 
-__all__ = ["TrainConfig", "TrainState", "create_train_state", "global_norm"]
+__all__ = ["TrainConfig", "TrainState", "create_train_state", "global_norm",
+           "clip_by_global_norm_"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +48,17 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """The fp32 L2 norm of all tensors together, a 0-dim tensor."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+                         ) -> float:
+    """optax's ``clip_by_global_norm``, in place: ``g * max_norm / |g|``
+    when ``|g| >= max_norm``. Returns the norm before the clip."""
+    norm = global_norm(grads).item()
+    if not norm < max_norm:
+        torch._foreach_div_(grads, norm)
+        torch._foreach_mul_(grads, max_norm)
+    return norm
 
 
 class TrainState:
@@ -89,10 +101,7 @@ class TrainState:
         loss = float(loss)
         ok = math.isfinite(loss) and loss < cfg.anomaly_loss_threshold
         if ok:
-            norm = global_norm(grads).item()
-            if not norm < cfg.max_grad_norm:
-                torch._foreach_div_(grads, norm)
-                torch._foreach_mul_(grads, cfg.max_grad_norm)
+            clip_by_global_norm_(grads, cfg.max_grad_norm)
             for p, g in zip(params.values(), grads):
                 p.grad = g
             lr = self.learning_rate()

@@ -36,7 +36,8 @@ import torch
 __all__ = ["load_state_dict", "read_safetensors", "strip_component_prefix",
            "flux_state_dict_from_jax", "mmdit_state_dict_from_jax",
            "vae_state_dict_from_jax", "t5_state_dict_from_jax",
-           "clip_state_dict_from_jax"]
+           "clip_state_dict_from_jax", "lpips_state_dict_from_jax",
+           "discriminator_state_dict_from_jax"]
 
 SAFETENSORS_DTYPES = {"F32": torch.float32, "F16": torch.float16,
                       "BF16": torch.bfloat16, "I64": torch.int64,
@@ -307,4 +308,45 @@ def clip_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
         i += 1
     if "text_projection" in p:
         out.update(_module_entries("text_projection", p["text_projection"]))
+    return _to_torch(out)
+
+
+def _conv_weight(kernel: np.ndarray) -> np.ndarray:
+    """A flax conv kernel (spatial axes, then in, then out) -> a torch
+    conv weight ``[out, in, *spatial]``."""
+    nd = kernel.ndim
+    return np.asarray(kernel).transpose(nd - 1, nd - 2, *range(nd - 2))
+
+
+def lpips_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
+    """JAX ``LPIPS`` variables (``vgg/conv_{i}``, ``lin_{k}``) -> the
+    port's ``LPIPS`` state dict, keyed like the reference's
+    ``vgg_lpips.pth``: ``net.slice{s}.{idx}.weight|bias`` at VGG16's
+    ``features`` numbering and ``lin{k}.model.1.weight`` (fp32 tensors)."""
+    from ..models.vae.lpips import SLICES
+
+    p = _unwrap(params)
+    out, conv, idx = {}, 0, 0
+    for s, channels in enumerate(SLICES):
+        idx += s > 0  # the max-pool opening every slice after the first
+        for _ in channels:
+            leaves = p["vgg"][f"conv_{conv}"]
+            out[f"net.slice{s + 1}.{idx}.weight"] = _conv_weight(
+                leaves["kernel"])
+            out[f"net.slice{s + 1}.{idx}.bias"] = leaves["bias"]
+            conv, idx = conv + 1, idx + 2  # the conv and its ReLU
+    for k in range(len(SLICES)):
+        out[f"lin{k}.model.1.weight"] = _conv_weight(p[f"lin_{k}"]["kernel"])
+    return _to_torch(out)
+
+
+def discriminator_state_dict_from_jax(params: dict
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX ``PatchDiscriminator2D`` or ``PatchDiscriminator3D`` variables ->
+    the port's state dict of the same class (``conv_{n}``/``conv_out``
+    weights and biases, fp32 tensors)."""
+    out = {}
+    for name, leaves in _unwrap(params).items():
+        out[f"{name}.weight"] = _conv_weight(leaves["kernel"])
+        out[f"{name}.bias"] = leaves["bias"]
     return _to_torch(out)

@@ -196,10 +196,8 @@ def test_load_model_config_refuses_what_the_port_does_not_build(tmp_path):
 @torch.no_grad()
 def _randomize(module, gen, std=0.02):
     """N(0, std) weights and biases, 1 + N(0, std) norm weights; the
-    MMDiT's sincos table keeps its values."""
+    MMDiT's sincos table, a buffer, keeps its values."""
     for name, p in module.named_parameters():
-        if name == "pos_embed.pos_embed":
-            continue
         p.normal_(0.0, std, generator=gen)
         if p.dim() == 1 and "norm" in name and name.endswith("weight"):
             p.add_(1.0)

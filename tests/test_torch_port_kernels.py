@@ -12,12 +12,16 @@ imports torch and the port only, so on a machine without JAX it runs as
 
 import threading
 import time
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
+from pyramid_flow_tpu_torch.models.vae import layers as vae_layers
 from pyramid_flow_tpu_torch.models.vae.layers import CausalConv3d
+from pyramid_flow_tpu_torch.models.vae.model import (
+    CausalVideoVAE, VAEConfig, kernel_conv_count)
 from pyramid_flow_tpu_torch.ops.causal_conv3d import (
     causal_conv3d,
     causal_conv3d_cuda,
@@ -459,6 +463,41 @@ def test_conv_function_gradients_match_conv3d(cuda, shape, front):
         err = (a.float() - b.float()).abs().max().item()
         scale = b.float().abs().max().item()
         assert scale > 0 and err <= GRAD_REL * scale, (name, err, scale)
+
+
+def test_fp32_vae_under_bf16_autocast_takes_the_kernel(cuda):
+    """The GAN trainer's setting: an fp32-master VAE under CUDA bf16
+    autocast admits its convs by the dtype they compute in. Each admitted
+    decoder conv launches the kernel once (so none reaches ``F.conv3d``),
+    the output matches the plain route's (the plain version patched in, on
+    the same bf16 casts), and each admitted conv's fp32 weight gets a
+    finite, nonzero fp32 gradient back through the cast."""
+    torch.manual_seed(0)
+    vae = CausalVideoVAE(VAEConfig(
+        latent_channels=4, block_out_channels=(128, 128, 128, 128),
+        encoder_layers_per_block=(1, 1, 1, 1),
+        decoder_layers_per_block=(1, 1, 1, 1)), device=cuda)
+    z = torch.randn((1, 2, 6, 10, 4), device=cuda)
+    weight = torch.randn((1, 9, 48, 80, 3), device=cuda)
+    admitted = [m for m in vae.decoder.modules()
+                if isinstance(m, CausalConv3d) and m.admits(torch.bfloat16)]
+    assert kernel_conv_count(vae) == 0
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        assert kernel_conv_count(vae.decoder) == len(admitted) > 0
+        before = causal_conv3d_cuda.launches
+        y = vae.decode(z)
+        torch.cuda.synchronize()
+        assert causal_conv3d_cuda.launches - before == len(admitted)
+        with mock.patch.object(vae_layers, "causal_conv3d",
+                               causal_conv3d_reference), torch.no_grad():
+            y_plain = vae.decode(z)
+    (y.float() * weight).mean().backward()
+    for m in admitted:
+        g = m.conv.weight.grad
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert g.abs().max() > 0
+    rel = ((y.float() - y_plain.float()).norm() / y_plain.float().norm())
+    assert rel.item() <= 2e-2, rel.item()
 
 
 def test_conv_wrapper_rejects_what_the_kernel_does_not_take(cuda):

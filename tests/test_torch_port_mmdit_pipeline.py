@@ -5,15 +5,20 @@ The tiny MMDiT of test_torch_port_mmdit.py (JAX weights redrawn from a numpy
 seed, carried over by ``mmdit_state_dict_from_jax``). ``generate`` replays
 JAX's draws through ``JaxNoise`` (test_torch_port_pipeline.py), the train
 step and the probe through ``JaxDraws`` (test_torch_port_training.py). The
+port keeps the sincos table as a buffer where JAX trains it (ROADMAP C2):
+the train step is held to JAX's on every other parameter. The
 JAX pipeline is given the tiny table's size (``pos_embed_max_size=24``); the
 port reads it from the DiT's config.
 
 Tolerances (fp32): latents atol 5e-4 (the flux ``generate`` test's bound:
 about 30 DiT forwards summed in another order, fed back through the AR
 history); the train step's loss rtol 1e-5 and grad norm rtol 1e-4 (the flux
-train-step test's); the probe atol 1e-3 log2 units (the flux probe test's).
+train-step test's; JAX's norm less the table's gradient); parameters after
+a step within ``adamw_close``; the probe atol 1e-3 log2 units (the flux
+probe test's).
 """
 
+import math
 import os
 
 import jax
@@ -40,12 +45,14 @@ from pyramid_flow_tpu_torch.schedulers.flow_matching import (
     PyramidFlowMatchEulerDiscreteScheduler)
 from pyramid_flow_tpu_torch.training.telemetry import (
     make_bound_overshoot_probe, mmdit_pos_offset_fn)
-from pyramid_flow_tpu_torch.training.train_state import create_train_state
+from pyramid_flow_tpu_torch.training.train_state import (
+    TrainConfig, create_train_state)
 from pyramid_flow_tpu_torch.training.trainer import make_train_step
 from test_torch_port_dit_loss import BATCH_KEYS, UNITS, tiny_batch
 from test_torch_port_mmdit import TINY, tiny_mmdits
 from test_torch_port_pipeline import JaxNoise
-from test_torch_port_training import JaxDraws, _run_cli
+from pyramid_flow_tpu_torch.utils.converters import mmdit_state_dict_from_jax
+from test_torch_port_training import JaxDraws, _run_cli, adamw_close
 
 SEED = 13
 GEN = dict(height=64, width=64, temp=3, num_inference_steps=[2, 2, 2],
@@ -143,15 +150,38 @@ def test_dits_state_their_latent_width_and_stage_inputs(mmdits):
     torch.testing.assert_close(origin, want, rtol=0, atol=0)
 
 
+TABLE = "pos_embed.pos_embed"
+
+
+def _jax_step(dit_j, params, batch, key, config):
+    """One JAX train step: (state after it, metrics, the parameters, Adam's
+    mu and nu and the pre-clip gradient norm without the sincos table, all
+    keyed like the port). JAX's table is a parameter; its raw gradient is
+    read back from the first step's mu = (1 - b1) * clipped gradient."""
+    jstate = jts.create_train_state(params, config)
+    jstep = jtrainer.make_train_step(dit_j, JScheduler(), donate=False,
+                                     model_name="pyramid_mmdit")
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                       key, num_units_per_stage=UNITS)
+    adam = jstate.opt_state[1][0]
+    tree = lambda t: mmdit_state_dict_from_jax(  # noqa: E731
+        jax.tree.map(np.array, t))
+    mu, nu = tree(adam.mu), tree(adam.nu)
+    norm = float(jm["train/grad_norm"])
+    g_table = mu[TABLE].double() / (1 - config.beta1) * max(
+        1.0, norm / config.max_grad_norm)
+    norm_wo_table = math.sqrt(norm ** 2 - g_table.square().sum().item())
+    return jstate, jm, tree(jstate.params), mu, nu, norm_wo_table
+
+
 def test_train_step_loss_matches_jax(mmdits):
+    """The loss, and the pre-clip gradient norm without the sincos table,
+    which the port keeps as a buffer (ROADMAP C2)."""
     dit_j, params, make_port = mmdits
     batch = tiny_batch()
     key = jax.random.PRNGKey(9)
-    jstate = jts.create_train_state(params, jts.TrainConfig())
-    jstep = jtrainer.make_train_step(dit_j, JScheduler(), donate=False,
-                                     model_name="pyramid_mmdit")
-    _, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key,
-                  num_units_per_stage=UNITS)
+    _, jm, _, _, _, norm = _jax_step(dit_j, params, batch, key,
+                                     jts.TrainConfig())
     dit_t = make_port()
     step = make_train_step(dit_t, PyramidFlowMatchEulerDiscreteScheduler(),
                            model_name="pyramid_mmdit")
@@ -160,9 +190,43 @@ def test_train_step_loss_matches_jax(mmdits):
                     JaxDraws(key), UNITS)
     np.testing.assert_allclose(m["train/loss"], float(jm["train/loss"]),
                                rtol=1e-5)
-    np.testing.assert_allclose(m["train/grad_norm"],
-                               float(jm["train/grad_norm"]), rtol=1e-4)
+    np.testing.assert_allclose(m["train/grad_norm"], norm, rtol=1e-4)
+    assert m["train/grad_norm"] < float(jm["train/grad_norm"])
     assert m["train/applied"] and state.step == 1
+
+
+def test_train_step_matches_jax_but_the_sincos_table(mmdits):
+    """ROADMAP C2, the port's deliberate divergence: one step at a clip
+    that does not bind, so each parameter's AdamW step is its own. Every
+    parameter of the port is within ``adamw_close`` of JAX's after it; the
+    port's table, a buffer, has not moved, where JAX's (a parameter, with
+    its gradient and weight decay) has."""
+    dit_j, params, make_port = mmdits
+    batch = tiny_batch()
+    key = jax.random.PRNGKey(9)
+    lr = 1e-3
+    _, jm, ref, _, nu, norm = _jax_step(
+        dit_j, params, batch, key,
+        jts.TrainConfig(learning_rate=lr, max_grad_norm=1e9))
+    dit_t = make_port()
+    table = dit_t.pos_embed.pos_embed.clone()
+    step = make_train_step(dit_t, PyramidFlowMatchEulerDiscreteScheduler(),
+                           model_name="pyramid_mmdit")
+    state, m = step(create_train_state(dit_t, TrainConfig(
+                        learning_rate=lr, max_grad_norm=1e9)),
+                    {k: torch.from_numpy(v) for k, v in batch.items()},
+                    JaxDraws(key), UNITS)
+    assert m["train/applied"] and norm < 1e9
+    np.testing.assert_allclose(m["train/grad_norm"], norm, rtol=1e-4)
+    names = dict(dit_t.named_parameters())
+    assert TABLE not in names and TABLE in dit_t.state_dict()
+    assert set(ref) - set(names) == {TABLE}
+    for name, p in names.items():
+        adamw_close(p.detach().numpy(), ref[name].numpy(), nu[name].numpy(),
+                    lr, 1)
+    torch.testing.assert_close(dit_t.pos_embed.pos_embed, table, rtol=0,
+                               atol=0)
+    assert (ref[TABLE] - table).abs().max() > 0.1 * lr
 
 
 def test_overshoot_probe_matches_jax(mmdits):
