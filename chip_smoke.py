@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
 for both DiT families, the string-prompt path from a release-layout
-checkpoint, GAN-VAE training and the heads-per-block attention experiment,
-once on one CUDA card.
+checkpoint, GAN-VAE training, the heads-per-block attention experiment and
+the sequence-, fully-sharded- and context-parallel paths (two ranks sharing
+the card), once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -145,12 +146,34 @@ Phases, each of which raises on failure (the script then exits non-zero):
    version at the decoder's 128->128 384x640
    conv over a 16-frame window; then, within the same limit, one and two
    frames without front frames (the skipped taps), H x W that the 16 x 16
-   tile does not divide, and 512 -> 256 channels.
+   tile does not divide, and 512 -> 256 channels (phase 12 runs after phase
+   13, so it checks the CP step's shapes too);
+13. the multi-rank paths, with the models freed, each rank a child process
+   of this script (``--child NAME``; never given by hand) on the one card:
+   whether the card's gloo carries all_to_all, all_gather, the halo
+   exchange and FSDP2's gathers on CUDA tensors (NCCL refuses two ranks on
+   one device; where gloo does not, the paths run on one NCCL rank); then
+   on two ranks: ``sp_flash_attention`` at sp=2 against one rank's
+   ``flash_attention`` (output, lse, the three gradients: bit for bit); an
+   SP request of the release miniFLUX and VAE (384x640, temp 1, steps
+   [2, 2, 2]) with one DiT forward held to the sp=1 forward (relative L2
+   2e-2) and the frames to the sp=1 request's (printed); train steps of a
+   6 + 12-block full-width DiT (fp32, bf16 autocast, remat, the CLI's
+   default shape) on an fsdp=2 and an sp=2 mesh, loss and gradient norm
+   held to the parent's one-device steps (1e-2 and 2e-2 relative); a cp=2
+   GAN-VAE step of the release VAE on 32 frames of 128x128, K5 launched
+   with front frames on every rank (zeros on the first), its gradient held
+   to the parent's cp=1 step's (in fp32 within 1e-2; in bf16 within 1.1x
+   of the cp=1 bf16 route's distance to fp32, as phase 11b); then one
+   full-depth step of the training CLI on one NCCL rank. Every rank's
+   launches join the kernels line, beside the card's name and power limit.
 
 Each path (the experiment, the VAE decode gradient, text-to-video,
 image-to-video, the string prompt from the checkpoint, latent training,
 raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
-latent training, the GAN-VAE generator gradient, GAN-VAE training) runs
+latent training, the GAN-VAE generator gradient, GAN-VAE training, and
+phase 13's SP attention, SP serving, sharded training per mesh, the CP
+GAN-VAE step and the training CLI, on every rank) runs
 with every launch counter set to 0 just before it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
@@ -190,7 +213,6 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
-from pyramid_flow_tpu_torch.models.flux import blocks as flux_blocks
 from pyramid_flow_tpu_torch.models.flux.model import (
     FluxConfig, PyramidFluxTransformer)
 from pyramid_flow_tpu_torch.models.mmdit.model import (
@@ -227,6 +249,13 @@ from pyramid_flow_tpu_torch.training.trainer import (
     VIDEO_ENCODE_WINDOW, make_train_step)
 from pyramid_flow_tpu_torch.training.vae_trainer import (
     VAETrainConfig, create_vae_train_state, make_vae_train_step)
+from pyramid_flow_tpu_torch.parallel import comm as par_comm
+from pyramid_flow_tpu_torch.parallel import sp as par_sp
+from pyramid_flow_tpu_torch.parallel.cp import (
+    make_cp_mesh, previous_frames, time_shard)
+from pyramid_flow_tpu_torch.parallel.mesh import (
+    MeshConfig, data_rank, make_mesh, param_sharding)
+from pyramid_flow_tpu_torch.parallel.sp import a2a_bytes, sp_flash_attention
 
 SEED = 0
 B, H, D = 2, 24, 64
@@ -269,6 +298,21 @@ VAE_TRAIN_CLIP, VAE_TRAIN_STEPS = (17, 256), 3
 VAE_GRAD_CLIP = (9, 128)
 # NVIDIA H100 SXM published dense peaks
 PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
+# the multi-rank phases (13): ranks sharing the one card, their files, the
+# serving request's steps per stage (cut from 20), the sharded train
+# steps' depth (cut from 19 + 38 blocks) and count, the CP GAN-VAE clip
+# (cut from the recipe's 256x256: two ranks share the card); the fsdp=2
+# mesh takes one of the steps, the sp=2 mesh both
+PAR_DIR = os.path.join("build", "smoke_parallel")
+PAR_WORLD = 2
+SP_SERVE_STEPS, SP_SERVE_TEMP = [2, 2, 2], 1
+PAR_TRAIN_DEPTH, PAR_TRAIN_STEPS = (6, 12), 2
+PAR_LOSS_REL, PAR_GNORM_REL = 1e-2, 2e-2
+# fp32 cp=2 against fp32 cp=1: 2.2e-3 measured on an H100: cuDNN's
+# fp32 algorithms differ between 16- and 32-frame convs, and the GAN loss
+# with random weights amplifies rounding (bf16: 2.3e-1)
+CP_CLIP, CP_FP32_REL_L2 = (32, 128), 1e-2
+CHILD_TIMEOUT = 600
 
 
 def log(msg):
@@ -1075,7 +1119,7 @@ def dit_check(dit, meta_pipe, dev, gen):
         return fa.attention_reference(q, k, v, time_ids, causal=causal,
                                       sm_scale=sm_scale)
 
-    with mock.patch.object(flux_blocks, "flash_attention", plain):
+    with mock.patch.object(par_sp, "flash_attention", plain):
         out_p = dit(*inputs)
     torch.cuda.synchronize()
     valid = lat_time != fa.INVALID_TIME
@@ -1193,7 +1237,7 @@ def dit_grad_check(dit, dev, gen):
         return fa.attention_reference(q, k, v, time_ids, causal=causal,
                                       sm_scale=sm_scale)
 
-    with mock.patch.object(flux_blocks, "flash_attention", plain):
+    with mock.patch.object(par_sp, "flash_attention", plain):
         t0 = time.perf_counter()
         loss_p, gp = backward()
         plain_s = time.perf_counter() - t0
@@ -2025,6 +2069,625 @@ def mmdit_text_request(pipe, dev, paths):
     return r
 
 
+# ------------------------------------------------------- multi-rank phases
+# Each runs in child processes of this script (``--child NAME``), which
+# join a process group of their own: the card's gloo on CUDA tensors for
+# two ranks sharing the card (NCCL refuses two ranks on one device), or
+# NCCL for a world of one. The parent writes what they compare with into
+# PAR_DIR first, and reads their results back from there.
+
+
+def child_env(rank: int, world: int, port: int) -> dict:
+    return dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                LOCAL_RANK="0", MASTER_ADDR="localhost",
+                MASTER_PORT=str(port))
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_children(name: str, world: int, backend: str) -> list:
+    """``world`` children running phase ``name`` on ``backend``; returns
+    each rank's result. A child that fails, or outlives CHILD_TIMEOUT,
+    fails the run; every child is stopped before this returns."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--child", name,
+         "--backend", backend], env=child_env(r, world, port))
+        for r in range(world)]
+    deadline = time.monotonic() + CHILD_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase {name} outlived "
+                                     f"{CHILD_TIMEOUT} s")
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        raise AssertionError(f"phase {name}: ranks exited {codes}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(PAR_DIR, f"{name}-rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def rank_log(msg):
+    log(f"[rank {torch.distributed.get_rank()}] {msg}")
+
+
+def gloo_question(dev) -> dict:
+    """Whether the group's backend carries, on CUDA tensors, what the
+    parallel paths need: all_to_all_single, all_gather, the halo exchange
+    with its gradient, and FSDP2's all-gather and reduce-scatter (a step
+    of a fully sharded two-layer model)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.fsdp import fully_shard
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    ops = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            torch.cuda.synchronize()
+            ops[name] = "ok"
+        except Exception as e:  # reported to the parent, which decides
+            ops[name] = f"{type(e).__name__}: {str(e)[:200]}"
+
+    x = torch.arange(4 * world, dtype=torch.float32, device=dev) + rank
+    attempt("all_to_all_single", lambda: dist.all_to_all_single(
+        torch.empty_like(x), x))
+    attempt("all_gather", lambda: dist.all_gather(
+        [torch.empty_like(x) for _ in range(world)], x))
+
+    def halo():
+        f = torch.full((1, 4, 2, 2, 1), float(rank + 1), device=dev,
+                       requires_grad=True)
+        front = previous_frames(f, 2, dist.group.WORLD)
+        want = 0.0 if rank == 0 else float(rank)
+        assert bool((front == want).all()), front
+        front.sum().backward()
+        assert f.grad is not None
+
+    attempt("halo_exchange", halo)
+
+    def fsdp():
+        mesh = init_device_mesh("cuda", (world,))
+        m = torch.nn.Sequential(torch.nn.Linear(64, 64),
+                                torch.nn.Linear(64, 8)).to(dev)
+        for layer in m:
+            fully_shard(layer, mesh=mesh)
+        fully_shard(m, mesh=mesh)
+        opt = torch.optim.AdamW(m.parameters(), lr=1e-3)
+        m(torch.randn(4, 64, device=dev)).sum().backward()
+        opt.step()
+
+    attempt("fsdp2_all_gather_reduce_scatter", fsdp)
+    rank_log("collectives on CUDA tensors: " + json.dumps(ops))
+    return {"ops": ops}
+
+
+def sp_attention_phase(dev, mesh) -> dict:
+    """``sp_flash_attention`` over the sp ranks at the stage-2 timed layout
+    (B=2, H=24, D=64, causal, bounded) against one rank's
+    ``flash_attention`` on the whole sequence: the output, the lse (through
+    the same all_to_all and the forward kernel) and the three gradients.
+    Each head runs the same kernel over the same keys, so they agree bit
+    for bit. Launches of the sp call alone."""
+    group = mesh.get_group("sp")
+    sp = group.size()
+    r = group.rank()
+    gen = torch.Generator(dev).manual_seed(SEED + 20)
+    meta_pipe = PyramidFlowPipeline(None, device=dev)
+    _, t = layout_time_ids(meta_pipe, 384, 640, 15, 2, dev)
+    pad = -t.shape[1] % (sp * 128)  # the DiT's own padding under sp
+    t = F.pad(t, (0, pad), value=fa.INVALID_TIME).contiguous()
+    L = t.shape[1]
+    q, k, v = (rms_normal((B, H, L, D), gen, dev) for _ in range(3))
+    valid = (t != fa.INVALID_TIME)[:, None, :, None]
+    do = (torch.randn((B, H, L, D), generator=gen, device=dev)
+          * valid).bfloat16()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_ref = fa.flash_attention(*leaves, t, causal=True, bounded=True)
+    o_ref.backward(do)
+    _, lse_ref = fa.flash_fwd_cuda(q, k, v, t, t, causal=True,
+                                   sm_scale=D ** -0.5, bounded=True)
+    sl = slice(r * L // sp, (r + 1) * L // sp)
+    shards = [x[:, :, sl].clone().requires_grad_() for x in (q, k, v)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    o = sp_flash_attention(*shards, t, group, causal=True, bounded=True)
+    o.backward(do[:, :, sl].contiguous())
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    heads = slice(r * H // sp, (r + 1) * H // sp)
+    qa, ka, va = (par_comm.all_to_all(x[:, :, sl].contiguous(), group, 1, 2)
+                  .contiguous() for x in (q, k, v))
+    _, lse = fa.flash_fwd_cuda(qa, ka, va, t, t, causal=True,
+                               sm_scale=D ** -0.5, bounded=True)
+    vrow = valid[:, :, sl]
+
+    def err(a, b, mask=None):
+        d = (a.float() - b.float()).abs()
+        return (d * mask if mask is not None else d).max().item()
+
+    vl = valid[:, 0, :, 0]
+    res = dict(layout=TIMED_LAYOUT, L=L, sp=sp, heads_per_rank=H // sp,
+               max_abs_err_o=err(o, o_ref[:, :, sl], vrow),
+               max_abs_err_lse=err(lse.masked_fill(~vl[:, None], 0),
+                                   lse_ref[:, heads].masked_fill(
+                                       ~vl[:, None], 0)),
+               max_abs_err_dq=err(shards[0].grad, leaves[0].grad[:, :, sl]),
+               max_abs_err_dk=err(shards[1].grad, leaves[1].grad[:, :, sl]),
+               max_abs_err_dv=err(shards[2].grad, leaves[2].grad[:, :, sl]),
+               a2a_bytes_per_attention=4 * a2a_bytes(shards[0], group),
+               launches=launched)
+    with torch.no_grad():
+        res["sp_fwd_ms"] = cuda_ms(lambda: sp_flash_attention(
+            *shards, t, group, causal=True, bounded=True), 5)
+        res["one_rank_fwd_ms"] = cuda_ms(lambda: fa.flash_attention(
+            q, k, v, t, causal=True, bounded=True), 5)
+    worst = max(v for k_, v in res.items() if k_.startswith("max_abs_err"))
+    res["bit_equal"] = worst == 0
+    rank_log(f"SP attention ({card_line()}) " + json.dumps(res))
+    if launched != expected(1, 1):
+        raise AssertionError(f"SP attention launches {launched}")
+    gmax = max(x.grad.abs().max().item() for x in leaves)
+    if not (res["max_abs_err_o"] <= O_ATOL
+            and res["max_abs_err_lse"] <= LSE_ATOL
+            and max(res[f"max_abs_err_d{n}"] for n in "qkv")
+            <= GRAD_REL * gmax):
+        raise AssertionError(f"SP attention off one rank's: {res}")
+    return {"result": res, "launches": launched}
+
+
+def sp_serving_phase(dev, mesh) -> dict:
+    """The release miniFLUX and VAE (bf16, weights from SEED + 21, the same
+    on every rank) with the DiT sequence-parallel over the sp ranks: one
+    forward held to the sp=1 forward of the same rank on the same inputs,
+    then one T2V request at 384x640, temp 1, SP_SERVE_STEPS, and the same
+    request at sp=1 on the same draws."""
+    gen = torch.Generator(dev).manual_seed(SEED + 21)
+    t0 = time.perf_counter()
+    dit = PyramidFluxTransformer(FluxConfig(), dtype=torch.bfloat16,
+                                 device=dev, mesh=mesh)
+    randomize_(dit, gen)
+    vae = CausalVideoVAE(VAEConfig(), dtype=torch.bfloat16, device=dev)
+    randomize_(vae, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    meta_pipe = PyramidFlowPipeline(None, device=dev)
+    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit, torch.bfloat16)
+    valid = lat_time != fa.INVALID_TIME
+    with torch.no_grad():
+        out_sp = dit(*inputs)
+        dit.set_mesh(None)
+        out_1 = dit(*inputs)
+        dit.set_mesh(mesh)
+    fwd_rel = rel_l2(out_sp[:, valid], out_1[:, valid])
+    cfg = dit.config
+    emb = torch.randn((1, TEXT_LEN, cfg.joint_attention_dim), generator=gen,
+                      device=dev).bfloat16()
+    mask = (text_time(dev) == 0)[None]
+    pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen,
+                         device=dev).bfloat16()
+    pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16, device=dev)
+
+    def request():
+        return pipe.generate(
+            torch.Generator(dev).manual_seed(SEED + 1), emb, mask, pooled,
+            emb * 0, mask, pooled * 0, height=HEIGHT, width=WIDTH,
+            temp=SP_SERVE_TEMP, num_inference_steps=SP_SERVE_STEPS,
+            video_num_inference_steps=SP_SERVE_STEPS, guidance_scale=7.0,
+            video_guidance_scale=5.0, output_type="pixels")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    frames_sp = request()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    dit.set_mesh(None)
+    frames_1 = request()
+    dit.set_mesh(mesh)
+    diff = (frames_sp.float() - frames_1.float()).abs()
+    forwards = sum(SP_SERVE_STEPS)
+    windows = len(vae_model._window_starts(SP_SERVE_TEMP, DECODE_WINDOW, 1))
+    want = expected(dit.num_attention_calls * forwards,
+                    conv=kernel_conv_count(vae.decoder) * windows)
+    res = dict(card=card_line(), sp=group_size(mesh, "sp"),
+               steps=SP_SERVE_STEPS, temp=SP_SERVE_TEMP,
+               models_built_s=build_s, dit_forward_rel_l2=fwd_rel,
+               wall_s=wall, dit_s=pipe.last_dit_seconds,
+               decode_s=pipe.last_decode_seconds, peak_mem_gb=peak,
+               k1_launches=launched["flash_fwd"],
+               frames=list(frames_sp.shape),
+               frames_mean_abs_diff=diff.mean().item(),
+               frames_max_abs_diff=diff.max().item(), launches=launched)
+    rank_log("SP serving " + json.dumps(res))
+    if fwd_rel > DIT_REL_L2:
+        raise AssertionError(f"SP DiT forward off the sp=1 forward: {res}")
+    shape = (1, 1 + 8 * (SP_SERVE_TEMP - 1), HEIGHT, WIDTH, 3)
+    if (tuple(frames_sp.shape) != shape or frames_sp.dtype != torch.uint8
+            or frames_sp.min() == frames_sp.max()):
+        raise AssertionError(f"SP frames {tuple(frames_sp.shape)} "
+                             f"{frames_sp.dtype}, expected {shape} uint8, "
+                             "not constant")
+    if launched != want:
+        raise AssertionError(f"SP serving launches {launched}, expected "
+                             f"{want}")
+    del pipe, dit, vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"result": res, "launches": launched}
+
+
+def group_size(mesh, dim: str) -> int:
+    return mesh.shape[mesh.mesh_dim_names.index(dim)]
+
+
+def par_train_dit(dev, mesh=None):
+    """The cut-depth full-width training DiT (fp32, remat) with weights from
+    SEED + 22, its batch (the CLI's default shape) and its draws: the same
+    in the parent's one-device reference and on every rank."""
+    gen = torch.Generator(dev).manual_seed(SEED + 22)
+    dual, single = PAR_TRAIN_DEPTH
+    cfg = FluxConfig(num_layers=dual, num_single_layers=single)
+    dit = PyramidFluxTransformer(cfg, dtype=torch.float32, device=dev,
+                                 remat=True, mesh=mesh)
+    randomize_(dit, gen)
+    zero_output_(dit)
+    batch = training_batch(cfg, dev, gen, TRAIN_BATCH)
+    return dit, batch
+
+
+def par_train_steps(dit, batch, dev, mesh=None,
+                    n_steps=PAR_TRAIN_STEPS) -> list:
+    state = create_train_state(dit, TrainConfig(
+        learning_rate=5e-5, weight_decay=1e-4, max_grad_norm=1.0,
+        lr_schedule=cosine_schedule(5e-5, 1e-6, 1000, 10, 1000)))
+    step_fn = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
+                              (1, 2, 1), True, 1, 1 / 3, cfg_rate=0.1,
+                              compute_dtype=torch.bfloat16, mesh=mesh)
+    draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
+    index, count = data_rank(mesh)
+    per = TRAIN_BATCH // count
+    local = {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
+    steps = []
+    for _ in range(n_steps):
+        units = tuple(sample_stage_length(0, state.step, 3, 31, 1, 8,
+                                          max_units=TRAIN_FRAMES))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, local, draws, units)
+        torch.cuda.synchronize()
+        steps.append(dict(units=units, loss=m["train/loss"],
+                          grad_norm=m["train/grad_norm"],
+                          applied=m["train/applied"],
+                          seconds=time.perf_counter() - t0))
+    return steps
+
+
+def par_train_reference(dev) -> list:
+    """The parent's one-device steps of the cut-depth DiT, which the
+    sharded steps are held to."""
+    dit, batch = par_train_dit(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    steps = par_train_steps(dit, batch, dev)
+    log(f"sharded-train reference, one device ({card_line()}): "
+        f"{json.dumps(steps)}, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    del dit, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return steps
+
+
+def sharded_train_phase(dev, shape, n_steps, reference) -> dict:
+    """``n_steps`` train steps of the cut-depth DiT on a (dp, fsdp, sp) mesh
+    of ``shape`` with FSDP2, each rank on its rows: loss and gradient norm
+    held to the one-device steps, launches, seconds and peak memory per
+    rank."""
+    mesh = make_mesh(MeshConfig(*shape), "cuda")
+    dit, batch = par_train_dit(dev, mesh)
+    stats = {}
+    param_sharding(dit, mesh, min_shard_dim=1024, stats_out=stats,
+                   verbose=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    steps = par_train_steps(dit, batch, dev, mesh, n_steps)
+    launched = launch_counts()
+    attentions = dit.num_attention_calls * 3 * n_steps
+    res = dict(card=card_line(), mesh=dict(zip(("dp", "fsdp", "sp"), shape)),
+               depth=PAR_TRAIN_DEPTH, steps=steps, reference=reference,
+               rule_fraction=stats["rule_fraction"],
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launched)
+    rank_log("sharded train " + json.dumps(res))
+    for got, ref in zip(steps, reference):
+        if not (abs(got["loss"] - ref["loss"]) <= PAR_LOSS_REL * ref["loss"]
+                and abs(got["grad_norm"] - ref["grad_norm"])
+                <= PAR_GNORM_REL * ref["grad_norm"]):
+            raise AssertionError(f"sharded step off the one-device step: "
+                                 f"{got} vs {ref}")
+    if launched != expected(2 * attentions, attentions):
+        raise AssertionError(f"sharded train launches {launched}")
+    del dit, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"result": res, "launches": launched}
+
+
+def cp_nets(dev):
+    """The GAN-VAE nets of phase 11 (fp32 VAE, random frozen LPIPS,
+    ``PatchDiscriminator2D``; the same seeds) and the CP clip."""
+    vae = CausalVideoVAE(VAEConfig(), device=dev)
+    randomize_(vae, torch.Generator(dev).manual_seed(SEED + 5))
+    lpips = LPIPS(device=dev)
+    randomize_lpips_(lpips, torch.Generator(dev).manual_seed(SEED + 6))
+    disc = PatchDiscriminator2D(device=dev)
+    randomize_disc_(disc, torch.Generator(dev).manual_seed(SEED + 7))
+    frames, side = CP_CLIP
+    clip = smooth_video(torch.Generator(dev).manual_seed(SEED + 23), dev,
+                        frames, side, side)
+    return vae, lpips, disc, clip
+
+
+def cp_gan_grads(dev, mesh=None, compute_dtype=torch.bfloat16):
+    """The GAN step's gradients (``grads_only``, the discriminator on,
+    continuation clips, under ``compute_dtype`` autocast or in fp32) on this
+    rank's shard of the CP clip; with the conv calls recorded (shape and
+    front frames)."""
+    vae, lpips, disc, clip = cp_nets(dev)
+    if mesh is not None:
+        clip = time_shard(clip, mesh.get_group("cp"))
+    state = create_vae_train_state(vae, disc, VAETrainConfig(disc_start=0))
+    step = make_vae_train_step(vae, lpips, disc, grads_only=True,
+                               compute_dtype=compute_dtype, is_init=False,
+                               mesh=mesh)
+    calls = []
+    conv = vae_layers.causal_conv3d
+
+    def recorder(x, weight, bias, front=None):
+        calls.append((tuple(x.shape) + (weight.shape[0], front is not None),
+                      front is not None and bool(front.abs().max() > 0)))
+        return conv(x, weight, bias, front)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(vae_layers, "causal_conv3d", recorder):
+        g, _, m = step(state, clip,
+                       GeneratorDraws(torch.Generator(dev).manual_seed(SEED)))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launch_counts()
+    names = sorted(g["vae"])
+    flat = torch.cat([g["vae"][n].float().flatten() for n in names]
+                     + [g["logvar"].float().flatten()])
+    return dict(flat=flat, metrics=m, seconds=seconds, launches=launched,
+                calls=calls, routed=kernel_conv_count(vae, torch.bfloat16),
+                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def cp_reference(dev) -> dict:
+    """The parent's cp=1 steps on the whole clip, in bf16 (the conv kernel)
+    and in fp32; their gradients go to PAR_DIR for rank 0 to compare with,
+    as phase 11b holds the kernel route: the bf16 gradient of the GAN loss
+    with random weights sits ~2.4e-1 from fp32 on any route (phase 11b)."""
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", None)):
+        r = cp_gan_grads(dev, compute_dtype=dtype)
+        torch.save(r["flat"].cpu(), os.path.join(PAR_DIR,
+                                                 f"cp1_{name}_grads.pt"))
+        out[name] = dict(metrics=r["metrics"], seconds=r["seconds"],
+                         peak_mem_gb=r["peak_mem_gb"])
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
+    bf16, fp32 = (torch.load(os.path.join(PAR_DIR, f"cp1_{n}_grads.pt"))
+                  for n in ("bf16", "fp32"))
+    out["bf16_vs_fp32"] = rel_l2(bf16, fp32)
+    log(f"CP GAN-VAE reference, cp=1 ({card_line()}): clip "
+        f"{[1, CP_CLIP[0], CP_CLIP[1], CP_CLIP[1], 3]} " + json.dumps(out))
+    return out
+
+
+def cp_gan_phase(dev, world, reference) -> dict:
+    """One GAN step of the release VAE at cp=world on CP_CLIP (T/cp frames
+    per rank): every admitted conv launches the conv kernel with front
+    frames, nonzero on every rank but the first; rank 0 holds the whole
+    gradient to the cp=1 step's by relative L2."""
+    import torch.distributed as dist
+
+    mesh = make_cp_mesh(1, world, "cuda")
+    r32 = cp_gan_grads(dev, mesh, None)  # fp32: no kernel
+    m32, r32 = r32["metrics"], r32["flat"]
+    r = cp_gan_grads(dev, mesh)
+    rank = dist.get_rank()
+    fronts = [c[0][-1] for c in r["calls"]]
+    nonzero = sum(c[1] for c in r["calls"])
+    res = dict(card=card_line(), cp=world, clip_per_rank=[
+        1, CP_CLIP[0] // world, CP_CLIP[1], CP_CLIP[1], 3],
+        seconds=r["seconds"], peak_mem_gb=r["peak_mem_gb"],
+        conv_launches=r["launches"]["causal_conv3d"],
+        conv_calls_with_front=sum(fronts), nonzero_fronts=nonzero,
+        d_weight=r["metrics"]["vae/d_weight"],
+        total_loss=r["metrics"]["vae/total_loss"],
+        reference_total_loss=reference["bf16"]["metrics"]["vae/total_loss"],
+        fp32_d_weight=m32["vae/d_weight"],
+        fp32_total_loss=m32["vae/total_loss"],
+        reference_fp32_d_weight=reference["fp32"]["metrics"]["vae/d_weight"],
+        reference_fp32_total_loss=reference["fp32"]["metrics"][
+            "vae/total_loss"],
+        launches=r["launches"])
+    if rank == 0:
+        ref32 = torch.load(os.path.join(PAR_DIR, "cp1_fp32_grads.pt")).to(dev)
+        ref16 = torch.load(os.path.join(PAR_DIR, "cp1_bf16_grads.pt")).to(dev)
+        res.update(fp32_cp_vs_fp32_cp1=rel_l2(r32, ref32),
+                   bf16_cp_vs_fp32_cp1=rel_l2(r["flat"], ref32),
+                   bf16_cp1_vs_fp32_cp1=reference["bf16_vs_fp32"],
+                   bf16_cp_vs_bf16_cp1=rel_l2(r["flat"], ref16))
+    rank_log("CP GAN-VAE " + json.dumps(res))
+    want = expected(conv=r["routed"])
+    if r["launches"] != want:
+        raise AssertionError(f"CP GAN-VAE launches {r['launches']}, "
+                             f"expected {want}")
+    if not all(fronts) or nonzero != (0 if rank == 0 else len(fronts)):
+        raise AssertionError(f"CP conv front frames: {len(fronts)} calls, "
+                             f"{sum(fronts)} with front, {nonzero} nonzero")
+    if not (r["metrics"]["vae/d_weight"] > 0
+            and all(math.isfinite(v) for v in r["metrics"].values())):
+        raise AssertionError(f"CP GAN-VAE metrics: {r['metrics']}")
+    if rank == 0 and not (
+            res["fp32_cp_vs_fp32_cp1"] <= CP_FP32_REL_L2
+            and res["bf16_cp_vs_fp32_cp1"]
+            <= 1.1 * res["bf16_cp1_vs_fp32_cp1"]):
+        raise AssertionError(f"CP gradient off the cp=1 gradient: {res}")
+    shapes = sorted({c[0] for c in r["calls"]})
+    return {"result": res, "launches": r["launches"],
+            "conv_shapes": [list(s) for s in shapes]}
+
+
+def write_latent_anno(directory: str) -> str:
+    """Four seeded latent clips at the CLI's default shape (16 frames of
+    48x80, 16 channels) and their jsonl, for the training CLI."""
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for i in range(TRAIN_BATCH):
+        path = os.path.join(directory, f"latent{i}.npy")
+        np.save(path, rng.standard_normal((TRAIN_FRAMES, 48, 80, 16))
+                .astype(np.float32))
+        lines.append(json.dumps({"latent": os.path.abspath(path)}))
+    anno = os.path.join(directory, "latents.jsonl")
+    with open(anno, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return anno
+
+
+def cli_train_phase(dev) -> dict:
+    """One step of the training CLI at full depth on a world of one
+    (NCCL, ``--fsdp 1``): FSDP2's DTensor route end to end on the real
+    backend."""
+    from pyramid_flow_tpu_torch.tools import train_pyramid_flow
+
+    anno = os.path.join(PAR_DIR, "latents.jsonl")
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    code = train_pyramid_flow.main([
+        "--anno_file", anno, "--fsdp", "1", "--epochs", "1",
+        "--steps_per_epoch", "1", "--gradient_checkpointing",
+        "--bound_probe_freq", "0", "--save_ckpt_freq", "1000",
+        "--print_freq", "1", "--output_dir",
+        os.path.join(PAR_DIR, "cli_run")])
+    torch.cuda.synchronize()
+    launched = launch_counts()
+    res = dict(card=card_line(), exit=code,
+               seconds=time.perf_counter() - t0,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches=launched)
+    log("[rank 0] training CLI, one rank on NCCL " + json.dumps(res))
+    attentions = FluxConfig().num_layers + FluxConfig().num_single_layers
+    if code != 0 or launched != expected(2 * 3 * attentions, 3 * attentions):
+        raise AssertionError(f"training CLI step: {res}")
+    return {"result": res, "launches": launched}
+
+
+def child_main(name: str, backend: str) -> int:
+    """A rank of phase ``name``: joins the group the environment names on
+    ``backend``, runs the phase and writes its result to PAR_DIR."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    if name == "cli_train":  # the CLI joins the group itself
+        out = cli_train_phase(dev)
+        rank = 0
+    else:
+        dist.init_process_group(backend, init_method="env://")
+        rank, world = dist.get_rank(), dist.get_world_size()
+        if name == "gloo":
+            out = gloo_question(dev)
+        else:
+            with open(os.path.join(PAR_DIR, "plan.json")) as f:
+                plan = json.load(f)
+            sp_mesh = make_mesh(MeshConfig(sp=world), "cuda")
+            out = {"sp_attention": sp_attention_phase(dev, sp_mesh),
+                   "sp_serving": sp_serving_phase(dev, sp_mesh)}
+            for key, (shape, n) in plan["train_meshes"].items():
+                out[key] = sharded_train_phase(dev, shape, n,
+                                               plan["train_reference"])
+            out["cp_gan"] = cp_gan_phase(dev, world, plan["cp_reference"])
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(PAR_DIR, f"{name}-rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def parallel_phases(dev, paths: dict, conv_shapes: set) -> dict:
+    """Phase 13, with the parent's models freed: the gloo question, then
+    SP attention, SP serving, the sharded train steps (fsdp=2, then sp=2)
+    and the CP GAN-VAE step on two ranks sharing the card where the card's
+    gloo carries them (one rank on NCCL where it does not), then the
+    training CLI on one NCCL rank at full depth. Adds every rank's launches
+    to ``paths`` and the CP step's conv shapes to ``conv_shapes``."""
+    t0 = time.perf_counter()
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    probe = run_children("gloo", PAR_WORLD, "gloo")
+    failed = {k: v for r in probe for k, v in r["ops"].items() if v != "ok"}
+    world, backend = ((PAR_WORLD, "gloo") if not failed else (1, "nccl"))
+    log(f"gloo on CUDA tensors, two ranks on one card: "
+        f"{'carries every collective' if not failed else failed}; the "
+        f"multi-rank paths run on {world} rank(s) over {backend}")
+    reference = par_train_reference(dev)
+    cp_ref = cp_reference(dev)
+    # FSDP2's per-block gathers go through host memory over gloo (about
+    # 30 s a step here): one step on that mesh
+    meshes = {"train fsdp": [[1, world, 1], 1],
+              "train sp": [[1, 1, world], PAR_TRAIN_STEPS]}
+    with open(os.path.join(PAR_DIR, "plan.json"), "w") as f:
+        json.dump({"train_meshes": meshes, "train_reference": reference,
+                   "cp_reference": cp_ref}, f)
+    ranks = run_children("paths", world, backend)
+    names = {"sp_attention": "SP attention", "sp_serving": "SP serving",
+             "train fsdp": "sharded train (fsdp)",
+             "train sp": "sharded train (sp)", "cp_gan": "CP GAN-VAE step"}
+    for key, label in names.items():
+        paths[label] = {k: sum(r[key]["launches"][k] for r in ranks)
+                        for k in launch_counts()}
+    for r in ranks:
+        conv_shapes.update(tuple(s) for s in r["cp_gan"]["conv_shapes"])
+    write_latent_anno(PAR_DIR)
+    cli = run_children("cli_train", 1, "nccl")
+    paths["training CLI (one NCCL rank)"] = cli[0]["launches"]
+    log(f"multi-rank phases: {time.perf_counter() - t0:.1f} s "
+        f"({card_line()})")
+    return {"world": world, "backend": backend, "ranks": ranks,
+            "cli": cli[0]}
+
+
 def build_libraries():
     """The four kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -2055,6 +2718,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if "--child" in sys.argv:  # a rank of a multi-rank phase
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        return child_main(args["--child"], args["--backend"])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2140,6 +2806,12 @@ def main() -> int:
         mmdit_paths(vae, meta_pipe, dev, gen, paths)
         # GAN-VAE training: an fp32-master VAE of its own under bf16 autocast
         gan_vae_paths(dev, paths)
+
+    # the multi-rank paths, in child processes, with the models freed
+    del vae
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel_phases(dev, paths, conv_shapes)
     log("launches by path " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
     unused = [k for k, n in total.items()
@@ -2147,10 +2819,7 @@ def main() -> int:
     if unused:
         raise AssertionError(f"kernels no path launched: {unused}")
 
-    # the conv kernel at every shape the paths gave it, with the models freed
-    del vae
-    gc.collect()
-    torch.cuda.empty_cache()
+    # the conv kernel at every shape the paths gave it
     log(f"conv shapes the paths launched: {len(conv_shapes)}")
     conv_checks = conv_vs_plain(conv_shapes, dev, kgen)
     conv_checks += conv_edge_checks(dev, kgen)

@@ -268,8 +268,9 @@ extern "C" int pf_causal_conv3d(const void* x, const void* front, const void* wt
       !encode_map(&maps[2], wt, 2, dw, sw, bw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      causal_conv3d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  // once per device, as the flash kernels
+  static std::atomic<bool> smem_set[pf::kMaxDevices];
+  cudaError_t err = pf::opt_in_smem(causal_conv3d_kernel, kSmemBytes, smem_set);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int sms = sm_count();
   const int grid = static_cast<int>(ntiles < sms ? ntiles : (sms > 0 ? sms : 1));

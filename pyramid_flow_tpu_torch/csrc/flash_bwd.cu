@@ -625,15 +625,10 @@ int launch(const CUtensorMap* maps, const Args& a, void* dq, void* dk, void* dv,
   constexpr int kBytes = Smem<D>::kLaunchBytes;
   auto dkv = flash_bwd_dkv_kernel<D, kCausal>;
   auto dqk = flash_bwd_dq_kernel<D, kCausal>;
-  // once per process and instance: the backward launches hundreds of times
-  // per train step, and the port runs on one card
-  static const cudaError_t attr = [&] {
-    const cudaError_t e =
-        cudaFuncSetAttribute(dkv, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-    return e != cudaSuccess
-               ? e
-               : cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  }();
+  // once per device and instance: the backward launches hundreds of times per train step
+  static std::atomic<bool> dkv_set[kMaxDevices], dq_set[kMaxDevices];
+  cudaError_t attr = opt_in_smem(dkv, kBytes, dkv_set);
+  if (attr == cudaSuccess) attr = opt_in_smem(dqk, kBytes, dq_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const float scale_log2 = a.sm_scale * kLog2e;
   dkv<<<dim3((a.Lk + kTile - 1) / kTile, a.H, a.B), kThreads, kBytes, stream>>>(

@@ -62,10 +62,9 @@ int launch(const CUtensorMap* maps, const void* time_q, const void* time_kv, con
            cudaStream_t stream) {
   constexpr int kBytes = Smem<D>::kLaunchBytes;
   auto kernel = flash_fwd_kernel<D, kBounded, kCausal>;
-  // once per process and instance: the forward launches thousands of times
-  // per request, and the port runs on one card
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  // once per device and instance: the forward launches thousands of times per request
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t attr = opt_in_smem(kernel, kBytes, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((Lq + kFwdBQ - 1) / kFwdBQ, H, B);
   kernel<<<grid, kThreads, kBytes, stream>>>(

@@ -82,9 +82,9 @@ int launch(const void* q, const void* k, const void* v, const void* time_q,
            float scale_log2, cudaStream_t stream) {
   constexpr int kBytes = Hn<HS>::kSmemBytes;
   auto kernel = flash_fwd_hn_kernel<kCausal, HS>;
-  // once per process and instance, as flash_fwd.cu
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  // once per device and instance, as flash_fwd.cu
+  static std::atomic<bool> smem_set[kMaxDevices];
+  const cudaError_t attr = opt_in_smem(kernel, kBytes, smem_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // setmaxnreg hands out only the registers the block started with: refuse
   // a build whose count at launch would leave a consumer waiting for them

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace pf {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -279,6 +281,24 @@ inline bool encode_map(CUtensorMap* map, const void* base, int rank, const uint6
       CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS;
+}
+
+// A kernel's dynamic shared-memory opt-in belongs to the context of the device that is
+// current when it is set, so it is set once per device: `done` (one flag per device
+// ordinal, zero-initialised, one array per kernel instance) records where it was. A device
+// past kMaxDevices sets it on every launch.
+constexpr int kMaxDevices = 64;
+
+template <typename Kernel>
+inline cudaError_t opt_in_smem(Kernel kernel, int bytes, std::atomic<bool>* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  if (tracked && done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && tracked) done[dev].store(true, std::memory_order_release);
+  return err;
 }
 
 // The card's SM count (device of the calling thread).

@@ -11,16 +11,24 @@ counterpart of the JAX blocks' ``sow("telemetry", ...)``: set its
 ``capture`` to a list (``PyramidFluxTransformer.capture_qk`` does so for
 every block) and each forward appends ``(q[:1], k[:1])``. ``capture`` is
 None otherwise, and then costs one attribute test.
+
+Under sequence parallelism each attention module's ``sp_group`` is the sp
+process group (the DiT sets it from its mesh): the module then holds this
+rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
+:func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention`; a capture
+then appends the whole sequence's q and k, gathered from the ranks.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.flash_attention import flash_attention
 from ...ops.rope import apply_rope
+from ...parallel.comm import all_gather
+from ...parallel.sp import sp_flash_attention
 
 __all__ = [
     "RMSNorm",
@@ -131,11 +139,25 @@ def _unheads(x):
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
-def _attention(q, k, v, time_ids, causal, head_dim):
-    """q, k are RMS-normalised, which keeps the bounded-softmax form exact."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           time_ids, causal=causal, sm_scale=head_dim ** -0.5,
-                           bounded=True)
+def _attention(q, k, v, time_ids, causal, head_dim, sp_group=None):
+    """q, k are RMS-normalised, which keeps the bounded-softmax form exact.
+    With an sp group of more than one rank, q, k, v are this rank's shard
+    of the sequence and the attention is Ulysses' (JAX's
+    ``_dispatch_attention``)."""
+    return sp_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                              time_ids, sp_group, causal=causal,
+                              sm_scale=head_dim ** -0.5, bounded=True)
+
+
+def _capture(attn, q, k):
+    """Append batch row 0's ``(q, k)`` to ``attn.capture``, the whole
+    sequence's under sp (gathered from the ranks)."""
+    q, k = q[:1].detach(), k[:1].detach()
+    group = attn.sp_group
+    if group is not None and dist.get_world_size(group) > 1:
+        q, k = (torch.cat(all_gather(t, group).unbind(0), dim=2)
+                for t in (q, k))
+    attn.capture.append((q, k))
 
 
 class JointAttention(nn.Module):
@@ -154,6 +176,7 @@ class JointAttention(nn.Module):
         for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
         self.capture = None
+        self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
         n = self.num_heads
@@ -169,8 +192,9 @@ class JointAttention(nn.Module):
         k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
         v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
-            self.capture.append((q[:1].detach(), k[:1].detach()))
-        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim))
+            _capture(self, q, k)
+        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
+                                self.sp_group))
         return self.to_out[0](o[:, lt:]), self.to_add_out(o[:, :lt])
 
 
@@ -188,6 +212,7 @@ class SingleAttention(nn.Module):
         self.norm_q = RMSNorm(head_dim, **kw)
         self.norm_k = RMSNorm(head_dim, **kw)
         self.capture = None
+        self.sp_group = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids):
         n = self.num_heads
@@ -197,9 +222,9 @@ class SingleAttention(nn.Module):
                        rope_sin)
         v = _heads(self.to_v(x), n)
         if self.capture is not None:
-            self.capture.append((q[:1].detach(), k[:1].detach()))
+            _capture(self, q, k)
         return _unheads(_attention(q, k, v, time_ids, self.causal,
-                                   self.head_dim))
+                                   self.head_dim, self.sp_group))
 
 
 class FluxTransformerBlock(nn.Module):

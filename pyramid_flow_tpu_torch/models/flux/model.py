@@ -17,6 +17,15 @@ back to their input's dtype, so q, k and v reach the attention kernels in
 bf16. ``remat`` checkpoints every block (recomputed in the backward), as the
 JAX model's ``remat`` field does. The model is built on the CUDA device
 unless ``device=`` says otherwise, and raises without a visible one.
+
+``mesh`` (a (dp, fsdp, sp) ``DeviceMesh``, ``parallel.mesh.make_mesh``)
+turns on sequence parallelism when its sp dim is above 1, as the JAX
+model's ``mesh`` field does: the forward takes the whole batch rows on every
+sp rank, shards the joint sequence (text, then the pyramid tokens, padded to
+a multiple of ``sp * 128``) over the sp ranks after the embedders, runs
+every block on this rank's ``L / sp`` tokens (everything between the
+attentions is per token or per row; the attentions are Ulysses'), and
+gathers the output tokens at exit. Every sp rank returns the whole output.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import INVALID_TIME
 from ...ops.rope import rope_freqs
+from ...parallel.mesh import SP_AXIS, mesh_dim
+from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
 from .blocks import (
     AdaLayerNormContinuous,
@@ -41,7 +52,7 @@ from .blocks import (
 )
 
 __all__ = ["FluxConfig", "PyramidFluxTransformer", "TimestepTextEmbed",
-           "timestep_sinusoidal"]
+           "timestep_sinusoidal", "set_dit_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,7 +129,7 @@ class PyramidFluxTransformer(nn.Module):
 
     def __init__(self, config: FluxConfig = FluxConfig(), *,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         super().__init__()
         cfg = self.config = config
         self.remat = remat
@@ -142,6 +153,14 @@ class PyramidFluxTransformer(nn.Module):
         # zero-initialised output, as the JAX model: a fresh DiT predicts 0
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
+        self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> None:
+        """Run on ``mesh`` (None: one device); with an sp dim above 1 every
+        attention is Ulysses' over the mesh's sp group."""
+        set_dit_mesh(self, [blk.attn for blk in (
+            *self.transformer_blocks, *self.single_transformer_blocks)],
+            mesh)
 
     @property
     def num_attention_calls(self) -> int:
@@ -197,9 +216,25 @@ class PyramidFluxTransformer(nn.Module):
         text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
         time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
 
+        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+        if shard is not None:
+            ctx, x = shard.split(ctx, x)
+            cos, sin = shard.local(cos, 1), shard.local(sin)
+            time_ids = shard.pad(time_ids, INVALID_TIME)
         for block in self.transformer_blocks:
             x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids)
         h = torch.cat([ctx, x], dim=1)  # text first
         for block in self.single_transformer_blocks:
             h = self._run(block, h, temb, cos, sin, time_ids)
+        if shard is not None:  # the output of every local token, gathered
+            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
         return self.proj_out(self.norm_out(h[:, lt:], temb))
+
+
+def set_dit_mesh(dit: nn.Module, attns, mesh) -> None:
+    """Give ``dit`` and each of ``attns`` the sp group of ``mesh`` (None
+    below sp 2)."""
+    dit.sp_group = (mesh.get_group(SP_AXIS)
+                    if mesh_dim(mesh, SP_AXIS) > 1 else None)
+    for attn in attns:
+        attn.sp_group = dit.sp_group

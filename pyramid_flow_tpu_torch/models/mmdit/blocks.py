@@ -20,6 +20,7 @@ from ..flux.blocks import (
     FeedForward,
     RMSNorm,
     _attention,
+    _capture,
     _heads,
     _unheads,
     layer_norm,
@@ -49,6 +50,7 @@ class MMDiTJointAttention(nn.Module):
         for name in ("norm_q", "norm_k", "norm_add_q", "norm_add_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
         self.capture = None
+        self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
         n = self.num_heads
@@ -63,8 +65,9 @@ class MMDiTJointAttention(nn.Module):
         k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
         v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
-            self.capture.append((q[:1].detach(), k[:1].detach()))
-        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim))
+            _capture(self, q, k)
+        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
+                                self.sp_group))
         x_o = self.to_out[0](o[:, lt:])
         if self.context_pre_only:
             return x_o, None

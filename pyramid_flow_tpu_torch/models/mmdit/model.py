@@ -28,8 +28,10 @@ parameter's step is JAX's wherever the clip does not bind.
 
 The default config is the release architecture (24 blocks, 24 heads x 64,
 16 latent channels, patch 2, T5 dim 4096, pooled CLIP-L+G dim 2048).
-Precision and ``remat`` work as in the flux model. Built on the CUDA device
-unless ``device=`` says otherwise.
+Precision, ``remat`` and ``mesh`` (sequence parallelism) work as in the
+flux model; the last block is ``context_pre_only``, so under sp the local
+text tokens' outputs are junk that the gather at exit drops. Built on the
+CUDA device unless ``device=`` says otherwise.
 """
 
 from __future__ import annotations
@@ -46,9 +48,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import INVALID_TIME
 from ...ops.rope import rope_freqs
+from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
 from ..flux.blocks import AdaLayerNormContinuous
-from ..flux.model import TimestepTextEmbed
+from ..flux.model import TimestepTextEmbed, set_dit_mesh
 from .blocks import JointTransformerBlock
 
 __all__ = ["MMDiTConfig", "PyramidDiffusionMMDiT", "PatchEmbed",
@@ -167,7 +170,7 @@ class PyramidDiffusionMMDiT(nn.Module):
 
     def __init__(self, config: MMDiTConfig = MMDiTConfig(), *,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         super().__init__()
         cfg = self.config = config
         if cfg.caption_projection_dim != cfg.inner_dim:
@@ -192,6 +195,12 @@ class PyramidDiffusionMMDiT(nn.Module):
         # zero-initialised output, as the JAX model: a fresh DiT predicts 0
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
+        self.set_mesh(mesh)
+
+    def set_mesh(self, mesh) -> None:
+        """As ``PyramidFluxTransformer.set_mesh``."""
+        set_dit_mesh(self, [blk.attn for blk in self.transformer_blocks],
+                     mesh)
 
     @property
     def num_attention_calls(self) -> int:
@@ -255,6 +264,14 @@ class PyramidDiffusionMMDiT(nn.Module):
         text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
         time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
 
+        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+        if shard is not None:
+            ctx, x = shard.split(ctx, x)
+            cos, sin = shard.local(cos, 1), shard.local(sin)
+            time_ids = shard.pad(time_ids, INVALID_TIME)
         for block in self.transformer_blocks:
             x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids)
+        if shard is not None:  # every local token's output, gathered
+            h = torch.cat([ctx, x], dim=1)
+            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
         return self.proj_out(self.norm_out(x, temb))

@@ -12,9 +12,11 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...parallel.cp import current_cp_axis, next_first_frame
 from .layers import CausalConv3d, GroupNorm, SpatialAttention
 
 __all__ = ["ResnetBlock3D", "Downsample2x", "TemporalDownsample2x",
@@ -116,7 +118,9 @@ class Upsample2x(nn.Module):
 class TemporalUpsample2x(nn.Module):
     """Temporal 2x up: conv to 2*C, then depth-to-space in time with the
     channel order ``(c p)``; the first window drops its duplicated leading
-    frame."""
+    frame. Under an active cp context that drop is global: each rank drops
+    its first frame and appends the next rank's (the last rank appends a
+    zero frame, junk at the clip's tail that ``cp_vae_decode`` trims)."""
 
     def __init__(self, channels: int, **kw):
         super().__init__()
@@ -128,7 +132,10 @@ class TemporalUpsample2x(nn.Module):
         c = c2 // 2
         y = y.reshape(b, t, h, w, c, 2).permute(0, 1, 5, 2, 3, 4)
         y = y.reshape(b, t * 2, h, w, c)
-        if is_init:
+        cp_group = current_cp_axis()
+        if is_init and cp_group is not None:
+            y = torch.cat([y[:, 1:], next_first_frame(y, cp_group)], dim=1)
+        elif is_init:
             y = y[:, 1:].contiguous()
         return y.permute(0, 4, 1, 2, 3)
 

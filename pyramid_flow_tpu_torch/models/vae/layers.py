@@ -18,7 +18,10 @@ public ``encode``/``decode`` take and return ``[B, T, H, W, C]``.
   ends, the 1x1x1 convs, the strided downsamplers) run ``F.conv3d`` on the
   frames concatenated. For
   windowed coding the conv reads the previous window's last two input frames
-  from an explicit ``state`` dict and writes its own there.
+  from an explicit ``state`` dict and writes its own there. Inside
+  :func:`~pyramid_flow_tpu_torch.parallel.cp.cp_context` the front frames
+  are the previous cp rank's last two (zeros on the first rank): the
+  kernel's ``front`` operand.
 * :func:`causal_group_norm`: GroupNorm with statistics per (batch, frame),
   which is what makes windowed and monolithic coding agree.
 * :class:`SpatialAttention`: the mid-block's per-frame single-head attention
@@ -35,6 +38,7 @@ from torch import nn
 
 from ...ops.causal_conv3d import (causal_conv3d, compute_dtype,
                                   supports_kernel)
+from ...parallel.cp import current_cp_axis, previous_frames
 
 __all__ = ["CausalConv3d", "causal_group_norm", "GroupNorm",
            "SpatialAttention", "ATTN_CHUNK_TOKENS", "channels_last"]
@@ -66,7 +70,10 @@ class CausalConv3d(nn.Module):
     pads with zero frames, on a later one it puts the cached frames in front
     (both for stride 1, the last one for temporal stride 2), and it stores
     the last two frames of its padded input for the next window. Without
-    ``state`` it pads with zero frames. k_t = 1 convs carry nothing.
+    ``state`` it pads with zero frames. Under an active cp context (the
+    time axis sharded over ranks) the front frames are the previous rank's
+    last two input frames instead, and ``state``/``is_init`` are not read,
+    as in JAX. k_t = 1 convs carry nothing.
     """
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -98,7 +105,10 @@ class CausalConv3d(nn.Module):
         kt, st = self.kernel_size[0], self.stride[0]
         xc = x.permute(0, 2, 3, 4, 1)  # [B, T, H, W, C]
         front = None  # frames in front of x; None = zeros
-        if kt > 1 and state is not None:
+        cp_group = current_cp_axis()
+        if kt > 1 and cp_group is not None:
+            front = previous_frames(xc, kt - 1, cp_group)
+        elif kt > 1 and state is not None:
             if not is_init:
                 cached = state[self.cache_key]
                 front = cached[:, -1:] if st == 2 else cached

@@ -119,7 +119,8 @@ class PyramidFlowPipeline:
                         model_name: str = "pyramid_flux",
                         load_vae: bool = True,
                         dtype: torch.dtype = torch.bfloat16, device="cuda",
-                        components: Optional[dict] = None, **kwargs):
+                        components: Optional[dict] = None, mesh=None,
+                        **kwargs):
         """A pipeline from a released checkpoint directory
         (``utils.checkpoint``): the DiT from ``<model_variant>/`` and the
         VAE from ``causal_video_vae/``, each built on ``device`` in
@@ -129,7 +130,11 @@ class PyramidFlowPipeline:
         config. ``components``: state dicts already read by
         ``load_pretrained_components``. ``cpu_offloading`` is accepted and
         ignored (the card holds the whole pipeline); text encoding is
-        separate (``PyramidFlowRunner.from_pretrained``)."""
+        separate (``PyramidFlowRunner.from_pretrained``). ``mesh``: a
+        (dp, fsdp, sp) mesh whose sp dim shards every DiT forward's tokens
+        (the DiT's sequence parallelism, JAX's ``mesh=``): each sp rank runs
+        the same denoising loop on the same draws and gets the whole
+        frames."""
         from ..utils.checkpoint import (build_dit, build_vae,
                                         load_pretrained_components,
                                         require_components)
@@ -142,7 +147,8 @@ class PyramidFlowPipeline:
         require_components(components, ["dit"] + ["vae"] * load_vae,
                            model_path)
         dit = build_dit(model_path, model_variant, model_name,
-                        components["dit"], dtype=dtype, device=device)
+                        components["dit"], dtype=dtype, device=device,
+                        mesh=mesh)
         vae = None
         if load_vae:
             vae = build_vae(model_path, components["vae"], dtype=dtype,

@@ -57,7 +57,8 @@ class PyramidFlowRunner:
         each file read once: ``PyramidFlowPipeline.from_pretrained`` (its
         kwargs too) and ``FluxTextEncoder`` (CLIP-L + T5) or
         ``SD3TextEncoder`` (CLIP-L + CLIP-G + T5), with the checkpoint's
-        tokenizers."""
+        tokenizers. A ``mesh`` kwarg makes the DiT sequence-parallel (every
+        sp rank returns the whole frames)."""
         from ..models.text.encoder import build_text_encoder
         from ..utils.checkpoint import load_pretrained_components
 

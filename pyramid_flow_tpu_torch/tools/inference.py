@@ -12,8 +12,16 @@ The flags are those of the JAX package's ``tools/inference.py``, but
 their tokenizers); ``--input_image`` makes the request image-to-video. The
 DiT is dropped before the VAE decodes, as in JAX's CLI. On the CUDA device
 (the default) the models compute in bf16; ``--device cpu`` computes in fp32
-(tiny checkpoints, tests). ``--sp > 1`` needs the port's parallelism,
-ROADMAP A11, and exits.
+(tiny checkpoints, tests).
+
+``--sp N`` serves one request sequence-parallel under ``torchrun`` (one
+process per rank; NCCL on CUDA, gloo with ``--device cpu``): the world of
+``N x fsdp`` ranks is a (1, fsdp, N) mesh, as JAX's CLI builds it, every
+rank runs the request on the same draws with the DiT's tokens sharded over
+its sp group, and rank 0 writes the frames::
+
+    torchrun --nproc_per_node 2 -m pyramid_flow_tpu_torch.tools.inference \
+        --model_path CKPT --variant diffusion_transformer_384p --sp 2 ...
 """
 
 from __future__ import annotations
@@ -70,18 +78,32 @@ def save_frames(frames: np.ndarray, output: str) -> None:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.sp > 1:
-        sys.exit("--sp > 1: the port runs on one device; sequence "
-                 "parallelism is not ported yet (ROADMAP A11)")
+    from ..parallel.mesh import (MeshConfig, make_mesh,
+                                 maybe_initialize_distributed)
     from ..pipeline.pyramid_pipeline import DecodePlan
     from ..pipeline.runner import PyramidFlowRunner
 
     device = torch.device(args.device)
+    mesh, rank = None, 0
+    if args.sp > 1:
+        import torch.distributed as dist
+
+        if not maybe_initialize_distributed(device.type):
+            sys.exit("--sp > 1 runs one process per rank: launch it with "
+                     "torchrun --nproc_per_node N")
+        n = dist.get_world_size()
+        if n % args.sp:
+            sys.exit(f"--sp {args.sp} does not divide the {n} ranks")
+        mesh = make_mesh(MeshConfig(dp=1, fsdp=n // args.sp, sp=args.sp),
+                         device.type)
+        rank = dist.get_rank()
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     print(f"loading checkpoints from {args.model_path} ...", file=sys.stderr)
     runner = PyramidFlowRunner.from_pretrained(
         args.model_path, args.variant, args.model_name, dtype=dtype,
-        device=device)
+        device=device, mesh=mesh)
     common = dict(
         negative_prompt=args.negative_prompt, seed=args.seed,
         height=args.height, width=args.width, temp=args.temp,
@@ -102,6 +124,10 @@ def main(argv=None) -> int:
     frames = frames[0].cpu().numpy()
     print(f"generated {frames.shape[0]} frames in "
           f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+    if rank:
+        return 0
     save_frames(frames, args.output)
     print(f"wrote {frames.shape[0]} PNG frames to {args.output}",
           file=sys.stderr)

@@ -19,13 +19,26 @@ frozen CLIP/T5 over each batch's raw text (:func:`fill_text_features`), and
 the null features of the CFG drop are then the empty prompt's unless
 ``--null_text_fea`` gives them. ``--load_vae`` loads the checkpoint's VAE
 into the train step, which encodes raw-pixel batches (``video``; the
-``--debug_tiny`` batches are then pixels). Parallelism (``--sp/--fsdp/--dp >
-1``) exits with a message naming its ROADMAP item.
+``--debug_tiny`` batches are then pixels).
+
+Parallelism: under ``torchrun`` (one process per rank; NCCL on CUDA, gloo
+for ``--debug_tiny`` on the CPU) the ranks form a (``--dp``, ``--fsdp``,
+``--sp``) mesh (``--fsdp 0``: all the ranks left), the DiT is sequence
+parallel over sp and sharded with FSDP2 over fsdp (``--fsdp_min_shard_dim``
+as in JAX), and each rank trains on its rows of the global
+``--batch_size`` batch (every rank reads the same batch and keeps its
+rows)::
+
+    torchrun --nproc_per_node 4 -m pyramid_flow_tpu_torch.tools.train_pyramid_flow \
+        --fsdp 2 --sp 2 --anno_file ANNO ...
+
+A world of one under ``torchrun`` also takes the FSDP2 route.
 
 Checkpoints: ``<output_dir>/checkpoint-<step>.pt`` (step, parameters,
 optimizer and EMA) and ``checkpoint-<step>-ema.pt`` (the EMA weights keyed
 like the released checkpoint), written with ``torch.save`` every
-``--save_ckpt_freq`` epochs. ``--auto_resume`` continues from the newest
+``--save_ckpt_freq`` epochs; under FSDP2 gathered whole to rank 0, which
+writes them, so a checkpoint moves between world sizes. ``--auto_resume`` continues from the newest
 ``checkpoint-<step>.pt``, at the epoch that step falls in. A step's random
 draws and its ``--debug_tiny`` batch depend on (seed, step) alone, so a
 resumed run repeats the steps an uninterrupted run would take.
@@ -109,11 +122,15 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def unported(args) -> Optional[str]:
-    """The message for a flag whose part the port does not have, or None."""
-    if args.sp > 1 or args.fsdp > 1 or args.dp > 1:
-        return ("--sp/--fsdp/--dp > 1: the port trains on one device; "
-                "parallelism is not ported yet (ROADMAP A11)")
+def outside_torchrun(args) -> Optional[str]:
+    """The message for parallelism flags given outside ``torchrun``, or
+    None."""
+    import torch.distributed as dist
+
+    if (args.sp > 1 or args.fsdp > 1 or args.dp > 1) and not (
+            dist.is_available() and dist.is_initialized()):
+        return ("--sp/--fsdp/--dp > 1 run one process per rank: launch "
+                "with torchrun --nproc_per_node N")
     return None
 
 
@@ -126,14 +143,19 @@ def latest_checkpoint_step(output_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def save_checkpoint(output_dir: str, step: int, state) -> None:
+def save_checkpoint(output_dir: str, step: int, state,
+                    rank: int = 0) -> None:
+    """Write the step's checkpoints (sharded: a collective, every rank
+    calls it and rank 0 writes)."""
+    full = state.state_dict()
+    if rank:
+        return
     os.makedirs(output_dir, exist_ok=True)
-    torch.save(state.state_dict(),
-               os.path.join(output_dir, f"checkpoint-{step}.pt"))
+    torch.save(full, os.path.join(output_dir, f"checkpoint-{step}.pt"))
     # inference-ready weights, loadable without the optimizer's structure:
     # the EMA of every parameter and the persistent buffers (the MMDiT's
     # sincos table)
-    torch.save({**state.model.state_dict(), **state.ema},
+    torch.save({**full["params"], **full["ema"]},
                os.path.join(output_dir, f"checkpoint-{step}-ema.pt"))
 
 
@@ -216,7 +238,10 @@ def device_batch(batch_np: dict, cfg, null, device) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    msg = unported(args)
+    from ..parallel.mesh import maybe_initialize_distributed
+    distributed = maybe_initialize_distributed(
+        "cpu" if args.debug_tiny else "cuda")
+    msg = outside_torchrun(args)
     if msg:
         sys.exit(msg)
 
@@ -242,6 +267,27 @@ def main(argv=None) -> int:
             sys.exit("the full-size DiT trains on a CUDA device; none is "
                      "visible (use --debug_tiny on the CPU)")
         device, compute_dtype = torch.device("cuda"), torch.bfloat16
+        if distributed:
+            device = torch.device("cuda", torch.cuda.current_device())
+    mesh, rank, rows = None, 0, slice(None)
+    if distributed:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import MeshConfig, data_rank, make_mesh
+        world = dist.get_world_size()
+        fsdp = args.fsdp or max(world // (args.dp * args.sp), 1)
+        mesh = make_mesh(MeshConfig(dp=args.dp, fsdp=fsdp, sp=args.sp),
+                         device.type)
+        rank = dist.get_rank()
+        index, count = data_rank(mesh)
+        if args.batch_size % count:
+            sys.exit(f"--batch_size {args.batch_size} does not split over "
+                     f"the {count} data ranks (dp x fsdp)")
+        per = args.batch_size // count
+        rows = slice(index * per, (index + 1) * per)
+        if rank == 0:
+            print(f"mesh: dp={args.dp} fsdp={fsdp} sp={args.sp}",
+                  file=sys.stderr)
     if (args.load_vae or args.load_text_encoder) and not args.model_path:
         sys.exit("--load_vae and --load_text_encoder need --model_path")
     comps = {}
@@ -256,7 +302,7 @@ def main(argv=None) -> int:
                      f"--model_variant")
         dit = build_dit(args.model_path, args.model_variant, args.model_name,
                         comps.pop("dit"), dtype=torch.float32, device=device,
-                        remat=args.gradient_checkpointing)
+                        remat=args.gradient_checkpointing, mesh=mesh)
     else:
         if not args.debug_tiny:
             cfg = MMDiTConfig() if mmdit else FluxConfig()
@@ -273,8 +319,19 @@ def main(argv=None) -> int:
                 axes_dims_rope=(8, 4, 4))
         torch.manual_seed(args.seed)
         dit_cls = PyramidDiffusionMMDiT if mmdit else PyramidFluxTransformer
-        dit = dit_cls(cfg, device=device, remat=args.gradient_checkpointing)
+        dit = dit_cls(cfg, device=device, remat=args.gradient_checkpointing,
+                      mesh=mesh)
     cfg = dit.config
+    if mesh is not None:
+        from ..parallel.mesh import param_sharding
+        stats = {}
+        param_sharding(dit, mesh, min_shard_dim=args.fsdp_min_shard_dim,
+                       stats_out=stats)
+        if fsdp > 1 and stats["rule_fraction"] < 0.5 and rank == 0:
+            print("WARNING: <50% of parameter bytes shard on JAX's rule "
+                  "(the rest shard on dim 0); consider "
+                  f"--fsdp_min_shard_dim below {args.fsdp_min_shard_dim}",
+                  file=sys.stderr)
     # frozen encoders compute in the step's dtype
     frozen_dtype = compute_dtype or torch.float32
     vae = text_encoder = None
@@ -302,14 +359,15 @@ def main(argv=None) -> int:
         if last is not None:
             state.load_state_dict(torch.load(
                 os.path.join(args.output_dir, f"checkpoint-{last}.pt"),
-                map_location=device, weights_only=True))
+                map_location="cpu" if mesh is not None else device,
+                weights_only=True))
             start_step = state.step
             print(f"resumed from step {start_step}", file=sys.stderr)
 
     step_fn = make_train_step(
         dit, sched, tuple(args.sample_ratios), args.use_temporal_pyramid,
         args.frame_per_unit, args.corrupt_ratio, compute_dtype=compute_dtype,
-        vae=vae)
+        vae=vae, mesh=mesh)
 
     overshoot_probe = None
     if args.bound_probe_freq:
@@ -338,11 +396,13 @@ def main(argv=None) -> int:
     null = np.load(args.null_text_fea) if args.null_text_fea else None
     if text_encoder is not None and null is None:
         null = null_features(text_encoder)
-    logger = MetricLogger(
-        log_file=os.path.join(args.output_dir, "log.txt"),
-        tensorboard_dir=args.tensorboard_dir,
-        wandb_project=args.wandb_project, wandb_config=vars(args),
-        print_fn=lambda m: print(m, file=sys.stderr))
+    logger = MetricLogger(  # rank 0 logs
+        log_file=None if rank else os.path.join(args.output_dir, "log.txt"),
+        tensorboard_dir=None if rank else args.tensorboard_dir,
+        wandb_project=None if rank else args.wandb_project,
+        wandb_config=vars(args),
+        print_fn=(lambda m: None) if rank else
+        (lambda m: print(m, file=sys.stderr)))
     draws = GeneratorDraws(torch.Generator(device).manual_seed(args.seed))
 
     step = start_step
@@ -351,7 +411,8 @@ def main(argv=None) -> int:
             batch_np = next_batch(step)
             if text_encoder is not None and "text_emb" not in batch_np:
                 batch_np = fill_text_features(batch_np, text_encoder)
-            batch = device_batch(batch_np, cfg, null, device)
+            batch = device_batch({k: v[rows] for k, v in batch_np.items()},
+                                 cfg, null, device)
             frames = (batch["latents"].shape[1] if "latents" in batch
                       else 1 + (batch["video"].shape[1] - 1) // 8)
             max_units = 1 + (frames - 1) // args.frame_per_unit
@@ -379,6 +440,8 @@ def main(argv=None) -> int:
                         latents, batch["text_emb"],
                         batch["text_mask"], batch["pooled"],
                         draws.fold_in(-1 - step))
+                if mesh is not None:  # a forward without grad leaves the
+                    dit.reshard()     # root's parameters gathered
                 logger.update(step=step, bound_overshoot_log2=over)
                 if over > OVERSHOOT_WARN_LOG2:
                     logger.print_fn(
@@ -392,8 +455,11 @@ def main(argv=None) -> int:
 
         logger.write_epoch_log(epoch)
         if (epoch + 1) % args.save_ckpt_freq == 0:
-            save_checkpoint(args.output_dir, step, state)
-            print(f"saved checkpoint-{step} (+ema)", file=sys.stderr)
+            save_checkpoint(args.output_dir, step, state, rank)
+            if rank == 0:
+                print(f"saved checkpoint-{step} (+ema)", file=sys.stderr)
+    if distributed:
+        torch.distributed.destroy_process_group()
     return 0
 
 

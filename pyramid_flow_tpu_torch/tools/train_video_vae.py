@@ -13,8 +13,19 @@ release-layout root holding ``causal_video_vae/``, read by the port's
 ``vgg_lpips.pth``, loaded strict; without it LPIPS has random weights and a
 warning says so). The release VAE trains on one CUDA device with fp32
 parameters under bf16 autocast; ``--debug_tiny`` trains a tiny VAE and
-discriminator in fp32 on the CPU (tests, smoke runs). Context and data
-parallelism (``--cp/--dp > 1``) exit with a message naming ROADMAP A11.
+discriminator in fp32 on the CPU (tests, smoke runs).
+
+Context and data parallelism: under ``torchrun`` (one process per rank;
+NCCL on CUDA, gloo for ``--debug_tiny``) ``--dp x --cp`` ranks form a
+("dp", "cp") mesh; each rank trains on ``--num_frames / cp`` frames of its
+dp slice of the ``--batch_size x dp`` clips, with every causal conv taking
+the previous cp rank's last two frames (``parallel.cp``). As in JAX, under
+``--cp > 1`` the clips are continuations (``is_init=False``) and need
+``--num_frames % (8 cp) == 0``. Every rank reads the same clips and keeps
+its shard; rank 0 logs and writes the checkpoints::
+
+    torchrun --nproc_per_node 2 -m pyramid_flow_tpu_torch.tools.train_video_vae \
+        --cp 2 --num_frames 32 --video_anno videos.jsonl ...
 
 Checkpoints: ``<output_dir>/checkpoint-<step>.pt`` (step, the VAE, ``logvar``,
 the discriminator and both optimizers), written with ``torch.save`` every
@@ -63,9 +74,11 @@ def parse_args(argv=None):
     p.add_argument("--use_3d_disc", action="store_true")
     p.add_argument("--freeze_encoder", action="store_true")
     p.add_argument("--cp", type=int, default=1,
-                   help="context-parallel degree (not ported: ROADMAP A11)")
+                   help="context-parallel degree: shard the time axis over "
+                        "this many ranks (needs --num_frames %% (8 cp) == 0; "
+                        "continuation clips)")
     p.add_argument("--dp", type=int, default=1,
-                   help="data-parallel degree (not ported: ROADMAP A11)")
+                   help="data-parallel degree; dp x cp ranks under torchrun")
     p.add_argument("--pretrained_vae", default=None,
                    help="release-layout root holding causal_video_vae/")
     p.add_argument("--output_dir", default="runs/vae")
@@ -83,10 +96,16 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.cp > 1 or args.dp > 1:
-        sys.exit("--cp/--dp > 1: the port trains the VAE on one device; "
-                 "context and data parallelism are not ported yet (ROADMAP "
-                 "A11)")
+    from ..parallel.mesh import maybe_initialize_distributed
+    distributed = maybe_initialize_distributed(
+        "cpu" if args.debug_tiny else "cuda")
+    if (args.cp > 1 or args.dp > 1) and not distributed:
+        sys.exit("--cp/--dp > 1 run one process per rank: launch with "
+                 "torchrun --nproc_per_node N")
+    if args.cp > 1 and args.num_frames % (8 * args.cp):
+        sys.exit(f"--cp {args.cp} needs --num_frames divisible by "
+                 f"{8 * args.cp} (uniform continuation shards); got "
+                 f"{args.num_frames}")
 
     from ..data.datasets import ImageDataset, VideoDataset
     from ..data.loaders import create_mixed_dataloaders
@@ -108,6 +127,13 @@ def main(argv=None) -> int:
             sys.exit("the release VAE trains on a CUDA device; none is "
                      "visible (use --debug_tiny on the CPU)")
         device, compute_dtype = torch.device("cuda"), torch.bfloat16
+        if distributed:
+            device = torch.device("cuda", torch.cuda.current_device())
+    mesh, rank = None, 0
+    if distributed:
+        from ..parallel.cp import make_cp_mesh
+        mesh = make_cp_mesh(args.dp, args.cp, device.type)
+        rank = torch.distributed.get_rank()
 
     torch.manual_seed(args.seed)
     if args.pretrained_vae:
@@ -135,11 +161,19 @@ def main(argv=None) -> int:
     video_ds = VideoDataset(args.video_anno, args.num_frames, res)
     image_ds = (ImageDataset(args.image_anno, 8, res)
                 if args.image_anno else video_ds)
+    # every rank reads the dp x batch_size clips and keeps its shard
     loader, role = create_mixed_dataloaders(
-        video_ds, image_ds, args.batch_size, rank=0, world=1,
+        video_ds, image_ds, args.batch_size * args.dp, rank=0, world=1,
         image_mix_ratio=args.image_mix_ratio if args.image_anno else 0.0,
         seed=args.seed)
-    print(f"rank 0 role: {role}", file=sys.stderr)
+    if rank == 0:
+        print(f"rank 0 role: {role}", file=sys.stderr)
+    shard = (slice(None), slice(None))
+    if mesh is not None:
+        d, c = mesh.get_coordinate()
+        t = args.num_frames // args.cp
+        shard = (slice(d * args.batch_size, (d + 1) * args.batch_size),
+                 slice(c * t, (c + 1) * t))
 
     cfg = VAETrainConfig(
         learning_rate=args.learning_rate, kl_weight=args.kl_weight,
@@ -155,22 +189,27 @@ def main(argv=None) -> int:
                 os.path.join(args.output_dir, f"checkpoint-{last}.pt"),
                 map_location=device, weights_only=True))
             start_step = state.step
-            print(f"resumed from step {start_step}", file=sys.stderr)
+            if rank == 0:
+                print(f"resumed from step {start_step}", file=sys.stderr)
     step_fn = make_vae_train_step(
         vae, lpips, disc, use_3d_disc=args.use_3d_disc,
-        freeze_encoder=args.freeze_encoder, compute_dtype=compute_dtype)
+        freeze_encoder=args.freeze_encoder, compute_dtype=compute_dtype,
+        is_init=args.cp == 1, mesh=mesh)
 
-    logger = MetricLogger(
-        log_file=os.path.join(args.output_dir, "log.txt"),
-        tensorboard_dir=args.tensorboard_dir,
-        wandb_project=args.wandb_project, wandb_config=vars(args),
-        print_fn=lambda m: print(m, file=sys.stderr))
+    logger = MetricLogger(  # rank 0 logs
+        log_file=None if rank else os.path.join(args.output_dir, "log.txt"),
+        tensorboard_dir=None if rank else args.tensorboard_dir,
+        wandb_project=None if rank else args.wandb_project,
+        wandb_config=vars(args),
+        print_fn=(lambda m: None) if rank else
+        (lambda m: print(m, file=sys.stderr)))
     draws = GeneratorDraws(torch.Generator(device).manual_seed(args.seed))
     step = start_step
     try:
         for epoch in range(start_step // args.steps_per_epoch, args.epochs):
             while step < (epoch + 1) * args.steps_per_epoch:
-                video = torch.as_tensor(next(loader)["video"], device=device)
+                video = torch.as_tensor(next(loader)["video"][shard],
+                                        device=device)
                 metrics = step_fn(state, video, draws)
                 loss_val = metrics["vae/total_loss"]
                 if not math.isfinite(loss_val):
@@ -183,13 +222,15 @@ def main(argv=None) -> int:
                     logger.print_fn(f"epoch {epoch} step {step}  {logger}")
                 step += 1
             logger.write_epoch_log(epoch)
-            if (epoch + 1) % args.save_ckpt_freq == 0:
+            if (epoch + 1) % args.save_ckpt_freq == 0 and rank == 0:
                 os.makedirs(args.output_dir, exist_ok=True)
                 torch.save(state.state_dict(), os.path.join(
                     args.output_dir, f"checkpoint-{step}.pt"))
                 print(f"saved checkpoint-{step}", file=sys.stderr)
     finally:
         loader.close()
+    if distributed:
+        torch.distributed.destroy_process_group()
     return 0
 
 

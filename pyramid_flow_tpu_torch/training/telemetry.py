@@ -56,9 +56,12 @@ def make_bound_overshoot_probe(dit, scheduler, pos_offset_fn=None):
         with dit.capture_qk() as captured:
             dit(tokens.to(text_emb.dtype), pos, times, text_emb[:1],
                 text_mask[:1], pooled[:1], sb.timesteps, *extra)
-        # model-level attention time ids: [text (0 / INVALID); latent]
+        # model-level attention time ids: [text (0 / INVALID); latent], and
+        # under sequence parallelism the INVALID tail the DiT pads to
         text_time = torch.where(text_mask[:1], 0, INVALID_TIME)
         tq = torch.cat([text_time, times], dim=1).to(torch.int32)
+        tq = torch.nn.functional.pad(tq, (0, captured[0][0].shape[2]
+                                          - tq.shape[1]), value=INVALID_TIME)
         return max(bounded_softmax_overshoot(q, k, tq).item()
                    for q, k in captured)
 

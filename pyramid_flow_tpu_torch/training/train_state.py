@@ -16,6 +16,12 @@ optax chain, with the same math:
   count) change;
 * ``step`` advances on every call, and the fp32 EMA ``ema = d * ema + (1 - d)
   * params`` runs every ``ema_interval`` steps of it, gated steps included.
+
+Under FSDP2 (``parallel.mesh.param_sharding``) the parameters, gradients,
+optimizer moments and EMA are DTensor shards: the global norm is the whole
+model's (a DTensor norm made full), and ``state_dict``/``load_state_dict``
+gather to and scatter from the one-device layout, so a checkpoint moves
+between world sizes.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 __all__ = ["TrainConfig", "TrainState", "create_train_state", "global_norm",
            "clip_by_global_norm_"]
@@ -44,10 +51,16 @@ class TrainConfig:
     lr_schedule: Optional[Callable[[int], float]] = None  # None = constant
 
 
+def _is_sharded(t) -> bool:
+    return isinstance(t, DTensor)
+
+
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The fp32 L2 norm of all tensors together, a 0-dim tensor."""
+    """The fp32 L2 norm of all tensors together, a 0-dim tensor; of the
+    whole tensors where they are DTensor shards."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.linalg.vector_norm(torch.stack(norms))
+    total = torch.linalg.vector_norm(torch.stack(norms))
+    return total.full_tensor() if _is_sharded(total) else total
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
@@ -117,17 +130,80 @@ class TrainState:
             torch._foreach_add_(ema, values, alpha=1 - cfg.ema_decay)
         return ok
 
+    @property
+    def sharded(self) -> bool:
+        """Whether the parameters are FSDP2 shards."""
+        return any(_is_sharded(p) for p in self.model.parameters())
+
     def state_dict(self) -> dict:
+        """The one-device layout. Sharded, this is a collective: every rank
+        calls it, and rank 0 receives the whole state on the CPU (the
+        others an empty params, optimizer and EMA)."""
+        if not self.sharded:
+            return {"step": self.step, "opt_count": self.opt_count,
+                    "params": self.model.state_dict(),
+                    "optimizer": self.optimizer.state_dict(),
+                    "ema": self.ema}
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
+        opts = StateDictOptions(full_state_dict=True, cpu_offload=True)
+        params = get_model_state_dict(self.model, options=opts)
+        optim = get_optimizer_state_dict(self.model, self.optimizer,
+                                         options=opts)
+        ema = {n: t.full_tensor().cpu() if _is_sharded(t) else t.cpu()
+               for n, t in self.ema.items()}
+        if torch.distributed.get_rank() != 0:
+            return {"step": self.step, "opt_count": self.opt_count,
+                    "params": {}, "optimizer": {}, "ema": {}}
         return {"step": self.step, "opt_count": self.opt_count,
-                "params": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "ema": self.ema}
+                "params": params, "ema": ema,
+                "optimizer": self._by_index(optim)}
+
+    def _param_order(self) -> List[str]:
+        """Parameter names in the optimizer's order, the numbering of
+        ``optimizer.state_dict()``."""
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        return [names[id(p)] for g in self.optimizer.param_groups
+                for p in g["params"]]
+
+    def _by_index(self, optim: dict) -> dict:
+        """An optimizer state dict keyed by parameter name -> keyed by the
+        optimizer's parameter numbering."""
+        index = {n: i for i, n in enumerate(self._param_order())}
+        return {"state": {index[n]: v for n, v in optim["state"].items()},
+                "param_groups": [{**g, "params": [index[n]
+                                                  for n in g["params"]]}
+                                 for g in optim["param_groups"]]}
 
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["params"])
-        self.optimizer.load_state_dict(state["optimizer"])
-        for name, t in state["ema"].items():
-            self.ema[name].copy_(t)
+        """Load the one-device layout (sharded: on every rank, each keeping
+        its shards)."""
+        if self.sharded:
+            from torch.distributed.checkpoint.state_dict import (
+                StateDictOptions, set_model_state_dict,
+                set_optimizer_state_dict)
+            from torch.distributed.tensor import distribute_tensor
+            opts = StateDictOptions(full_state_dict=True)
+            # (copied: the loader replaces the dict's tensors by shards)
+            set_model_state_dict(self.model, dict(state["params"]),
+                                 options=opts)
+            order = self._param_order()
+            optim = state["optimizer"]
+            set_optimizer_state_dict(self.model, self.optimizer, {
+                "state": {order[i]: v for i, v in optim["state"].items()},
+                "param_groups": [{**g, "params": [order[i]
+                                                  for i in g["params"]]}
+                                 for g in optim["param_groups"]]},
+                options=opts)
+            for name, t in state["ema"].items():
+                e = self.ema[name]
+                e.copy_(distribute_tensor(t.to(e.device), e.device_mesh,
+                                          e.placements))
+        else:
+            self.model.load_state_dict(state["params"])
+            self.optimizer.load_state_dict(state["optimizer"])
+            for name, t in state["ema"].items():
+                self.ema[name].copy_(t)
         self.step = int(state["step"])
         self.opt_count = int(state["opt_count"])
 
@@ -137,7 +213,7 @@ def create_train_state(model: nn.Module,
     """AdamW over ``model``'s parameters (weight decay on ``ndim > 1`` only)
     and an fp32 EMA initialised to a copy of them. The parameters must be
     fp32. On CUDA the optimizer uses PyTorch's fused AdamW step, which keeps
-    no parameter-sized temporaries."""
+    no parameter-sized temporaries (also on FSDP2 shards)."""
     named = list(model.named_parameters())
     for name, p in named:
         if p.dtype != torch.float32:

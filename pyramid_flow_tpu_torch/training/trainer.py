@@ -14,6 +14,17 @@ The counterpart of the JAX package's ``training/trainer.py``:
 * raw-pixel batches (``"video"``): the frozen VAE encodes them, its
   posterior is sampled from the step's own draw, and the latents are
   normalised, before all of the above.
+
+On a (dp, fsdp, sp) mesh (``parallel.mesh``) each rank takes its slice of
+the global batch: the dp x fsdp ranks hold different rows, the ranks of one
+sp group the same rows and different token shards (the DiT's own sequence
+parallelism). Every rank draws the global batch's noise and keeps its rows,
+so a row is noised as JAX's global program noises it; a stage of which a
+rank holds no row runs one zero-weighted row, so every rank runs the same
+forwards (FSDP2's collectives pair up). Each rank's loss is the mean over
+its rows of the per-row MSE; FSDP2 averages the gradients over every rank,
+which makes them the gradient of the global mean (an sp rank's gradient is
+``sp`` times its tokens' share, through the gather at the DiT's exit).
 """
 
 from __future__ import annotations
@@ -22,8 +33,10 @@ import contextlib
 from typing import List, Mapping, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..models.vae.model import chunk_encode, gaussian_sample
+from ..parallel.mesh import data_rank
 from ..pipeline.noising import (
     GeneratorDraws,
     StageBatch,
@@ -59,17 +72,38 @@ def stage_row_split(batch_size: int, sample_ratios: Sequence[int]
     return spans
 
 
+def global_rows(local: torch.Tensor, rows: Tuple[int, int]) -> torch.Tensor:
+    """This rank's ``[b, ...]`` rows placed at ``rows = (first, total)`` of
+    a zero ``[total, ...]`` batch."""
+    first, total = rows
+    out = local.new_zeros((total,) + tuple(local.shape[1:]))
+    out[first:first + local.shape[0]] = local
+    return out
+
+
 def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
                 text_mask: torch.Tensor, pooled: torch.Tensor, scheduler,
                 sample_ratios: Sequence[int] = (1, 2, 1),
                 use_temporal_pyramid: bool = True,
                 num_units_per_stage: Optional[Sequence[int]] = None,
-                frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3):
+                frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3,
+                rows: Optional[Tuple[int, int]] = None):
     """Noising, one DiT forward per stage and the per-row MSE. ``latents``
-    ``[B, T, H, W, C]`` are clean and normalised. Returns (loss, metrics)."""
+    ``[B, T, H, W, C]`` are clean and normalised. Returns (loss, metrics).
+
+    ``rows = (first, total)``: the batch is rows ``[first, first + B)`` of a
+    global batch of ``total`` (a rank's slice on a mesh). The stages split
+    the global batch and every draw is the global batch's, so each row is
+    noised as in the global program; the loss is the mean over this rank's
+    rows. A stage without a row of this rank runs its first row with weight
+    0."""
     num_stages = scheduler.stages
+    b_local = latents.shape[0]
+    first, total = rows if rows is not None else (0, b_local)
+    if total != b_local:
+        latents = global_rows(latents, (first, total))
     pyramid = latent_pyramid(latents, num_stages)
-    spans = stage_row_split(latents.shape[0], sample_ratios)
+    spans = stage_row_split(total, sample_ratios)
     device = latents.device
 
     losses = []
@@ -85,33 +119,50 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
             sb = add_pyramid_noise_stage(sub, scheduler, stage_latents, stage,
                                          num_stages)
         tokens, positions, time_ids, trainable = pack_clips(sb.clips)
+        targets = sb.targets
+        timesteps = sb.timesteps
+        # this rank's rows of the stage (global indices), or a stand-in
+        lo, hi = max(start, first), min(start + count, first + b_local)
+        weight = 1.0
+        if total != b_local:
+            if lo >= hi:
+                lo, hi, weight = start, start + 1, 0.0
+            sel = slice(lo - start, hi - start)
+            tokens, targets, timesteps = (tokens[sel], targets[sel],
+                                          timesteps[sel])
+        local = slice(lo - first, hi - first) if weight else slice(0, 1)
         b = tokens.shape[0]
         pos = torch.as_tensor(positions, device=device)[None].expand(b, -1, -1)
         times = torch.as_tensor(time_ids, device=device)[None].expand(b, -1)
         extra = dit.stage_inputs(b, *stage_latents[stage].shape[2:4], device)
         pred = dit(tokens.to(text_emb.dtype), pos, times,
-                   text_emb[start:start + count],
-                   text_mask[start:start + count],
-                   pooled[start:start + count], sb.timesteps, *extra)
+                   text_emb[local], text_mask[local], pooled[local],
+                   timesteps, *extra)
         pred = pred[:, -trainable:]
-        err = (pred.float() - patchify(sb.targets).float()) ** 2
-        losses.append(err.reshape(count, -1).mean(dim=1))
+        err = (pred.float() - patchify(targets).float()) ** 2
+        losses.append(err.reshape(b, -1).mean(dim=1) * weight)
 
-    loss = torch.cat(losses).mean()
+    loss = torch.cat(losses).sum() / b_local
     return loss, {"train/loss": loss}
 
 
 def encode_video(vae, video: torch.Tensor, draws,
-                 model_name: str = "pyramid_flux") -> torch.Tensor:
+                 model_name: str = "pyramid_flux",
+                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Raw pixels [B, T, H, W, 3] in [-1, 1] -> normalised latents: the
     VAE's moments, a posterior sample with ``draws.normal`` as its draw, and
     ``model_name``'s latent normalisation. The encode runs one row and one
     window of ``VIDEO_ENCODE_WINDOW`` frames at a time, which equals
-    encoding the whole batch and keeps the activations to one window's."""
+    encoding the whole batch and keeps the activations to one window's.
+    ``rows = (first, total)``: ``video`` is rows ``[first, first + B)`` of a
+    global batch of ``total``, whose draw this takes its rows of."""
     moments = torch.cat([chunk_encode(vae, row[None], VIDEO_ENCODE_WINDOW)
                          for row in video])
-    mean_shape = moments.shape[:-1] + (moments.shape[-1] // 2,)
-    z = gaussian_sample(moments, draws.normal(mean_shape))
+    b = moments.shape[0]
+    first, total = rows if rows is not None else (0, b)
+    mean_shape = (total,) + moments.shape[1:-1] + (moments.shape[-1] // 2,)
+    noise = draws.normal(mean_shape)[first:first + b]
+    z = gaussian_sample(moments, noise)
     return normalize_latent(z.float(), model_name)
 
 
@@ -120,7 +171,7 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
                     frame_per_unit: int = 1, corrupt_ratio: float = 1.0 / 3,
                     cfg_rate: float = 0.1, accum_steps: int = 1,
                     compute_dtype: Optional[torch.dtype] = None, vae=None,
-                    model_name: Optional[str] = None):
+                    model_name: Optional[str] = None, mesh=None):
     """Build the train step.
 
     ``step(state, batch, draws, num_units_per_stage) -> (state, metrics)``
@@ -138,21 +189,31 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
     batch size must divide by ``accum_steps * sum(sample_ratios)``.
     Metrics: ``train/loss`` and the pre-clip ``train/grad_norm`` as floats,
     and ``train/applied`` (whether the anomaly gate let the update through).
+
+    ``mesh``: the (dp, fsdp, sp) mesh the DiT was built on and sharded over
+    (``parallel.mesh.param_sharding``); ``batch`` is then this rank's slice
+    of the global batch (the same rows on the ranks of one sp group), and
+    the metrics are the global batch's on every rank. ``accum_steps`` must
+    be 1 on a mesh.
     """
 
     model_name = dit_model_name(dit, model_name)
+    data_index, data_ranks = data_rank(mesh)
+    if mesh is not None and accum_steps != 1:
+        raise ValueError("accum_steps > 1 is not supported on a mesh")
 
     def autocast(device):
         if compute_dtype is None:
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=compute_dtype)
 
-    def loss_fn(draws_mb, latents, text_emb, text_mask, pooled, units):
+    def loss_fn(draws_mb, latents, text_emb, text_mask, pooled, units,
+                rows=None):
         with autocast(latents.device):
             loss, _ = dit_loss_fn(
                 dit, draws_mb, latents, text_emb, text_mask, pooled,
                 scheduler, sample_ratios, use_temporal_pyramid, units,
-                frame_per_unit, corrupt_ratio)
+                frame_per_unit, corrupt_ratio, rows)
         return loss
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws,
@@ -160,17 +221,19 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
         if isinstance(draws, torch.Generator):
             draws = GeneratorDraws(draws)
         draws_drop, draws_noise, draws_vae = draws.fold_in(state.step).split(3)
+        x = batch["video"] if "video" in batch else batch["latents"]
+        b = x.shape[0]
+        rows = (data_index * b, data_ranks * b)  # this rank's global rows
         if "video" in batch:
             if vae is None:
                 raise ValueError("a raw-pixel batch ('video') needs "
                                  "make_train_step(vae=...)")
-            latents = encode_video(vae, batch["video"], draws_vae,
-                                   model_name)
+            latents = encode_video(vae, x, draws_vae, model_name, rows)
         else:
-            latents = batch["latents"]
-        b = latents.shape[0]
+            latents = x
         # CFG text drop
-        drop = draws_drop.uniform((b,)).to(latents.device) <= cfg_rate
+        drop = draws_drop.uniform((rows[1],))[rows[0]:rows[0] + b]
+        drop = drop.to(latents.device) <= cfg_rate
         text_emb = torch.where(drop[:, None, None], batch["null_text_emb"],
                                batch["text_emb"])
         text_mask = torch.where(
@@ -184,9 +247,12 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
             p.grad = None
         if accum_steps == 1:
             loss = loss_fn(draws_noise, latents, text_emb, text_mask, pooled,
-                           num_units_per_stage)
+                           num_units_per_stage, rows)
             loss.backward()
             loss = loss.detach()
+            if mesh is not None:  # the global mean on every rank
+                dist.all_reduce(loss)
+                loss = loss / mesh.size()
         else:
             mb = b // accum_steps
             loss = torch.zeros((), device=latents.device)

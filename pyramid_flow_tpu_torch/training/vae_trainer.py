@@ -1,8 +1,8 @@
 """The GAN-VAE training step: the generator (the VAE and a learned scalar
 ``logvar``) and a PatchGAN discriminator, each with its own optimizer.
 
-The counterpart of the JAX package's ``training/vae_trainer.py`` on one
-device (its context-parallel branch is ROADMAP A11), term for term:
+The counterpart of the JAX package's ``training/vae_trainer.py``, term for
+term, its context-parallel branch included:
 
 * generator: per frame of the flattened ``(B * T)`` frames,
   ``nll = (pixel_weight * MSE + perceptual_weight * LPIPS) / exp(logvar) +
@@ -32,6 +32,19 @@ autocast with fp32 parameters; MSE, KL, LPIPS's sums, the logits' means and
 the adaptive weight's norms stay fp32. On the card the VAE's admitted convs
 take the conv kernel by that compute dtype (``CausalConv3d.uses_kernel``),
 54 launches per step on the release VAE.
+
+Context parallelism (``mesh``, a ("dp", "cp") ``DeviceMesh``,
+``parallel.cp.make_cp_mesh``): each rank holds ``T / cp`` frames of its dp
+slice of the batch, and every causal conv takes the previous cp rank's last
+two frames as its front frames (``parallel.cp``; the conv kernel's
+``front``). As in JAX: clips are continuations (``is_init=False``, ``T %
+(8 cp) == 0``); the posterior noise is drawn at the global latent shape and
+sharded; the KL sums each clip's frames over the cp ranks; MSE, LPIPS and
+the 2D discriminator run on each rank's frames and are averaged; the 3D
+discriminator sees the clip gathered over cp; the adaptive weight's norms
+are of the global gradients. Each rank differentiates its own share of the
+global loss and the gradients are averaged over every rank (the halo's
+gradient returns to the rank it came from inside the backward).
 """
 
 from __future__ import annotations
@@ -44,7 +57,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+import torch.distributed as dist
+
 from ..models.vae.model import gaussian_kl, gaussian_sample
+from ..parallel.cp import cp_context, gather_time
 from ..pipeline.noising import GeneratorDraws
 from .train_state import clip_by_global_norm_
 
@@ -186,7 +202,8 @@ def _apply(optimizer: torch.optim.Optimizer, params: List[nn.Parameter],
 def make_vae_train_step(vae, lpips, disc, *, use_3d_disc: bool = False,
                         freeze_encoder: bool = False,
                         compute_dtype: Optional[torch.dtype] = None,
-                        grads_only: bool = False):
+                        grads_only: bool = False, is_init: bool = True,
+                        mesh=None):
     """Build the GAN-VAE step.
 
     ``step(state, video, draws) -> metrics`` takes ``video`` ``[B, T, H, W,
@@ -201,10 +218,33 @@ def make_vae_train_step(vae, lpips, disc, *, use_3d_disc: bool = False,
     ``grads_only=True``: the step returns ``(gen_grads, disc_grads,
     metrics)`` before the clip and changes nothing; ``gen_grads`` is
     ``{"vae": {name: grad}, "logvar": grad}``, ``disc_grads`` ``{name:
-    grad}``, as JAX's ``grads_only``."""
+    grad}``, as JAX's ``grads_only``. ``is_init=False`` codes each clip as a
+    continuation (no lone first frame; ``T % 8 == 0``).
+
+    ``mesh``: a ("dp", "cp") mesh; ``video`` is then this rank's ``T / cp``
+    frames of its dp slice, ``is_init`` must be False when cp > 1, and the
+    metrics and (averaged) gradients are the global step's on every rank."""
+    cp_group, cp, world = None, 1, 1
+    if mesh is not None:
+        cp, world = mesh.size(mesh.mesh_dim_names.index("cp")), mesh.size()
+        if cp > 1 and is_init:
+            raise ValueError("context-parallel training codes continuation "
+                             "clips: pass is_init=False (T % (8 cp) == 0)")
+        cp_group = mesh.get_group("cp") if cp > 1 else None
+    dp = world // cp
+
+    def mean_all(t: torch.Tensor) -> torch.Tensor:
+        """The mean over every rank of a per-rank value (itself alone)."""
+        if mesh is None:
+            return t
+        t = t.detach().clone()
+        dist.all_reduce(t)
+        return t / world
 
     def disc_input(x):
-        return x if use_3d_disc else _flatten_t(x)
+        if not use_3d_disc:
+            return _flatten_t(x)
+        return x if cp == 1 else gather_time(x, cp_group)
 
     def autocast(device):
         if compute_dtype is None:
@@ -221,11 +261,18 @@ def make_vae_train_step(vae, lpips, disc, *, use_3d_disc: bool = False,
         return nll.sum() / nll.shape[0], rec.mean(), p.mean()
 
     def latent_noise(video, draws):
+        """Drawn at the global latent shape and cut to this rank's shard,
+        so the sharded step draws what the global one does."""
         ds = vae.config.downsample_scale
         b, t, h, w, _ = video.shape
-        shape = (b, (t - 1) // ds + 1, h // ds, w // ds,
+        shape = (b * dp, (t * cp - 1) // ds + 1, h // ds, w // ds,
                  vae.config.latent_channels)
-        return draws.normal(shape).to(video.device)
+        noise = draws.normal(shape)
+        if mesh is not None:
+            d, c = mesh.get_coordinate()
+            tl = shape[1] // cp
+            noise = noise[d * b:(d + 1) * b, c * tl:(c + 1) * tl]
+        return noise.to(video.device)
 
     def gan_grads(state: VAETrainState, video: torch.Tensor, draws):
         if state.vae is not vae or state.disc is not disc:
@@ -240,24 +287,29 @@ def make_vae_train_step(vae, lpips, disc, *, use_3d_disc: bool = False,
         gen_params, disc_params = state.gen_params, list(disc.parameters())
 
         # ---------------- generator ----------------
-        with autocast(video.device):
-            moments = vae.encode(video)
+        # per rank: its frames' means (nll, g_loss), its clips' KL sums over
+        # its frames; the global values are their means over the ranks (the
+        # KL's sum over cp)
+        with autocast(video.device), cp_context(cp_group):
+            moments = vae.encode(video, is_init=is_init)
             if freeze_encoder:
                 moments = moments.detach()
-            feats = vae.decode_features(gaussian_sample(moments, noise))
+            feats = vae.decode_features(gaussian_sample(moments, noise),
+                                        is_init=is_init)
             recon = vae.decoder.conv_out(feats).permute(0, 2, 3, 4, 1)
             nll, rec_m, p_m = nll_of(recon, video, state.logvar, cfg)
             kl = gaussian_kl(moments).mean()
             g_loss = -disc(disc_input(recon)).float().mean()
-        loss = nll + cfg.kl_weight * kl
+        loss = nll + cfg.kl_weight * cp * kl
         d_weight = torch.zeros((), device=video.device)
         if disc_on:
             g_nll, = torch.autograd.grad(nll, w_last, retain_graph=True)
             g_g, = torch.autograd.grad(g_loss, w_last, retain_graph=True)
-            d_weight = ((_norm(g_nll) / (_norm(g_g) + 1e-4)).clamp(0.0, 1e4)
+            d_weight = ((_norm(mean_all(g_nll))
+                         / (_norm(mean_all(g_g)) + 1e-4)).clamp(0.0, 1e4)
                         * cfg.disc_weight)
             loss = loss + d_weight * g_loss
-        gen_grads = _grads(loss, gen_params)
+        gen_grads = [mean_all(g) for g in _grads(loss, gen_params)]
 
         # -------------- discriminator --------------
         fake = disc_input(recon.detach())
@@ -267,17 +319,20 @@ def make_vae_train_step(vae, lpips, disc, *, use_3d_disc: bool = False,
             d_loss = 0.5 * (F.relu(1.0 - logits_real).mean()
                             + F.relu(1.0 + logits_fake).mean())
         if disc_on:
-            disc_grads = _grads(d_loss, disc_params)
+            disc_grads = [mean_all(g) for g in _grads(d_loss, disc_params)]
         else:
             disc_grads = [torch.zeros_like(p) for p in disc_params]
 
+        nll, kl, g_loss = mean_all(nll), mean_all(kl) * cp, mean_all(g_loss)
         metrics = {
-            "vae/nll_loss": nll, "vae/kl_loss": kl, "vae/rec_loss": rec_m,
-            "vae/perception_loss": p_m, "vae/g_loss": g_loss,
+            "vae/nll_loss": nll, "vae/kl_loss": kl,
+            "vae/rec_loss": mean_all(rec_m),
+            "vae/perception_loss": mean_all(p_m), "vae/g_loss": g_loss,
             "vae/d_weight": d_weight, "vae/logvar": state.logvar,
-            "vae/total_loss": loss, "vae/disc_loss": d_loss,
-            "vae/logits_real": logits_real.mean(),
-            "vae/logits_fake": logits_fake.mean()}
+            "vae/total_loss": nll + cfg.kl_weight * kl + d_weight * g_loss,
+            "vae/disc_loss": mean_all(d_loss),
+            "vae/logits_real": mean_all(logits_real.mean()),
+            "vae/logits_fake": mean_all(logits_fake.mean())}
         metrics = {k: v.item() for k, v in metrics.items()}
         return gen_grads, disc_grads, metrics
 

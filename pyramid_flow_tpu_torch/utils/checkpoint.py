@@ -137,11 +137,11 @@ def load_model_config(component_dir: str, kind: str):
 
 def build_dit(model_path: str, model_variant: str, model_name: str,
               state_dict: Dict[str, torch.Tensor], *, dtype: torch.dtype,
-              device, remat: bool = False):
+              device, remat: bool = False, mesh=None):
     """The family's DiT (``PyramidFluxTransformer`` for ``pyramid_flux``,
     else ``PyramidDiffusionMMDiT``) sized by ``<model_variant>/config.json``,
     built on ``device`` in ``dtype`` and holding ``state_dict`` (copied in,
-    strictly)."""
+    strictly); ``mesh`` as the DiT takes it (sequence parallelism)."""
     from ..models.flux.model import PyramidFluxTransformer
     from ..models.mmdit.model import PyramidDiffusionMMDiT
 
@@ -149,7 +149,7 @@ def build_dit(model_path: str, model_variant: str, model_name: str,
     cls = PyramidFluxTransformer if flux else PyramidDiffusionMMDiT
     cfg = load_model_config(os.path.join(model_path, model_variant),
                             "flux" if flux else "mmdit")
-    dit = cls(cfg, dtype=dtype, device=device, remat=remat)
+    dit = cls(cfg, dtype=dtype, device=device, remat=remat, mesh=mesh)
     dit.load_state_dict(state_dict, strict=True)
     return dit
 

@@ -303,6 +303,34 @@ def test_kernels_launch_from_a_fresh_thread(cuda):
         assert torch.equal(a, b)
 
 
+def test_kernels_launch_on_each_device_after_set_device(cuda):
+    """The shared-memory opt-in is set per device, not once per process: on
+    every visible device in turn (made current with ``set_device``, as a
+    rank of a multi-device run does), the forward, the backward and the conv
+    launch there and give the bits they give on the first device."""
+    first = None
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.set_device(i)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        q, k, v, t, tk, o, lse, do = _bwd_inputs(dev)
+        x, weight, bias, fr = _conv_inputs(dev, 1, 2, 8, 8, 64, 128, True)
+        before = flash_fwd_cuda.launches
+        out = [*flash_fwd_cuda(q, k, v, t, tk, causal=True, sm_scale=0.125,
+                               bounded=True),
+               *flash_bwd_cuda(q, k, v, t, tk, o, lse, do, causal=True,
+                               sm_scale=0.125),
+               causal_conv3d_cuda(x, weight, bias, fr)]
+        torch.cuda.synchronize(dev)
+        assert flash_fwd_cuda.launches == before + 1
+        assert all(r.device == dev for r in out)
+        out = [r.cpu() for r in out]
+        if first is None:
+            first = out
+        for a, b in zip(first, out):
+            assert torch.equal(a, b)
+    torch.cuda.set_device(0)
+
+
 def test_bwd_rows_without_visible_keys(cuda):
     """Queries that see no key (lse = 3e38) give zero gradients, never NaN."""
     q, k, v, _ = _inputs(cuda, l=130)

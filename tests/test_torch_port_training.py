@@ -343,17 +343,16 @@ def test_cli_trains_from_an_annotation_file(tmp_path):
     (["--load_text_encoder"], "A8"),
     (["--sp", "2"], "A11"), (["--fsdp", "2"], "A11"), (["--dp", "2"], "A11")])
 def test_cli_names_the_roadmap_item_of_unported_flags(tmp_path, flags, item):
-    """Flags of parts the port does not have exit naming their ROADMAP item
-    (A11). The A8 flags are ported: they no longer name A8, and without a
-    checkpoint they exit asking for one (test_torch_port_checkpoint.py
-    trains from one)."""
+    """The A8 and A11 flags are ported and no longer name their ROADMAP
+    item. Without a checkpoint the A8 flags exit asking for one
+    (test_torch_port_checkpoint.py trains from one); outside torchrun the
+    A11 flags exit asking for it (test_torch_port_parallel_cli.py trains
+    under it)."""
     with pytest.raises(SystemExit) as exc:
         _run_cli(tmp_path, *flags)
     msg = str(exc.value)
-    if item == "A8":
-        assert "A8" not in msg and "--model_path" in msg
-    else:
-        assert item in msg
+    assert item not in msg
+    assert ("--model_path" if item == "A8" else "torchrun") in msg
 
 
 def test_cli_module_runs(tmp_path):
