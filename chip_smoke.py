@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
 for both DiT families, the string-prompt path from a release-layout
-checkpoint, GAN-VAE training, the heads-per-block attention experiment and
-the sequence-, fully-sharded- and context-parallel paths (two ranks sharing
-the card), once on one CUDA card.
+checkpoint, the HTTP serving app, the latent-extraction tool, the EMA
+evaluation path, GAN-VAE training, the heads-per-block attention experiment
+and the sequence-, fully-sharded- and context-parallel paths (two ranks
+sharing the card), with accumulation and sharded checkpoints, once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -53,7 +55,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 6. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
    blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
    384x640 unit 15 stage 2 layout through the kernel and through the plain
-   version; relative L2 <= 2e-2 on the valid tokens;
+   version; relative L2 <= 2e-2 on the valid tokens; then the same DiT and
+   inputs in fp32 on the plain route (a copy built after the bf16 forwards
+   and freed at once): each route's relative L2 to fp32, the kernel route's
+   within 1.1x of the plain route's;
 7. full-width encode: the release VAE (bf16, random weights)
    ``chunk_encode``s a seeded smooth 17-frame 384x640 clip through the conv
    kernel, through the plain version and in fp32; relative L2 of the
@@ -92,7 +97,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and guidance of phase 8) must give frames as phase 8 checks them, with
    57 flash launches per DiT forward and one conv launch per admitted conv
    and window. Prints the bytes, write, load and text-encode seconds, the
-   request's wall seconds and the peak memory;
+   request's wall seconds and the peak memory. Then, on the same
+   checkpoint (that runner freed first): the port's serving app
+   (``tools/serve.py``) in a thread on 127.0.0.1 and a free port,
+   ``GET /healthz``, one T2V ``POST /generate`` (temp 1, the app's default
+   steps) while ``/progress`` is polled, whose frames must equal
+   ``pipeline.generate`` on the same prompt features and seed bit for bit
+   and whose progress must reach ``unit == units``, and one I2V request
+   with a seeded base64 PNG (temp 2), each with its exact K1 and K5
+   launches and its wall time; and the latent-extraction tool on two
+   seeded clips of 121 frames at 384x640 (written with cv2; without cv2
+   its per-clip function runs on the pixels, and the log says the decode
+   was bypassed), with ``--world 2`` for both ranks and once with
+   ``--tile 256``: the rows and file names the JAX tool writes, each latent
+   equal to ``chunk_encode`` (``tiled_encode``) + ``gaussian_sample`` on the
+   tool's generator, and one K5 launch per admitted encoder conv, window
+   and tile;
 9. full-width DiT gradient: the release DiT with fp32 parameters, bf16
    autocast and remat, one training-loss backward of a batch row at the
    384x640 unit-16 stage-2 training layout (L = 3068), through the kernels
@@ -107,10 +127,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    schedule), then two raw-pixel steps (``vae=``, batch 4 of 121 frames of
    384x640, the same 16 latent frames); finite losses and grad norms,
    updates applied, exact kernel launch counts; step seconds and the peak
-   memory printed;
+   memory printed. Between the latent and the raw-pixel steps, the EMA
+   evaluation: ``export_ema_params``/``load_ema_params`` round-trip the
+   state's EMA bit for bit (bytes and seconds printed),
+   ``from_train_state(use_ema=True)`` builds a bf16 DiT holding exactly the
+   EMA, cast, which serves one temp-1 request with its exact launches, and
+   the training model's parameters and EMA are unchanged afterwards;
 11. the MMDiT, after the flux training state is freed: the release SD3
    MMDiT (24 joint blocks, 24 x 64 heads, 1536 wide) in bf16, its forward
-   kernel vs plain (relative L2 <= 2e-2, with the table's crop origin); one
+   kernel vs plain (relative L2 <= 2e-2, with the table's crop origin),
+   anchored to fp32 as phase 6; one
    T2V request through ``PyramidFlowPipeline(model_name="pyramid_mmdit")``
    with the release VAE (384x640, temp 4, 128 text tokens of width 4096,
    100 valid, pooled 2048; 24 flash launches per DiT forward), and one
@@ -157,23 +183,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``flash_attention`` (output, lse, the three gradients: bit for bit); an
    SP request of the release miniFLUX and VAE (384x640, temp 1, steps
    [2, 2, 2]) with one DiT forward held to the sp=1 forward (relative L2
-   2e-2) and the frames to the sp=1 request's (printed); train steps of a
+   2e-2) and, on rank 0, both anchored to fp32 (the SP forward within 1.1x
+   of the sp=1 forward's distance; the bf16 plain route's printed), and
+   the frames to the sp=1 request's (printed); train steps of a
    6 + 12-block full-width DiT (fp32, bf16 autocast, remat, the CLI's
    default shape) on an fsdp=2 and an sp=2 mesh, loss and gradient norm
    held to the parent's one-device steps (1e-2 and 2e-2 relative); a cp=2
    GAN-VAE step of the release VAE on 32 frames of 128x128, K5 launched
    with front frames on every rank (zeros on the first), its gradient held
    to the parent's cp=1 step's (in fp32 within 1e-2; in bf16 within 1.1x
-   of the cp=1 bf16 route's distance to fp32, as phase 11b); then one
+   of the cp=1 bf16 route's distance to fp32, as phase 11b); one
+   ``accum_steps=2`` step of a 2 + 4-block full-width DiT on the fsdp=2
+   mesh over a global batch of 8 (each rank holds one micro-batch whole
+   and none of the other), held to the parent's one-device accumulated
+   step as the sharded steps are, then its state saved with
+   ``torch.distributed.checkpoint`` and resumed on an sp=2 mesh, equal to
+   the saved state gathered, exactly (bytes and seconds printed); then one
    full-depth step of the training CLI on one NCCL rank. Every rank's
    launches join the kernels line, beside the card's name and power limit.
 
 Each path (the experiment, the VAE decode gradient, text-to-video,
-image-to-video, the string prompt from the checkpoint, latent training,
+image-to-video, the string prompt from the checkpoint, the HTTP T2V and
+I2V requests, the two extraction runs, latent training, the EMA request,
 raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
 latent training, the GAN-VAE generator gradient, GAN-VAE training, and
 phase 13's SP attention, SP serving, sharded training per mesh, the CP
-GAN-VAE step and the training CLI, on every rank) runs
+GAN-VAE step, the accumulated sharded step and the training CLI, on every
+rank) runs
 with every launch counter set to 0 just before it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
@@ -193,16 +229,21 @@ runs, has an entry of its own with 0 launches. The last line is
 
 from __future__ import annotations
 
+import argparse
+import base64
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
@@ -245,6 +286,12 @@ from pyramid_flow_tpu_torch.training.lr_schedules import cosine_schedule
 from pyramid_flow_tpu_torch.training.train_state import (
     TrainConfig, create_train_state)
 from pyramid_flow_tpu_torch.tools import exp_flash_h2
+from pyramid_flow_tpu_torch.tools import extract_video_vae_latents
+from pyramid_flow_tpu_torch.tools import serve as serve_app
+from pyramid_flow_tpu_torch.utils.checkpoint import (
+    export_ema_params, load_ema_params)
+from pyramid_flow_tpu_torch.utils.video_io import (
+    frames_from_bytes, video_bytes)
 from pyramid_flow_tpu_torch.training.trainer import (
     VIDEO_ENCODE_WINDOW, make_train_step)
 from pyramid_flow_tpu_torch.training.vae_trainer import (
@@ -291,6 +338,15 @@ CKPT_VARIANT = "diffusion_transformer_384p"
 CKPT_T5_SHARDS = 2
 TEXT_PROMPT = "a cat walks on grass"
 TEXT_REL_L2 = 2e-2  # bf16 text features against an fp32 copy
+# the HTTP requests after phase 8b: T2V at the app's default steps, then
+# I2V from a seeded image
+HTTP_T2V_TEMP, HTTP_I2V_TEMP = 1, 2
+# latent extraction: two seeded clips at the tool's default size, the
+# tiled run's tile (pixels)
+EXTRACT_CLIPS, EXTRACT_FRAMES, EXTRACT_TILE = 2, 121, 256
+EXTRACT_DIR = os.path.join("build", "smoke_extract")
+# the EMA export's directory (written and removed by the EMA phase)
+EMA_DIR = os.path.join("build", "smoke_ema")
 # GAN-VAE training: the reference's stage-1 recipe clip
 # (scripts/train_causal_video_vae.sh: batch 1, 17 frames at 256p), and the
 # generator-gradient check's smaller clip (frames, side)
@@ -307,6 +363,11 @@ PAR_DIR = os.path.join("build", "smoke_parallel")
 PAR_WORLD = 2
 SP_SERVE_STEPS, SP_SERVE_TEMP = [2, 2, 2], 1
 PAR_TRAIN_DEPTH, PAR_TRAIN_STEPS = (6, 12), 2
+# the accumulated sharded step (accum_steps=2 over a global batch of 8, on
+# the fsdp mesh) and the DCP save and resume: a 2 + 4-block full-width DiT
+# (cut further than the sharded steps': FSDP2's gathers over gloo take
+# most of a step, and two micro-batches double them)
+PAR_ACCUM_DEPTH, PAR_ACCUM_BATCH, PAR_ACCUM_STEPS = (2, 4), 8, 2
 PAR_LOSS_REL, PAR_GNORM_REL = 1e-2, 2e-2
 # fp32 cp=2 against fp32 cp=1: 2.2e-3 measured on an H100: cuDNN's
 # fp32 algorithms differ between 16- and 32-frame convs, and the GAN loss
@@ -1103,8 +1164,38 @@ def dit_inputs(meta_pipe, dev, gen, dit, dtype):
             + dit.stage_inputs(B, 48, 80, dev)), lat_time[0]
 
 
+def plain_attention_route(q, k, v, time_ids, *, causal, sm_scale, bounded):
+    """The DiTs' attention on the plain version (patched in for
+    ``parallel.sp.flash_attention``)."""
+    return fa.attention_reference(q, k, v, time_ids, causal=causal,
+                                  sm_scale=sm_scale)
+
+
+@torch.no_grad()
+def fp32_forward(dit, inputs):
+    """The same DiT and inputs in fp32 on the plain route, sp=1: a float
+    copy built for the call and freed before it returns."""
+    dit32 = type(dit)(dit.config, dtype=torch.float32, device=inputs[0].device)
+    dit32.load_state_dict(dit.state_dict())
+    inputs32 = [t.float() if t.dtype == torch.bfloat16 else t for t in inputs]
+    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
+        out = dit32(*inputs32)
+    torch.cuda.synchronize()
+    del dit32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 @torch.no_grad()
 def dit_check(dit, meta_pipe, dev, gen):
+    """One bf16 forward through the kernel and through the plain version,
+    held to each other (relative L2 ``DIT_REL_L2``) and anchored to fp32:
+    the same DiT and inputs in fp32 on the plain route (a copy built after
+    the bf16 forwards and freed before this returns). Two bf16 routes drift
+    apart with random weights about as far as each drifts from fp32, so the
+    kernel route must also be within 1.1x of the plain route's distance to
+    fp32, as the encode check holds the conv kernel."""
     inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
                                   next(dit.parameters()).dtype)
     before = fa.flash_fwd_cuda.launches
@@ -1114,26 +1205,31 @@ def dit_check(dit, meta_pipe, dev, gen):
     if launched != dit.num_attention_calls:
         raise AssertionError(f"{launched} kernel launches in one forward, "
                              f"expected {dit.num_attention_calls}")
-
-    def plain(q, k, v, time_ids, *, causal, sm_scale, bounded):
-        return fa.attention_reference(q, k, v, time_ids, causal=causal,
-                                      sm_scale=sm_scale)
-
-    with mock.patch.object(par_sp, "flash_attention", plain):
+    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
         out_p = dit(*inputs)
     torch.cuda.synchronize()
     valid = lat_time != fa.INVALID_TIME
     a, b = out_k[:, valid].float(), out_p[:, valid].float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite DiT output")
-    rel = ((a - b).norm() / b.norm()).item()
-    log(f"full-width {type(dit).__name__} forward, "
-        f"L={inputs[2].shape[1] + TEXT_LEN}: "
-        f"kernel vs plain relative L2 {rel:.3e} (limit {DIT_REL_L2}), "
-        f"|out| rms {b.square().mean().sqrt().item():.3e}")
+    rel = rel_l2(a, b)
+    out_32 = fp32_forward(dit, inputs)[:, valid]
+    if not torch.isfinite(out_32).all():
+        raise AssertionError("non-finite fp32 DiT output")
+    r = dict(dit=type(dit).__name__, L=inputs[2].shape[1] + TEXT_LEN,
+             rel_l2=rel, kernel_vs_fp32=rel_l2(a, out_32),
+             plain_vs_fp32=rel_l2(b, out_32),
+             out_rms=b.square().mean().sqrt().item())
+    log(f"full-width {r['dit']} forward, L={r['L']}: kernel vs plain "
+        f"relative L2 {rel:.3e} (limit {DIT_REL_L2}); to fp32: kernel "
+        f"{r['kernel_vs_fp32']:.3e}, plain {r['plain_vs_fp32']:.3e} (kernel "
+        f"within 1.1x of plain); |out| rms {r['out_rms']:.3e}")
     if not rel <= DIT_REL_L2:
         raise AssertionError(f"DiT kernel vs plain relative L2 {rel}")
-    return rel
+    if not r["kernel_vs_fp32"] <= 1.1 * r["plain_vs_fp32"]:
+        raise AssertionError(f"DiT kernel route further from fp32 than the "
+                             f"plain route: {r}")
+    return r
 
 
 def training_batch(dit_cfg, dev, gen, batch):
@@ -1233,11 +1329,7 @@ def dit_grad_check(dit, dev, gen):
         raise AssertionError(f"{len(missing)} parameters got no gradient "
                              f"through the kernels, e.g. {missing[:5]}")
 
-    def plain(q, k, v, time_ids, *, causal, sm_scale, bounded):
-        return fa.attention_reference(q, k, v, time_ids, causal=causal,
-                                      sm_scale=sm_scale)
-
-    with mock.patch.object(par_sp, "flash_attention", plain):
+    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
         t0 = time.perf_counter()
         loss_p, gp = backward()
         plain_s = time.perf_counter() - t0
@@ -1313,6 +1405,63 @@ def train(dit, dev, gen, n_steps=TRAIN_STEPS):
                              "moved the parameters")
     log(f"train: peak memory {peak:.3f} GB, launches {launched}")
     return steps, launched, peak, state
+
+
+def ema_evaluation(state, vae, dev, paths):
+    """The EMA evaluation path after the latent train steps:
+    ``export_ema_params``/``load_ema_params`` round-trip the state's EMA
+    (and the persistent buffers) bit for bit through ``EMA_DIR``;
+    ``PyramidFlowPipeline.from_train_state(use_ema=True)`` builds a bf16
+    DiT holding exactly the EMA, cast; one temp-1 request from it (its own
+    generator, SEED + 11) with the predicted launches; and the training
+    model's parameters and EMA are unchanged afterwards."""
+    t_phase = time.perf_counter()
+    params = {n: p.detach().cpu() for n, p in state.params.items()}
+    ema = {n: t.cpu() for n, t in state.ema_state_dict().items()}
+    shutil.rmtree(EMA_DIR, ignore_errors=True)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = export_ema_params(EMA_DIR, state.step, ema)
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        t0 = time.perf_counter()
+        loaded = load_ema_params(EMA_DIR)
+        load_s = time.perf_counter() - t0
+        same = loaded.keys() == ema.keys() and all(
+            torch.equal(loaded[n], t) for n, t in ema.items())
+        del loaded
+    finally:
+        shutil.rmtree(EMA_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    pipe = PyramidFlowPipeline.from_train_state(
+        state.model, state, vae, use_ema=True, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    held = pipe.dit.state_dict()
+    cast = held.keys() == ema.keys() and all(
+        torch.equal(held[n].cpu(), t.to(torch.bfloat16))
+        for n, t in ema.items())
+    del held
+    reset_launch_counts()
+    req = serve(pipe, dev, torch.Generator(dev).manual_seed(SEED + 11),
+                "ema", 1)
+    paths["EMA evaluation, T2V"] = req["launches"]
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    unchanged = all(torch.equal(p.detach().cpu(), params[n])
+                    for n, p in state.params.items()) and all(
+        torch.equal(t.cpu(), ema[n]) for n, t in state.ema.items())
+    r = dict(step=state.step, ema_bytes=nbytes, export_s=save_s,
+             load_s=load_s, round_trip_bit_equal=same,
+             from_train_state_s=build_s, holds_the_ema_cast=cast,
+             request_wall_s=req["wall_s"], training_model_unchanged=unchanged,
+             phase_s=time.perf_counter() - t_phase, card=card_line())
+    log("EMA evaluation " + json.dumps(r))
+    if not (same and cast and unchanged):
+        raise AssertionError(f"EMA evaluation: {r}")
+    return r
 
 
 def train_raw_pixels(dit, vae, state, dev, gen):
@@ -1697,12 +1846,15 @@ def gan_vae_paths(dev, paths):
 
 
 def installed_line() -> str:
-    """Whether the optional packages the checkpoint path could use import
-    here: the port reads safetensors itself, tokenizes with transformers
-    only when a checkpoint's tokenizers are loaded, and saves PNGs with
-    PIL."""
+    """Whether the optional packages the paths could use import here: the
+    port reads safetensors itself, tokenizes with transformers only when a
+    checkpoint's tokenizers are loaded, saves PNGs with PIL, decodes clips
+    with cv2 (the extraction tool) and writes mp4 through imageio's ffmpeg
+    plugin (the inference CLI and the serving app; without it they keep
+    PNG frames or answer an npz)."""
     found = []
-    for name in ("transformers", "safetensors", "PIL"):
+    for name in ("transformers", "safetensors", "PIL", "cv2", "imageio",
+                 "imageio_ffmpeg"):
         try:
             __import__(name)
             found.append(f"{name} yes")
@@ -2002,11 +2154,308 @@ def checkpoint_path(pipe, dev, paths):
                  phase_s=time.perf_counter() - t_phase)
         log("request " + json.dumps(r))
         del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the serving app and the extraction tool on the same checkpoint
+        http_serving(dev, paths)
+        latent_extraction(pipe.vae, dev, paths)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     return r
+
+
+def http_get(url: str):
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def http_post(url: str, req: dict):
+    r = urllib.request.Request(url, data=json.dumps(req).encode(),
+                               method="POST",
+                               headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=600) as resp:
+        return resp.status, resp.headers["Content-Type"], resp.read()
+
+
+def seeded_png(dev, seed: int) -> str:
+    """A smooth 384x640 image from its own generator, as base64 PNG."""
+    from PIL import Image
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    img = ((smooth_video(gen, dev, 1, HEIGHT, WIDTH)[0, 0] + 1) * 127.5
+           ).round().to(torch.uint8).cpu().numpy()
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return base64.b64encode(buf.getvalue()).decode()
+
+
+def http_serving(dev, paths):
+    """The port's serving app on phase 8b's checkpoint: its
+    ``ThreadingHTTPServer`` on 127.0.0.1 and a free port, in a thread;
+    ``GET /healthz``; one T2V ``POST /generate`` at temp 1 and the app's
+    default steps while ``/progress`` is polled, its frames equal bit for
+    bit to ``pipeline.generate`` on the same prompt features and seed (both
+    bodies decoded the same way); one I2V request with a seeded base64 PNG
+    at temp 2. Each request's K1 and K5 launches must be the predicted
+    counts."""
+    t_phase = time.perf_counter()
+    app = serve_app.ServingApp(argparse.Namespace(
+        model_path=CKPT_DIR, variant=CKPT_VARIANT, model_name="pyramid_flux"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(text_encoder, "_load_tokenizer", hash_tokenizers):
+        pipe = app.build_pipeline()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    server = serve_app.make_server(app, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        health = json.loads(http_get(url + "/healthz")[2])
+        if health != {"status": "ok", "devices": 1,
+                      "variants_loaded": [CKPT_VARIANT]}:
+            raise AssertionError(f"/healthz answered {health}")
+        polls, done = [], threading.Event()
+
+        def poll():
+            while not done.wait(0.25):
+                polls.append(json.loads(http_get(url + "/progress")[2]))
+
+        req = {"prompt": TEXT_PROMPT, "temp": HTTP_T2V_TEMP,
+               "height": HEIGHT, "width": WIDTH, "seed": SEED}
+        poller = threading.Thread(target=poll)
+        poller.start()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            status, ctype, body = http_post(url + "/generate", req)
+        finally:
+            done.set()
+            poller.join(timeout=60)
+        t2v_wall = time.perf_counter() - t0
+        paths["HTTP serving, T2V"] = launched = launch_counts()
+        final = json.loads(http_get(url + "/progress")[2])
+        frames = frames_from_bytes(body, ctype)
+        te = app.text_encoder
+        ref = pipe.generate(
+            torch.Generator(dev).manual_seed(SEED),
+            *te(TEXT_PROMPT + serve_app.PROMPT_SUFFIX),
+            *te(serve_app.NEGATIVE_PROMPT), height=HEIGHT, width=WIDTH,
+            temp=HTTP_T2V_TEMP, num_inference_steps=20,
+            video_num_inference_steps=10, guidance_scale=7.0,
+            video_guidance_scale=5.0, output_type="pixels")
+        ref = frames_from_bytes(*video_bytes(ref[0].cpu().numpy()))
+        forwards = 3 * 20  # the app's default steps, temp 1
+        windows = len(vae_model._window_starts(HTTP_T2V_TEMP,
+                                               DECODE_WINDOW, 1))
+        want = expected(pipe.dit.num_attention_calls * forwards,
+                        conv=kernel_conv_count(pipe.vae.decoder) * windows)
+        t2v = dict(request="HTTP T2V", status=status, content_type=ctype,
+                   frames=list(frames.shape), wall_s=t2v_wall,
+                   bit_equal_to_generate=bool(np.array_equal(frames, ref)),
+                   progress_polls=len(polls),
+                   polls_running=sum(p.get("status") == "running"
+                                     for p in polls),
+                   final_progress={k: final.get(k) for k in
+                                   ("status", "phase", "unit", "units")},
+                   launches=launched, expected_launches=want)
+        log("request " + json.dumps(t2v))
+        if not t2v["bit_equal_to_generate"]:
+            diff = np.abs(frames.astype(np.int16) - ref.astype(np.int16))
+            raise AssertionError(f"HTTP T2V frames differ from generate: "
+                                 f"max {diff.max()}, {(diff > 0).mean()} "
+                                 f"of values")
+        if (status != 200 or frames.shape != (1, HEIGHT, WIDTH, 3)
+                or final.get("status") != "done"
+                or final.get("unit") != final.get("units")):
+            raise AssertionError(f"HTTP T2V request: {t2v}")
+        if launched != want:
+            raise AssertionError(f"HTTP T2V launches {launched}, expected "
+                                 f"{want}")
+
+        req = {"prompt": "a red kite over a beach at dawn",
+               "temp": HTTP_I2V_TEMP, "height": HEIGHT, "width": WIDTH,
+               "seed": SEED, "image": seeded_png(dev, SEED + 9)}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        status, ctype, body = http_post(url + "/generate", req)
+        i2v_wall = time.perf_counter() - t0
+        paths["HTTP serving, I2V"] = launched = launch_counts()
+        frames = frames_from_bytes(body, ctype)
+        forwards = (HTTP_I2V_TEMP - 1) * 3 * 10
+        windows = len(vae_model._window_starts(HTTP_I2V_TEMP,
+                                               DECODE_WINDOW, 1))
+        want = expected(pipe.dit.num_attention_calls * forwards, conv=(
+            kernel_conv_count(pipe.vae.encoder)
+            + kernel_conv_count(pipe.vae.decoder) * windows))
+        i2v = dict(request="HTTP I2V", status=status, content_type=ctype,
+                   frames=list(frames.shape), wall_s=i2v_wall,
+                   frame_std=float(frames.std()), launches=launched,
+                   expected_launches=want)
+        log("request " + json.dumps(i2v))
+        shape = (1 + 8 * (HTTP_I2V_TEMP - 1), HEIGHT, WIDTH, 3)
+        if status != 200 or frames.shape != shape or frames.std() == 0:
+            raise AssertionError(f"HTTP I2V request: {i2v}")
+        if launched != want:
+            raise AssertionError(f"HTTP I2V launches {launched}, expected "
+                                 f"{want}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    log(f"HTTP serving: pipeline and text encoders loaded in {load_s:.1f} "
+        f"s, T2V {t2v_wall:.3f} s, I2V {i2v_wall:.3f} s wall per request, "
+        f"phase {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    del app, pipe, te
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def write_clip(path: str, video: torch.Tensor) -> None:
+    """Pixels [T, H, W, 3] in [-1, 1] as an MJPG clip (cv2)."""
+    import cv2
+
+    t, h, w, _ = video.shape
+    frames = ((video + 1) * 127.5).round().to(torch.uint8).cpu().numpy()
+    out = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 24, (w, h))
+    for f in frames:
+        out.write(np.ascontiguousarray(f[:, :, ::-1]))  # RGB -> BGR
+    out.release()
+
+
+def latent_extraction(vae, dev, paths):
+    """The extraction tool on phase 8b's checkpoint: two seeded clips of
+    121 frames at 384x640, ``--world 2`` for both ranks in turn, then once
+    ``--tile`` over both; the rows and file names as the JAX tool writes
+    them, every latent equal to ``chunk_encode`` (or ``tiled_encode``) and
+    ``gaussian_sample`` of the same frames by ``vae`` (the checkpoint's
+    weights, bit for bit) on the tool's generator, and the K5 launches one
+    per admitted encoder conv, window and tile. Without cv2 the tool's
+    per-clip function runs on the seeded pixels and the video decode is
+    bypassed (said in the log)."""
+    try:
+        import cv2  # noqa: F401
+        decode = True
+    except ImportError:
+        decode = False
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXTRACT_DIR, ignore_errors=True)
+    os.makedirs(EXTRACT_DIR)
+    gen = torch.Generator(dev).manual_seed(SEED + 10)
+    clips = [smooth_video(gen, dev, EXTRACT_FRAMES, HEIGHT, WIDTH)[0]
+             for _ in range(EXTRACT_CLIPS)]
+    items = []
+    for i, clip in enumerate(clips):
+        item = {"video": os.path.join(EXTRACT_DIR, f"clip{i}.avi"),
+                "text": f"clip {i}"}
+        if decode:
+            write_clip(item["video"], clip)
+        items.append(item)
+    anno = os.path.join(EXTRACT_DIR, "videos.jsonl")
+    with open(anno, "w") as f:
+        f.writelines(json.dumps(x) + "\n" for x in items)
+    per_window = kernel_conv_count(vae.encoder)
+    windows = len(vae_model._window_starts(EXTRACT_FRAMES, ENCODE_WINDOW))
+    stride = int(EXTRACT_TILE * 0.75)
+    tiles = len(range(0, HEIGHT, stride)) * len(range(0, WIDTH, stride))
+    runs = {"world 2": [(r, 2, 0) for r in range(2)],
+            "tiled": [(0, 1, EXTRACT_TILE)]}
+    results = []
+    try:
+        for name, ranks in runs.items():
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = {}
+            for rank, world, tile in ranks:
+                out_dir = os.path.join(EXTRACT_DIR, name.replace(" ", ""))
+                out_anno = os.path.join(out_dir, f"anno{rank}.jsonl")
+                if decode:
+                    extract_video_vae_latents.main([
+                        "--model_path", CKPT_DIR, "--anno_file", anno,
+                        "--output_dir", out_dir, "--output_anno", out_anno,
+                        "--rank", str(rank), "--world", str(world),
+                        "--tile", str(tile), "--num_frames",
+                        str(EXTRACT_FRAMES), "--height", str(HEIGHT),
+                        "--width", str(WIDTH), "--window_size",
+                        str(ENCODE_WINDOW)])
+                    with open(out_anno) as f:
+                        rows = [json.loads(x) for x in f]
+                    for row in rows:
+                        got[row["latent"]] = (row, np.load(row["latent"]))
+                else:  # the per-clip function on the seeded pixels
+                    g = torch.Generator(dev).manual_seed(0)
+                    for i, item in enumerate(items[rank::world]):
+                        path = os.path.join(out_dir,
+                                            f"latent_{rank}_{i:07d}.npy")
+                        got[path] = ({**item, "latent": path},
+                                     extract_video_vae_latents.encode_clip(
+                                         vae, clips[rank + i * world].cpu()
+                                         .numpy(), g, ENCODE_WINDOW, tile))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = launch_counts()
+            paths[f"latent extraction ({name})"] = launched
+            per_clip = per_window * windows * (tiles if ranks[0][2] else 1)
+            want = expected(conv=per_clip * EXTRACT_CLIPS)
+            # what the JAX tool writes: items[rank::world], each with its
+            # latent latent_<rank>_<i>.npy
+            names, errs = [], []
+            for rank, world, tile in ranks:
+                g = torch.Generator(dev).manual_seed(0)
+                for i, item in enumerate(items[rank::world]):
+                    path = os.path.join(
+                        EXTRACT_DIR, name.replace(" ", ""),
+                        f"latent_{rank}_{i:07d}.npy")
+                    names.append(os.path.basename(path))
+                    row, latent = got[path]
+                    if row != {**item, "latent": path}:
+                        raise AssertionError(f"extraction row {row}")
+                    if decode:
+                        video, _ = tool_frames(item)
+                        x = torch.from_numpy(video)[None].to(dev)
+                    else:
+                        x = clips[rank + i * world][None]
+                    with torch.no_grad():
+                        moments = (vae_model.tiled_encode(
+                            vae, x, tile, temporal_chunk=True,
+                            window_size=ENCODE_WINDOW) if tile else
+                            vae_model.chunk_encode(vae, x, ENCODE_WINDOW))
+                    ref = vae_model.gaussian_sample(moments, g)[0]
+                    ref = ref.float().cpu().numpy()
+                    errs.append(float(np.abs(latent - ref).max()))
+                    if latent.shape != (1 + (EXTRACT_FRAMES - 1) // 8,
+                                        HEIGHT // 8, WIDTH // 8,
+                                        vae.config.latent_channels):
+                        raise AssertionError(f"latent {latent.shape}")
+            r = dict(run=name, video_decode=decode, clips=len(got),
+                     files=sorted(names), seconds=seconds,
+                     seconds_per_clip=seconds / EXTRACT_CLIPS,
+                     max_abs_diff_to_encode=max(errs), launches=launched,
+                     expected_launches=want)
+            log("latent extraction " + json.dumps(r))
+            if max(errs) != 0.0:
+                raise AssertionError(f"extracted latents differ from "
+                                     f"chunk_encode + gaussian_sample: {r}")
+            if launched != want:
+                raise AssertionError(f"extraction launches {launched}, "
+                                     f"expected {want}")
+            results.append(r)
+    finally:
+        shutil.rmtree(EXTRACT_DIR, ignore_errors=True)
+    log(f"latent extraction: {time.perf_counter() - t_phase:.1f} s"
+        f"{'' if decode else ' (no cv2: the video decode was bypassed)'} "
+        f"({card_line()})")
+    return results
+
+
+def tool_frames(item):
+    """The clip's frames as the tool decodes them."""
+    from pyramid_flow_tpu_torch.data.datasets import VideoFrameProcessor
+    return VideoFrameProcessor(EXTRACT_FRAMES, (HEIGHT, WIDTH))(
+        item["video"])
 
 
 def mmdit_text_request(pipe, dev, paths):
@@ -2257,9 +2706,12 @@ def sp_attention_phase(dev, mesh) -> dict:
 def sp_serving_phase(dev, mesh) -> dict:
     """The release miniFLUX and VAE (bf16, weights from SEED + 21, the same
     on every rank) with the DiT sequence-parallel over the sp ranks: one
-    forward held to the sp=1 forward of the same rank on the same inputs,
-    then one T2V request at 384x640, temp 1, SP_SERVE_STEPS, and the same
-    request at sp=1 on the same draws."""
+    forward held to the sp=1 forward of the same rank on the same inputs
+    and, on rank 0, both anchored to the same DiT in fp32 on the plain
+    route (the SP forward within 1.1x of the sp=1 forward's distance to
+    fp32; the bf16 plain route's distance printed beside them), then one
+    T2V request at 384x640, temp 1, SP_SERVE_STEPS, and the same request at
+    sp=1 on the same draws."""
     gen = torch.Generator(dev).manual_seed(SEED + 21)
     t0 = time.perf_counter()
     dit = PyramidFluxTransformer(FluxConfig(), dtype=torch.bfloat16,
@@ -2276,6 +2728,17 @@ def sp_serving_phase(dev, mesh) -> dict:
         out_sp = dit(*inputs)
         dit.set_mesh(None)
         out_1 = dit(*inputs)
+        anchor = {}
+        if torch.distributed.get_rank() == 0:
+            # the fp32 anchor (one rank: every rank's output is the whole)
+            with mock.patch.object(par_sp, "flash_attention",
+                                   plain_attention_route):
+                out_p = dit(*inputs)[:, valid]
+            out_32 = fp32_forward(dit, inputs)[:, valid]
+            anchor = dict(sp_vs_fp32=rel_l2(out_sp[:, valid], out_32),
+                          sp1_vs_fp32=rel_l2(out_1[:, valid], out_32),
+                          plain_vs_fp32=rel_l2(out_p, out_32))
+            del out_p, out_32
         dit.set_mesh(mesh)
     fwd_rel = rel_l2(out_sp[:, valid], out_1[:, valid])
     cfg = dit.config
@@ -2314,6 +2777,7 @@ def sp_serving_phase(dev, mesh) -> dict:
     res = dict(card=card_line(), sp=group_size(mesh, "sp"),
                steps=SP_SERVE_STEPS, temp=SP_SERVE_TEMP,
                models_built_s=build_s, dit_forward_rel_l2=fwd_rel,
+               **anchor,
                wall_s=wall, dit_s=pipe.last_dit_seconds,
                decode_s=pipe.last_decode_seconds, peak_mem_gb=peak,
                k1_launches=launched["flash_fwd"],
@@ -2323,6 +2787,9 @@ def sp_serving_phase(dev, mesh) -> dict:
     rank_log("SP serving " + json.dumps(res))
     if fwd_rel > DIT_REL_L2:
         raise AssertionError(f"SP DiT forward off the sp=1 forward: {res}")
+    if anchor and not anchor["sp_vs_fp32"] <= 1.1 * anchor["sp1_vs_fp32"]:
+        raise AssertionError(f"SP DiT forward further from fp32 than the "
+                             f"sp=1 forward: {res}")
     shape = (1, 1 + 8 * (SP_SERVE_TEMP - 1), HEIGHT, WIDTH, 3)
     if (tuple(frames_sp.shape) != shape or frames_sp.dtype != torch.uint8
             or frames_sp.min() == frames_sp.max()):
@@ -2342,32 +2809,40 @@ def group_size(mesh, dim: str) -> int:
     return mesh.shape[mesh.mesh_dim_names.index(dim)]
 
 
-def par_train_dit(dev, mesh=None):
+def par_train_dit(dev, mesh=None, depth=PAR_TRAIN_DEPTH,
+                  batch_size=TRAIN_BATCH):
     """The cut-depth full-width training DiT (fp32, remat) with weights from
     SEED + 22, its batch (the CLI's default shape) and its draws: the same
     in the parent's one-device reference and on every rank."""
     gen = torch.Generator(dev).manual_seed(SEED + 22)
-    dual, single = PAR_TRAIN_DEPTH
+    dual, single = depth
     cfg = FluxConfig(num_layers=dual, num_single_layers=single)
     dit = PyramidFluxTransformer(cfg, dtype=torch.float32, device=dev,
                                  remat=True, mesh=mesh)
     randomize_(dit, gen)
     zero_output_(dit)
-    batch = training_batch(cfg, dev, gen, TRAIN_BATCH)
+    batch = training_batch(cfg, dev, gen, batch_size)
     return dit, batch
 
 
-def par_train_steps(dit, batch, dev, mesh=None,
-                    n_steps=PAR_TRAIN_STEPS) -> list:
-    state = create_train_state(dit, TrainConfig(
+def par_train_state(dit):
+    return create_train_state(dit, TrainConfig(
         learning_rate=5e-5, weight_decay=1e-4, max_grad_norm=1.0,
         lr_schedule=cosine_schedule(5e-5, 1e-6, 1000, 10, 1000)))
+
+
+def par_train_steps(dit, batch, dev, mesh=None, n_steps=PAR_TRAIN_STEPS,
+                    accum_steps=1):
+    """``n_steps`` train steps of ``dit`` on its rows of ``batch``: the
+    steps' metrics and seconds, and the train state after them."""
+    state = par_train_state(dit)
     step_fn = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
                               (1, 2, 1), True, 1, 1 / 3, cfg_rate=0.1,
+                              accum_steps=accum_steps,
                               compute_dtype=torch.bfloat16, mesh=mesh)
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
     index, count = data_rank(mesh)
-    per = TRAIN_BATCH // count
+    per = next(iter(batch.values())).shape[0] // count
     local = {k: v[index * per:(index + 1) * per] for k, v in batch.items()}
     steps = []
     for _ in range(n_steps):
@@ -2381,19 +2856,27 @@ def par_train_steps(dit, batch, dev, mesh=None,
                           grad_norm=m["train/grad_norm"],
                           applied=m["train/applied"],
                           seconds=time.perf_counter() - t0))
-    return steps
+    return steps, state
 
 
-def par_train_reference(dev) -> list:
+def par_train_reference(dev, accum_steps=1) -> list:
     """The parent's one-device steps of the cut-depth DiT, which the
-    sharded steps are held to."""
-    dit, batch = par_train_dit(dev)
+    sharded steps are held to; with ``accum_steps`` 2, the accumulated
+    step of the shallower DiT on the global batch of 8."""
+    if accum_steps == 1:
+        dit, batch = par_train_dit(dev)
+        n, what = PAR_TRAIN_STEPS, "sharded-train"
+    else:
+        dit, batch = par_train_dit(dev, None, PAR_ACCUM_DEPTH,
+                                   PAR_ACCUM_BATCH)
+        n, what = 1, "accumulated sharded-train"
     torch.cuda.reset_peak_memory_stats(dev)
-    steps = par_train_steps(dit, batch, dev)
-    log(f"sharded-train reference, one device ({card_line()}): "
+    steps, state = par_train_steps(dit, batch, dev, n_steps=n,
+                                   accum_steps=accum_steps)
+    log(f"{what} reference, one device ({card_line()}): "
         f"{json.dumps(steps)}, peak "
         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
-    del dit, batch
+    del dit, batch, state
     gc.collect()
     torch.cuda.empty_cache()
     return steps
@@ -2411,7 +2894,7 @@ def sharded_train_phase(dev, shape, n_steps, reference) -> dict:
                    verbose=False)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
-    steps = par_train_steps(dit, batch, dev, mesh, n_steps)
+    steps, state = par_train_steps(dit, batch, dev, mesh, n_steps)
     launched = launch_counts()
     attentions = dit.num_attention_calls * 3 * n_steps
     res = dict(card=card_line(), mesh=dict(zip(("dp", "fsdp", "sp"), shape)),
@@ -2428,7 +2911,128 @@ def sharded_train_phase(dev, shape, n_steps, reference) -> dict:
                                  f"{got} vs {ref}")
     if launched != expected(2 * attentions, attentions):
         raise AssertionError(f"sharded train launches {launched}")
-    del dit, batch
+    del dit, batch, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"result": res, "launches": launched}
+
+
+def states_equal(a, b) -> bool:
+    """Whether two train-state dicts hold the same keys and values, every
+    tensor equal bit for bit."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(states_equal(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(states_equal(x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            torch.equal(a, b)
+    return a == b
+
+
+def host_state(state) -> dict:
+    """The train state made whole on the host, on every rank: parameters,
+    EMA and AdamW state keyed by parameter name, the param groups' settings
+    and the counts. A DTensor's local shard is copied to the CPU and
+    gathered over gloo there, on a CPU mesh of the same ranks: gloo's
+    all_gather of CUDA tensors (``TrainState.state_dict``'s gather, a
+    functional collective) crashes the process with two ranks on one card
+    (a segfault, on an H100 with torch 2.11); on NCCL that route works."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+
+    meshes = {}
+
+    def whole(t):
+        if not isinstance(t, DTensor):
+            return t.detach().cpu() if isinstance(t, torch.Tensor) else t
+        mesh = t.device_mesh
+        key = (tuple(mesh.mesh.flatten().tolist()), tuple(mesh.mesh.shape))
+        if key not in meshes:
+            meshes[key] = DeviceMesh("cpu", mesh.mesh,
+                                     mesh_dim_names=mesh.mesh_dim_names)
+        return DTensor.from_local(
+            t.to_local().detach().cpu(), meshes[key], t.placements,
+            run_check=False, shape=t.shape, stride=t.stride()).full_tensor()
+
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return {
+        "counts": (state.step, state.opt_count),
+        "params": {n: whole(p) for n, p in state.params.items()},
+        "ema": {n: whole(t) for n, t in state.ema.items()},
+        "optimizer": {names[id(p)]: {k: whole(v) for k, v in s.items()}
+                      for p, s in state.optimizer.state.items()},
+        "groups": [{k: v for k, v in g.items() if k != "params"}
+                   for g in state.optimizer.param_groups]}
+
+
+def accum_dcp_phase(dev, world, reference) -> dict:
+    """One ``accum_steps=2`` step of the 2 + 4-block DiT on a (1, world,
+    1) mesh over the global batch of 8 (each rank holds one micro-batch
+    whole and none of the other), held to the parent's one-device
+    accumulated step; then the state saved with
+    ``torch.distributed.checkpoint`` (each rank its shards) and restored on
+    a fresh (1, 1, world) state, which, gathered (``host_state``), must
+    equal the saved state gathered, exactly. Bytes and seconds printed."""
+    import torch.distributed as dist
+
+    mesh = make_mesh(MeshConfig(1, world, 1), "cuda")
+    dit, batch = par_train_dit(dev, mesh, PAR_ACCUM_DEPTH, PAR_ACCUM_BATCH)
+    param_sharding(dit, mesh, min_shard_dim=1024, verbose=False)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    steps, state = par_train_steps(dit, batch, dev, mesh, 1,
+                                   accum_steps=PAR_ACCUM_STEPS)
+    launched = launch_counts()
+    attentions = dit.num_attention_calls * 3 * PAR_ACCUM_STEPS
+    want = expected(2 * attentions, attentions)
+    saved = host_state(state)
+    ckpt = os.path.join(PAR_DIR, "dcp")
+    dist.barrier()
+    t0 = time.perf_counter()
+    state.save_sharded(ckpt)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(ckpt, f))
+                 for f in os.listdir(ckpt))
+    files = sorted(os.listdir(ckpt))
+    del dit, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshConfig(1, 1, world), "cuda")
+    dit, _ = par_train_dit(dev, mesh, PAR_ACCUM_DEPTH, PAR_ACCUM_BATCH)
+    param_sharding(dit, mesh, min_shard_dim=1024, verbose=False)
+    resumed = par_train_state(dit)
+    dist.barrier()
+    t0 = time.perf_counter()
+    resumed.load_sharded(ckpt)
+    dist.barrier()
+    load_s = time.perf_counter() - t0
+    again = host_state(resumed)
+    exact = states_equal(saved, again)
+    res = dict(card=card_line(), depth=PAR_ACCUM_DEPTH,
+               global_batch=PAR_ACCUM_BATCH, accum_steps=PAR_ACCUM_STEPS,
+               mesh={"dp": 1, "fsdp": world, "sp": 1}, steps=steps,
+               reference=reference, launches=launched,
+               expected_launches=want,
+               peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               dcp_files=files, dcp_bytes=nbytes, dcp_save_s=save_s,
+               dcp_resume_mesh={"dp": 1, "fsdp": 1, "sp": world},
+               dcp_load_s=load_s, resumed_state_equal=exact)
+    rank_log("accumulated sharded step and DCP " + json.dumps(res))
+    got, ref = steps[0], reference[0]
+    if not (abs(got["loss"] - ref["loss"]) <= PAR_LOSS_REL * ref["loss"]
+            and abs(got["grad_norm"] - ref["grad_norm"])
+            <= PAR_GNORM_REL * ref["grad_norm"]):
+        raise AssertionError(f"accumulated sharded step off the one-device "
+                             f"step: {got} vs {ref}")
+    if launched != want:
+        raise AssertionError(f"accumulated sharded step launches {launched}")
+    if not exact:
+        raise AssertionError("the DCP resume differs from the saved state")
+    del dit, resumed, saved, again
     gc.collect()
     torch.cuda.empty_cache()
     return {"result": res, "launches": launched}
@@ -2638,6 +3242,8 @@ def child_main(name: str, backend: str) -> int:
                 out[key] = sharded_train_phase(dev, shape, n,
                                                plan["train_reference"])
             out["cp_gan"] = cp_gan_phase(dev, world, plan["cp_reference"])
+            out["accum_dcp"] = accum_dcp_phase(dev, world,
+                                               plan["accum_reference"])
         dist.barrier()
         dist.destroy_process_group()
     with open(os.path.join(PAR_DIR, f"{name}-rank{rank}.json"), "w") as f:
@@ -2662,6 +3268,7 @@ def parallel_phases(dev, paths: dict, conv_shapes: set) -> dict:
         f"{'carries every collective' if not failed else failed}; the "
         f"multi-rank paths run on {world} rank(s) over {backend}")
     reference = par_train_reference(dev)
+    accum_ref = par_train_reference(dev, PAR_ACCUM_STEPS)
     cp_ref = cp_reference(dev)
     # FSDP2's per-block gathers go through host memory over gloo (about
     # 30 s a step here): one step on that mesh
@@ -2669,11 +3276,12 @@ def parallel_phases(dev, paths: dict, conv_shapes: set) -> dict:
               "train sp": [[1, 1, world], PAR_TRAIN_STEPS]}
     with open(os.path.join(PAR_DIR, "plan.json"), "w") as f:
         json.dump({"train_meshes": meshes, "train_reference": reference,
-                   "cp_reference": cp_ref}, f)
+                   "accum_reference": accum_ref, "cp_reference": cp_ref}, f)
     ranks = run_children("paths", world, backend)
     names = {"sp_attention": "SP attention", "sp_serving": "SP serving",
              "train fsdp": "sharded train (fsdp)",
-             "train sp": "sharded train (sp)", "cp_gan": "CP GAN-VAE step"}
+             "train sp": "sharded train (sp)", "cp_gan": "CP GAN-VAE step",
+             "accum_dcp": "accumulated sharded train (fsdp, accum 2)"}
     for key, label in names.items():
         paths[label] = {k: sum(r[key]["launches"][k] for r in ranks)
                         for k in launch_counts()}
@@ -2795,6 +3403,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         dit_grad_check(tdit, dev, gen)
         _, paths["train (latents)"], _, state = train(tdit, dev, gen)
+        ema_evaluation(state, vae, dev, paths)
         _, paths["train (raw pixels)"], _ = train_raw_pixels(
             tdit, vae, state, dev, gen)
 

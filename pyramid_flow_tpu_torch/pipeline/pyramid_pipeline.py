@@ -158,6 +158,35 @@ class PyramidFlowPipeline:
         return cls(dit.eval(), vae, dtype=dtype, device=device,
                    model_name=model_name, **kwargs)
 
+    @classmethod
+    def from_train_state(cls, dit, train_state, vae=None,
+                         use_ema: bool = False,
+                         dtype: torch.dtype = torch.bfloat16, device=None,
+                         **kwargs):
+        """A pipeline from a live or restored ``TrainState``: a new DiT of
+        ``dit``'s class and config in ``dtype`` (on ``device``, by default
+        the state's), holding the state's parameters or, with
+        ``use_ema=True``, their EMA (the reference trains with an EMA copy
+        and ships it for inference), cast, and the model's persistent
+        buffers. A sharded state is gathered, a collective that every rank
+        calls; each rank gets the whole DiT. The training model and its EMA stay as they were, so a
+        later train step is the one it would have been. ``kwargs`` go to
+        the pipeline."""
+        if device is None:
+            p = next(train_state.model.parameters())
+            device = (p.to_local() if hasattr(p, "to_local") else p).device
+        infer = type(dit)(dit.config, dtype=dtype, device=device)
+        target = infer.state_dict()
+        seen = set()
+        with torch.no_grad():
+            for name, t in train_state.inference_tensors(use_ema):
+                target[name].copy_(t)
+                seen.add(name)
+        missing = set(target) - seen
+        if missing:
+            raise KeyError(f"the train state holds no {sorted(missing)}")
+        return cls(infer.eval(), vae, dtype=dtype, device=device, **kwargs)
+
     # ------------------------------------------------------------ helpers
     def normalize_latent(self, x):
         """VAE latent -> model space; frame 0 uses the image statistics."""

@@ -5,8 +5,10 @@
         --prompt "a hiker on a ridge" --temp 16 --height 384 --width 640 \\
         --output out/
 
-The flags are those of the JAX package's ``tools/inference.py``, but
-``--fps`` (the port writes PNG frames only, no mp4), plus ``--device``.
+The flags are those of the JAX package's ``tools/inference.py``, plus
+``--device``. The frames go to ``--output`` as PNG files and
+``video.mp4`` at ``--fps`` (``utils.video_io``; without imageio's ffmpeg
+plugin the PNG files alone, said on stderr).
 ``PyramidFlowRunner.from_pretrained`` loads the released layout under
 ``--model_path`` (the DiT of ``--variant``, the VAE, the text encoders and
 their tokenizers); ``--input_image`` makes the request image-to-video. The
@@ -27,7 +29,6 @@ its sp group, and rank 0 writes the frames::
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import time
 
@@ -62,18 +63,10 @@ def parse_args(argv=None):
     p.add_argument("--save_memory", action="store_true",
                    help="tile overlap 1/8 instead of 1/4 (frames above a "
                         "192x192 latent)")
+    p.add_argument("--fps", type=int, default=24)
     p.add_argument("--output", default="output")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
-
-
-def save_frames(frames: np.ndarray, output: str) -> None:
-    """[F, H, W, 3] uint8 -> ``<output>/frame_0000.png``, ..."""
-    from PIL import Image
-
-    os.makedirs(output, exist_ok=True)
-    for i, f in enumerate(frames):
-        Image.fromarray(f).save(os.path.join(output, f"frame_{i:04d}.png"))
 
 
 def main(argv=None) -> int:
@@ -82,6 +75,7 @@ def main(argv=None) -> int:
                                  maybe_initialize_distributed)
     from ..pipeline.pyramid_pipeline import DecodePlan
     from ..pipeline.runner import PyramidFlowRunner
+    from ..utils.video_io import save_frames
 
     device = torch.device(args.device)
     mesh, rank = None, 0
@@ -128,7 +122,7 @@ def main(argv=None) -> int:
         torch.distributed.destroy_process_group()
     if rank:
         return 0
-    save_frames(frames, args.output)
+    save_frames(frames, args.output, args.fps)
     print(f"wrote {frames.shape[0]} PNG frames to {args.output}",
           file=sys.stderr)
     return 0

@@ -34,14 +34,18 @@ rows)::
 
 A world of one under ``torchrun`` also takes the FSDP2 route.
 
-Checkpoints: ``<output_dir>/checkpoint-<step>.pt`` (step, parameters,
-optimizer and EMA) and ``checkpoint-<step>-ema.pt`` (the EMA weights keyed
-like the released checkpoint), written with ``torch.save`` every
-``--save_ckpt_freq`` epochs; under FSDP2 gathered whole to rank 0, which
-writes them, so a checkpoint moves between world sizes. ``--auto_resume`` continues from the newest
-``checkpoint-<step>.pt``, at the epoch that step falls in. A step's random
-draws and its ``--debug_tiny`` batch depend on (seed, step) alone, so a
-resumed run repeats the steps an uninterrupted run would take.
+Checkpoints, every ``--save_ckpt_freq`` epochs: on one device
+``<output_dir>/checkpoint-<step>.pt`` (step, parameters, optimizer and EMA,
+``torch.save``); under FSDP2 ``checkpoint-<step>/``, a
+``torch.distributed.checkpoint`` directory to which each rank writes its
+own shards (the counterpart of JAX's Orbax checkpoints); and beside either
+``checkpoint-<step>-ema.pt`` (``utils.checkpoint.export_ema_params``: the
+EMA weights and persistent buffers keyed like the released checkpoint,
+gathered to rank 0). ``--auto_resume`` continues from the newest step of
+either form, at the epoch that step falls in: a directory restores at any
+mesh or on one device, and a ``.pt`` file at any world size too. A step's
+random draws and its ``--debug_tiny`` batch depend on (seed, step) alone,
+so a resumed run repeats the steps an uninterrupted run would take.
 """
 
 from __future__ import annotations
@@ -55,8 +59,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["main", "parse_args", "latest_checkpoint_step",
-           "fill_text_features"]
+__all__ = ["main", "parse_args", "latest_checkpoint", "save_checkpoint",
+           "restore_checkpoint", "fill_text_features"]
 
 DEBUG_PROMPTS = ("a cat walks on grass", "a hiker on a ridge",
                  "waves at dusk", "a red kite over a beach")
@@ -134,29 +138,52 @@ def outside_torchrun(args) -> Optional[str]:
     return None
 
 
-def latest_checkpoint_step(output_dir: str) -> Optional[int]:
-    """The newest step with a ``checkpoint-<step>.pt`` in ``output_dir``."""
+def latest_checkpoint(output_dir: str) -> Optional[str]:
+    """The path of the newest step's checkpoint in ``output_dir``, of
+    either form: a ``checkpoint-<step>/`` directory
+    (``torch.distributed.checkpoint``) or a ``checkpoint-<step>.pt`` file;
+    the directory where a step has both."""
     if not os.path.isdir(output_dir):
         return None
-    steps = [int(m.group(1)) for name in os.listdir(output_dir)
-             if (m := re.fullmatch(r"checkpoint-(\d+)\.pt", name))]
-    return max(steps) if steps else None
+    found = {}
+    for name in os.listdir(output_dir):
+        path = os.path.join(output_dir, name)
+        m = re.fullmatch(r"checkpoint-(\d+)", name)
+        if m and os.path.isdir(path):
+            found[int(m.group(1))] = path
+        m = re.fullmatch(r"checkpoint-(\d+)\.pt", name)
+        if m:
+            found.setdefault(int(m.group(1)), path)
+    return found[max(found)] if found else None
 
 
 def save_checkpoint(output_dir: str, step: int, state,
                     rank: int = 0) -> None:
-    """Write the step's checkpoints (sharded: a collective, every rank
-    calls it and rank 0 writes)."""
-    full = state.state_dict()
-    if rank:
-        return
-    os.makedirs(output_dir, exist_ok=True)
-    torch.save(full, os.path.join(output_dir, f"checkpoint-{step}.pt"))
-    # inference-ready weights, loadable without the optimizer's structure:
-    # the EMA of every parameter and the persistent buffers (the MMDiT's
-    # sincos table)
-    torch.save({**full["params"], **full["ema"]},
-               os.path.join(output_dir, f"checkpoint-{step}-ema.pt"))
+    """Write the step's checkpoints: sharded, ``checkpoint-<step>/`` (each
+    rank its own shards; a collective, every rank calls it), else
+    ``checkpoint-<step>.pt``; then the EMA export (gathered to rank 0)."""
+    from ..utils.checkpoint import export_ema_params
+
+    if state.sharded:
+        state.save_sharded(os.path.join(output_dir, f"checkpoint-{step}"))
+    elif rank == 0:
+        os.makedirs(output_dir, exist_ok=True)
+        torch.save(state.state_dict(),
+                   os.path.join(output_dir, f"checkpoint-{step}.pt"))
+    ema = state.ema_state_dict()
+    if rank == 0:
+        export_ema_params(output_dir, step, ema)
+
+
+def restore_checkpoint(path: str, state, device) -> None:
+    """Load ``path``, a checkpoint directory or ``.pt`` file of either
+    world size, into ``state`` (sharded: every rank calls it)."""
+    if os.path.isdir(path):
+        state.load_sharded(path)
+    else:
+        state.load_state_dict(torch.load(
+            path, map_location="cpu" if state.sharded else device,
+            weights_only=True))
 
 
 def fill_text_features(batch_np: dict, text_encoder) -> dict:
@@ -355,14 +382,13 @@ def main(argv=None) -> int:
         max_grad_norm=args.clip_grad, lr_schedule=lr))
     start_step = 0
     if args.auto_resume:
-        last = latest_checkpoint_step(args.output_dir)
+        last = latest_checkpoint(args.output_dir)
         if last is not None:
-            state.load_state_dict(torch.load(
-                os.path.join(args.output_dir, f"checkpoint-{last}.pt"),
-                map_location="cpu" if mesh is not None else device,
-                weights_only=True))
+            restore_checkpoint(last, state, device)
             start_step = state.step
-            print(f"resumed from step {start_step}", file=sys.stderr)
+            if rank == 0:
+                print(f"resumed from step {start_step} ({last})",
+                      file=sys.stderr)
 
     step_fn = make_train_step(
         dit, sched, tuple(args.sample_ratios), args.use_temporal_pyramid,

@@ -42,7 +42,7 @@ import sys
 
 import torch
 
-from .train_pyramid_flow import latest_checkpoint_step
+from .train_pyramid_flow import latest_checkpoint
 
 __all__ = ["main", "parse_args"]
 
@@ -183,11 +183,10 @@ def main(argv=None) -> int:
     state = create_vae_train_state(vae, disc, cfg)
     start_step = 0
     if args.auto_resume:
-        last = latest_checkpoint_step(args.output_dir)
+        last = latest_checkpoint(args.output_dir)
         if last is not None:
-            state.load_state_dict(torch.load(
-                os.path.join(args.output_dir, f"checkpoint-{last}.pt"),
-                map_location=device, weights_only=True))
+            state.load_state_dict(torch.load(last, map_location=device,
+                                             weights_only=True))
             start_step = state.step
             if rank == 0:
                 print(f"resumed from step {start_step}", file=sys.stderr)

@@ -21,14 +21,18 @@ Under FSDP2 (``parallel.mesh.param_sharding``) the parameters, gradients,
 optimizer moments and EMA are DTensor shards: the global norm is the whole
 model's (a DTensor norm made full), and ``state_dict``/``load_state_dict``
 gather to and scatter from the one-device layout, so a checkpoint moves
-between world sizes.
+between world sizes. ``save_sharded``/``load_sharded`` write and read a
+``torch.distributed.checkpoint`` directory instead (the counterpart of the
+JAX package's Orbax checkpoints): each rank writes its own shards, and the
+directory loads at any mesh, or on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
+from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 from torch import nn
@@ -158,6 +162,64 @@ class TrainState:
         return {"step": self.step, "opt_count": self.opt_count,
                 "params": params, "ema": ema,
                 "optimizer": self._by_index(optim)}
+
+    def inference_tensors(self, use_ema: bool = False
+                          ) -> Iterator[Tuple[str, torch.Tensor]]:
+        """(name, tensor) of every parameter, or of its EMA, whole, then of
+        the model's persistent buffers: what the model's state dict holds.
+        Sharded, a collective (each tensor is all-gathered as it comes):
+        every rank iterates in step and receives the whole tensors. Nothing
+        of the state changes."""
+        params = self.params
+        src = self.ema if use_ema else {n: p.detach()
+                                        for n, p in params.items()}
+        for name, t in src.items():
+            yield name, t.full_tensor() if _is_sharded(t) else t
+        for name, t in self.model.state_dict().items():
+            if name not in params:
+                yield name, t
+
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The inference weights: the EMA of every parameter and the
+        persistent buffers, keyed like ``model.state_dict()``. Sharded, a
+        collective: rank 0 receives the whole tensors on the CPU, the
+        others an empty dict."""
+        if not self.sharded:
+            return dict(self.inference_tensors(use_ema=True))
+        out = {n: t.cpu() for n, t in self.inference_tensors(use_ema=True)}
+        return out if torch.distributed.get_rank() == 0 else {}
+
+    def _dcp_state(self) -> dict:
+        """The state as ``torch.distributed.checkpoint`` saves and loads it:
+        the model's and the optimizer's state dicts keyed by parameter name
+        (DTensor shards where sharded), the EMA, and (step, opt_count)."""
+        from torch.distributed.checkpoint.state_dict import get_state_dict
+        model, optim = get_state_dict(self.model, self.optimizer)
+        return {"model": model, "optim": optim, "ema": dict(self.ema),
+                "counts": torch.tensor([self.step, self.opt_count])}
+
+    def save_sharded(self, path: str) -> None:
+        """Write the state to the directory ``path`` with
+        ``torch.distributed.checkpoint``: each rank its own shards, nothing
+        gathered. Sharded, a collective."""
+        import torch.distributed.checkpoint as dcp
+        dcp.save(self._dcp_state(), checkpoint_id=path)
+
+    def load_sharded(self, path: str) -> None:
+        """Restore a :meth:`save_sharded` directory, written at any mesh,
+        into this state, sharded or on one device. Sharded, a
+        collective."""
+        import torch.distributed.checkpoint as dcp
+        from torch.distributed.checkpoint.state_dict import set_state_dict
+        state = self._dcp_state()
+        dcp.load(state, checkpoint_id=path)
+        set_state_dict(self.model, self.optimizer,
+                       model_state_dict=state["model"],
+                       optim_state_dict=state["optim"])
+        for name, t in state["ema"].items():
+            if t is not self.ema[name]:
+                self.ema[name].copy_(t)
+        self.step, self.opt_count = (int(c) for c in state["counts"])
 
     def _param_order(self) -> List[str]:
         """Parameter names in the optimizer's order, the numbering of

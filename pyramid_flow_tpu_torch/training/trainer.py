@@ -9,7 +9,8 @@ The counterpart of the JAX package's ``training/trainer.py``:
   rows hold 16x fewer tokens than stage 2 rows), with the DiT's
   ``stage_inputs`` (the MMDiT's crop origin of its sincos table);
 * loss = mean over rows of the per-row MSE of the trainable tail;
-* ``accum_steps`` micro-batches with averaged gradients;
+* ``accum_steps`` micro-batches with averaged losses and gradients, each
+  with its own noise draw;
 * clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`;
 * raw-pixel batches (``"video"``): the frozen VAE encodes them, its
   posterior is sampled from the step's own draw, and the latents are
@@ -25,6 +26,12 @@ forwards (FSDP2's collectives pair up). Each rank's loss is the mean over
 its rows of the per-row MSE; FSDP2 averages the gradients over every rank,
 which makes them the gradient of the global mean (an sp rank's gradient is
 ``sp`` times its tokens' share, through the gather at the DiT's exit).
+
+Accumulation splits the global batch as JAX's step does: micro-batch ``i``
+is global rows ``[i B / a, (i + 1) B / a)``, after the CFG drop drawn on the
+whole batch, with the ``i``-th split of the noise draw. A rank takes its
+rows of each micro-batch, which may be none: it then runs the micro-batch's
+stage forwards on zero-weighted rows, so the collectives still pair up.
 """
 
 from __future__ import annotations
@@ -96,7 +103,8 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
     the global batch and every draw is the global batch's, so each row is
     noised as in the global program; the loss is the mean over this rank's
     rows. A stage without a row of this rank runs its first row with weight
-    0."""
+    0, against the first row of the text features (so ``B`` may be 0: the
+    loss is then 0, on the graph of those forwards)."""
     num_stages = scheduler.stages
     b_local = latents.shape[0]
     first, total = rows if rows is not None else (0, b_local)
@@ -142,7 +150,7 @@ def dit_loss_fn(dit, draws, latents: torch.Tensor, text_emb: torch.Tensor,
         err = (pred.float() - patchify(targets).float()) ** 2
         losses.append(err.reshape(b, -1).mean(dim=1) * weight)
 
-    loss = torch.cat(losses).sum() / b_local
+    loss = torch.cat(losses).sum() / max(b_local, 1)
     return loss, {"train/loss": loss}
 
 
@@ -185,22 +193,20 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
     is wrapped in :class:`GeneratorDraws`); each step folds in its
     ``state.step``. ``compute_dtype=torch.bfloat16`` runs the loss under
     autocast with the parameters kept fp32. ``accum_steps > 1`` splits the
-    batch into that many micro-batches and averages their gradients; the
-    batch size must divide by ``accum_steps * sum(sample_ratios)``.
+    global batch into that many micro-batches and averages their losses and
+    gradients; the global batch size must divide by
+    ``accum_steps * sum(sample_ratios)``.
     Metrics: ``train/loss`` and the pre-clip ``train/grad_norm`` as floats,
     and ``train/applied`` (whether the anomaly gate let the update through).
 
     ``mesh``: the (dp, fsdp, sp) mesh the DiT was built on and sharded over
     (``parallel.mesh.param_sharding``); ``batch`` is then this rank's slice
     of the global batch (the same rows on the ranks of one sp group), and
-    the metrics are the global batch's on every rank. ``accum_steps`` must
-    be 1 on a mesh.
+    the metrics are the global batch's on every rank.
     """
 
     model_name = dit_model_name(dit, model_name)
     data_index, data_ranks = data_rank(mesh)
-    if mesh is not None and accum_steps != 1:
-        raise ValueError("accum_steps > 1 is not supported on a mesh")
 
     def autocast(device):
         if compute_dtype is None:
@@ -245,29 +251,31 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
         params = list(dit.parameters())
         for p in params:
             p.grad = None
-        if accum_steps == 1:
-            loss = loss_fn(draws_noise, latents, text_emb, text_mask, pooled,
-                           num_units_per_stage, rows)
-            loss.backward()
-            loss = loss.detach()
-            if mesh is not None:  # the global mean on every rank
-                dist.all_reduce(loss)
-                loss = loss / mesh.size()
-        else:
-            mb = b // accum_steps
-            loss = torch.zeros((), device=latents.device)
-            for i, draws_mb in enumerate(draws_noise.split(accum_steps)):
-                rows = slice(i * mb, (i + 1) * mb)
-                mb_loss = loss_fn(draws_mb, latents[rows], text_emb[rows],
-                                  text_mask[rows], pooled[rows],
-                                  num_units_per_stage)
-                mb_loss.backward()  # sums into .grad
-                loss = loss + mb_loss.detach()
-            loss = loss / accum_steps
+        first, total = rows
+        micro = total // accum_steps
+        loss = torch.zeros((), device=latents.device)
+        splits = (draws_noise.split(accum_steps) if accum_steps > 1
+                  else [draws_noise])
+        for i, draws_mb in enumerate(splits):
+            # this rank's rows of global micro-batch i, [i m, (i + 1) m)
+            lo = max(first, i * micro)
+            hi = max(min(first + b, (i + 1) * micro), lo)
+            sel = slice(lo - first, hi - first)
+            text = [t[sel] if hi > lo else t[:1]
+                    for t in (text_emb, text_mask, pooled)]
+            mb_loss = loss_fn(draws_mb, latents[sel], *text,
+                              num_units_per_stage,
+                              (lo - i * micro if hi > lo else 0, micro))
+            # the micro-batch's share of this rank's mean: the average over
+            # micro-batches, and the global one once FSDP2 averages ranks
+            mb_loss = mb_loss * ((hi - lo) / b)
+            mb_loss.backward()  # sums into .grad
+            loss = loss + mb_loss.detach()
+        if mesh is not None:  # the global mean on every rank
+            dist.all_reduce(loss)
+            loss = loss / mesh.size()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        if accum_steps > 1:
-            torch._foreach_div_(grads, accum_steps)
         gnorm = global_norm(grads).item()
         loss = loss.item()
         applied = state.apply_gradients(grads, loss)

@@ -14,6 +14,11 @@ The port's modules are keyed like these files, so every component is a
 state dict that its module takes with ``load_state_dict(strict=True)``;
 :func:`build_dit` and :func:`build_vae` build the DiT and the VAE from
 theirs, ``models.text.encoder.build_text_encoder`` the text encoders.
+
+A training run's inference weights (the EMA of the DiT's parameters and its
+persistent buffers) go to ``<output_dir>/checkpoint-<step>-ema.pt``
+(:func:`export_ema_params`), which :func:`load_ema_params` reads back, the
+counterparts of the JAX package's Orbax EMA export.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 from typing import Dict, Sequence
 
 import torch
@@ -29,7 +35,8 @@ from .converters import load_state_dict
 
 __all__ = ["load_pretrained_components", "load_text_components",
            "load_model_config", "require_components", "build_dit",
-           "build_vae", "IGNORED_KEYS"]
+           "build_vae", "export_ema_params", "load_ema_params",
+           "IGNORED_KEYS"]
 
 # keys the released files may carry that no module of the port holds, and
 # that the JAX package's converters ignore too: the position-id buffer that
@@ -167,3 +174,31 @@ def build_vae(model_path: str, state_dict: Dict[str, torch.Tensor], *,
         dtype=dtype, device=device)
     vae.load_state_dict(state_dict, strict=True)
     return vae
+
+
+def export_ema_params(output_dir: str, step: int,
+                      ema_params: Dict[str, torch.Tensor]) -> str:
+    """Write ``<output_dir>/checkpoint-<step>-ema.pt``: ``ema_params``, the
+    EMA weights keyed like the DiT's state dict (``TrainState.
+    ema_state_dict``), loadable without the optimizer's structure. Returns
+    the path."""
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(output_dir),
+                        f"checkpoint-{step}-ema.pt")
+    torch.save(ema_params, path)
+    return path
+
+
+def load_ema_params(path_or_dir: str) -> Dict[str, torch.Tensor]:
+    """An EMA export's state dict, on the CPU. ``path_or_dir`` is a
+    ``checkpoint-<step>-ema.pt`` file, or a training output directory, of
+    which the newest step's export is read; ``FileNotFoundError`` when it
+    holds none."""
+    path = os.path.abspath(path_or_dir)
+    if os.path.isdir(path):
+        steps = [int(m.group(1)) for name in os.listdir(path)
+                 if (m := re.fullmatch(r"checkpoint-(\d+)-ema\.pt", name))]
+        if not steps:
+            raise FileNotFoundError(f"no checkpoint-*-ema.pt under {path}")
+        path = os.path.join(path, f"checkpoint-{max(steps)}-ema.pt")
+    return torch.load(path, map_location="cpu", weights_only=True)

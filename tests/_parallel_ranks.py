@@ -88,9 +88,9 @@ def dit_forward(rank, world, kind, config, state_dict, inputs, weight,
 
 
 def train_steps(rank, world, kind, config, state_dict, batch, units,
-                mesh_shape, min_shard_dim, key, steps, lr):
-    """``steps`` DiT train steps on a (dp, fsdp, sp) mesh with FSDP2, each
-    rank on its slice of ``batch``. ``key``: a table of recorded draws
+                mesh_shape, min_shard_dim, key, steps, lr, accum_steps=1):
+    """``steps`` DiT train steps (of ``accum_steps`` micro-batches) on a
+    (dp, fsdp, sp) mesh with FSDP2, each rank on its slice of ``batch``. ``key``: a table of recorded draws
     (:class:`ReplayDraws`), or an int seed for a torch generator. Returns per step (loss, grad_norm) and, on rank 0, the
     parameters and EMA after the steps, the sharding stats and a
     checkpoint round trip's parameters."""
@@ -110,7 +110,7 @@ def train_steps(rank, world, kind, config, state_dict, batch, units,
     state = create_train_state(dit, TrainConfig(learning_rate=lr,
                                                 ema_decay=0.9))
     step = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
-                           mesh=mesh)
+                           accum_steps=accum_steps, mesh=mesh)
     index, count = data_rank(mesh)
     b = next(iter(batch.values())).shape[0] // count
     local = {k: torch.from_numpy(np.ascontiguousarray(
@@ -227,3 +227,80 @@ def sharding_placements(rank, world, kind, config, state_dict, mesh_shape,
         shard = [pl for pl in p.placements if isinstance(pl, Shard)]
         dims[name] = shard[0].dim if shard and mesh_shape[1] > 1 else None
     return dims, stats
+
+
+def serve_sp(rank, world, req):
+    """One request of the serving app's ``--debug_tiny`` pipeline with the
+    DiT sequence-parallel over every rank: rank 0 takes it through
+    ``ServingApp.handle`` (the HTTP server's call, which broadcasts it) and
+    returns its (body, content type); the other ranks follow."""
+    from pyramid_flow_tpu_torch.tools.serve import (ServingApp,
+                                                    build_debug_tiny)
+
+    mesh = make_mesh(MeshConfig(sp=world), "cpu")
+    pipe, te = build_debug_tiny(mesh)
+    app = ServingApp(pipe=pipe, text_encoder=te, mesh=mesh)
+    if rank:
+        app.follow()
+        return None
+    out = app.handle(req)
+    app.release_followers()
+    return out
+
+
+def _gathered(state):
+    """``state.state_dict()`` (rank 0: the whole state) as numpy."""
+    full = state.state_dict()
+    return {"step": full["step"], "opt_count": full["opt_count"],
+            "params": {n: _np(t) for n, t in full["params"].items()},
+            "ema": {n: _np(t) for n, t in full["ema"].items()},
+            "optimizer": {i: {k: _np(v) for k, v in s.items()}
+                          for i, s in full["optimizer"].get(
+                              "state", {}).items()}}
+
+
+def dcp_save_resume(rank, world, kind, config, state_dict, batch, units,
+                    save_shape, load_shape, path):
+    """One train step on a ``save_shape`` mesh, the state saved with
+    ``save_sharded`` to ``path``, then a fresh model and state on a
+    ``load_shape`` mesh restored with ``load_sharded``. Returns, on rank 0,
+    the gathered state after the step and after the restore, and on every
+    rank the state dict of ``from_train_state(use_ema=True)``'s DiT."""
+    from pyramid_flow_tpu_torch.parallel.mesh import param_sharding
+    from pyramid_flow_tpu_torch.pipeline.noising import GeneratorDraws
+    from pyramid_flow_tpu_torch.schedulers.flow_matching import (
+        PyramidFlowMatchEulerDiscreteScheduler)
+    from pyramid_flow_tpu_torch.training.train_state import (
+        TrainConfig, create_train_state)
+    from pyramid_flow_tpu_torch.training.trainer import make_train_step
+
+    def sharded_state(shape):
+        mesh = make_mesh(MeshConfig(*shape), "cpu")
+        dit = _tiny_dit(kind, config, state_dict, mesh)
+        param_sharding(dit, mesh, min_shard_dim=16, verbose=False)
+        return mesh, create_train_state(dit, TrainConfig(learning_rate=1e-3,
+                                                         ema_decay=0.9))
+
+    mesh, state = sharded_state(save_shape)
+    from pyramid_flow_tpu_torch.parallel.mesh import data_rank
+    index, count = data_rank(mesh)
+    b = next(iter(batch.values())).shape[0] // count
+    local = {k: torch.from_numpy(np.ascontiguousarray(
+        v[index * b:(index + 1) * b])) for k, v in batch.items()}
+    step = make_train_step(state.model,
+                           PyramidFlowMatchEulerDiscreteScheduler(),
+                           mesh=mesh)
+    step(state, local, GeneratorDraws(torch.Generator().manual_seed(0)),
+         units)
+    saved = _gathered(state)
+    # the EMA's inference DiT, gathered on every rank
+    from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
+        PyramidFlowPipeline)
+    pipe = PyramidFlowPipeline.from_train_state(
+        state.model, state, use_ema=True, dtype=torch.float32, device="cpu")
+    ema_dit = {n: _np(t) for n, t in pipe.dit.state_dict().items()}
+    state.save_sharded(path)
+    _, resumed = sharded_state(load_shape)
+    resumed.load_sharded(path)
+    again = _gathered(resumed)
+    return (saved, again, ema_dit) if rank == 0 else ema_dit

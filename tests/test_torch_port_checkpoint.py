@@ -359,7 +359,10 @@ def test_runner_generate_matches_jax(runners):
 
 # ----------------------------------------------------------------- tools
 @pytest.mark.parametrize("i2v", [False, True])
-def test_inference_cli_writes_png_frames(release_dir, tmp_path, i2v):
+def test_inference_cli_writes_png_frames(release_dir, tmp_path, i2v, capfd):
+    """PNG frames, then ``video.mp4`` at ``--fps``; where imageio has no
+    ffmpeg plugin (as on the CPU test machines) the CLI keeps the PNG
+    frames and reports the fallback on stderr, as JAX's CLI does."""
     from PIL import Image
 
     model_name, root, _ = release_dir
@@ -368,16 +371,43 @@ def test_inference_cli_writes_png_frames(release_dir, tmp_path, i2v):
             model_name, "--prompt", PROMPT, "--temp", "2", "--height", "64",
             "--width", "64", "--num_inference_steps", "1",
             "--video_num_inference_steps", "1", "--output", str(out),
-            "--device", "cpu"]
+            "--device", "cpu", "--fps", "12"]
+    assert inference.parse_args(argv).fps == 12
+    assert inference.parse_args(argv[:-2]).fps == 24
     if i2v:
         img = np.random.default_rng(0).integers(0, 256, (80, 96, 3))
         Image.fromarray(img.astype(np.uint8)).save(tmp_path / "in.png")
         argv += ["--input_image", str(tmp_path / "in.png")]
     assert inference.main(argv) == 0
     names = sorted(os.listdir(out))
-    assert names == [f"frame_{i:04d}.png" for i in range(9)]
-    frame = np.asarray(Image.open(out / names[-1]))
+    pngs = [f"frame_{i:04d}.png" for i in range(9)]
+    err = capfd.readouterr().err
+    if "video.mp4" in names:
+        assert names == pngs + ["video.mp4"]
+        assert f"wrote {out}/video.mp4" in err
+    else:
+        assert names == pngs
+        assert "mp4 export unavailable" in err
+    frame = np.asarray(Image.open(out / pngs[-1]))
     assert frame.shape == (64, 64, 3) and frame.dtype == np.uint8
+
+
+def test_this_machine_takes_the_mp4_fallback(tmp_path, capfd):
+    """The writer on this machine's imageio, which has no ffmpeg plugin:
+    the PNG frames and the reported fallback, and the npz stack in memory
+    (test_torch_port_serve.py decodes it)."""
+    from pyramid_flow_tpu_torch.utils import video_io
+
+    frames = np.random.default_rng(1).integers(0, 256, (3, 16, 24, 3),
+                                               dtype=np.uint8)
+    assert video_io.save_frames(frames, str(tmp_path), fps=8) is None
+    assert sorted(os.listdir(tmp_path)) == [f"frame_{i:04d}.png"
+                                            for i in range(3)]
+    assert "mp4 export unavailable" in capfd.readouterr().err
+    body, ctype = video_io.video_bytes(frames, fps=8)
+    assert ctype == video_io.NPZ
+    np.testing.assert_array_equal(video_io.frames_from_bytes(body, ctype),
+                                  frames)
 
 
 def test_inference_cli_refuses_sequence_parallelism(tmp_path):

@@ -13,6 +13,12 @@ JAX's ``test_sharded_train_step`` takes dp=2 x fsdp=2 x sp=2 (8 devices);
 with at most 4 ranks here each shape keeps two of the axes: (1, 2, 2) and
 (2, 2, 1), and (2, 1, 2) for dp beside sp.
 
+One more configuration accumulates: ``accum_steps=2`` on a (1, 2, 1) mesh
+with a global batch of 8 (JAX needs it to divide by accum x sum(ratios)),
+so each rank holds all of one micro-batch and none of the other, and runs
+the other's stage forwards on zero-weighted rows; held to JAX's
+``make_train_step(accum_steps=2)``.
+
 Compared: loss and pre-clip grad norm of each step (the global batch's on
 every rank), and the parameters and EMA after both steps (gathered to rank
 0); a checkpoint's round trip (gathered, loaded back into the shards,
@@ -77,13 +83,14 @@ class RecordingDraws:
                               self.path + (("fold", int(data)),))
 
 
-def record_draws(make_port, batch, key, steps=2):
+def record_draws(make_port, batch, key, steps=2, accum_steps=1):
     """The draws of ``steps`` one-device port steps on ``batch``: every
     rank's, which draw the global batch's."""
     table = {}
     dit = make_port()
     state = create_train_state(dit, TrainConfig(learning_rate=LR))
-    step = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler())
+    step = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
+                           accum_steps=accum_steps)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     draws = RecordingDraws(JaxDraws(key), table)
     for _ in range(steps):
@@ -91,12 +98,13 @@ def record_draws(make_port, batch, key, steps=2):
     return table
 
 
-def jax_steps(dit_j, params, batch, key, steps=2, min_shard_dim=None):
+def jax_steps(dit_j, params, batch, key, steps=2, accum_steps=1):
     """JAX's two steps on the global batch: per step (loss, grad norm),
     and the parameters, second moments and EMA after them."""
     state = jts.create_train_state(params, jts.TrainConfig(
         learning_rate=LR, ema_decay=0.9))
-    step = jtrainer.make_train_step(dit_j, JScheduler(), donate=False)
+    step = jtrainer.make_train_step(dit_j, JScheduler(), donate=False,
+                                    accum_steps=accum_steps)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     metrics = []
     for _ in range(steps):
@@ -144,4 +152,20 @@ def test_sharded_train_step_matches_jax(tmp_path, case, mesh_shape):
                     draws, 2, LR)
     assert out[0]["stats"]["sharded_fraction"] == (
         1.0 if mesh_shape[1] > 1 else 0.0)
+    check_against_jax(out, ref)
+
+
+def test_accumulated_sharded_step_matches_jax(tmp_path):
+    """``accum_steps=2`` on a (1, 2, 1) mesh, global batch 8: rank 0 holds
+    micro-batch 0 whole and none of micro-batch 1, rank 1 the reverse."""
+    dit_j, params, make_port = tiny_dits()
+    batch = tiny_batch(b=8)
+    key = jax.random.PRNGKey(10)
+    sd = {k: v.numpy() for k, v in make_port().state_dict().items()}
+    draws = record_draws(make_port, batch, key, accum_steps=2)
+    assert any(("split", 2, 1) in path for path, _, _ in draws)
+    ref = jax_steps(dit_j, params, batch, key, accum_steps=2)
+    out = run_ranks(ranks.train_steps, 2, tmp_path, "flux",
+                    FluxConfig(**DIT), sd, batch, UNITS, (1, 2, 1), 16,
+                    draws, 2, LR, 2)
     check_against_jax(out, ref)
