@@ -2,10 +2,11 @@
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
 for both DiT families, the string-prompt path from a release-layout
 checkpoint, the HTTP serving app, the latent-extraction tool, the EMA
-evaluation path, GAN-VAE training, the heads-per-block attention experiment
-and the sequence-, fully-sharded- and context-parallel paths (two ranks
-sharing the card), with accumulation and sharded checkpoints, once on one
-CUDA card.
+evaluation path, GAN-VAE training, the heads-per-block attention experiment,
+the sequence-, fully-sharded- and context-parallel paths (two ranks
+sharing the card), with accumulation and sharded checkpoints, and the 768p
+request on the memory-planned decode with the 768p tools, once on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -186,7 +187,7 @@ Phases, each of which raises on failure (the script then exits non-zero):
    2e-2) and, on rank 0, both anchored to fp32 (the SP forward within 1.1x
    of the sp=1 forward's distance; the bf16 plain route's printed), and
    the frames to the sp=1 request's (printed); train steps of a
-   6 + 12-block full-width DiT (fp32, bf16 autocast, remat, the CLI's
+   2 + 4-block full-width DiT (fp32, bf16 autocast, remat, the CLI's
    default shape) on an fsdp=2 and an sp=2 mesh, loss and gradient norm
    held to the parent's one-device steps (1e-2 and 2e-2 relative); a cp=2
    GAN-VAE step of the release VAE on 32 frames of 128x128, K5 launched
@@ -200,7 +201,32 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``torch.distributed.checkpoint`` and resumed on an sp=2 mesh, equal to
    the saved state gathered, exactly (bytes and seconds printed); then one
    full-depth step of the training CLI on one NCCL rank. Every rank's
-   launches join the kernels line, beside the card's name and power limit.
+   launches join the kernels line, beside the card's name and power limit;
+14. 768p, with the earlier models freed: the release miniFLUX and VAE
+   (``profile_768p.build_models``, seeded) serve one T2V request at
+   768x1280 (temp 2, the steps and guidance of phase 8, the DiT released
+   before the decode) on ``decode_settings(True, 16.0,
+   dit_resident=False)``, the 16 GB class's plan (full-height window-2
+   strips, 4 of 46 latent pixels): exactly 57 x 90 K1 and 34 x 2 x 4 K5
+   launches, the decode's peak memory against 16 GB (printed), then the
+   request's latents decoded in those strips through the conv kernel, the
+   plain version and fp32 (the kernel route within 1.1x of the plain
+   route's distance to fp32) and untiled (the strips' distance to it,
+   printed); ``profile_768p`` at its defaults without the sweep (each
+   stage's forward, K1 alone and its share, the 17-frame decode through
+   ``decode_latent(save_memory=True)``; exact launches) and K1 against the
+   plain version at its stage-2 layout (phase 3's tolerances on phase 3's
+   inputs, ``exp_flash_h2``'s on the tool's q = k = v);
+   ``exp_vae_tiling`` with ``--iters 1`` (its ten plans, exact launches,
+   none out of memory); ``exp_decode_scan`` (the CUDA-graph windows
+   captured and equal to ``chunk_decode``'s bit for bit; exact launches,
+   each replay counting the conv launches it runs and the capture none);
+   ``exp_conv_stack`` (exact launches); every K5 shape
+   these paths launched (and the conv-stack shapes), with zero and with
+   carried front frames, against the plain version (phase 12's limit, not
+   timed); the guidance-embedded miniFLUX's forward as phase 6 checks the
+   DiT (``guidance`` 4.5); a release-width VAE of 2D twin blocks, one
+   encode and decode of a 9-frame 256x256 clip (finite, no kernel launch).
 
 Each path (the experiment, the VAE decode gradient, text-to-video,
 image-to-video, the string prompt from the checkpoint, the HTTP T2V and
@@ -209,7 +235,7 @@ raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
 latent training, the GAN-VAE generator gradient, GAN-VAE training, and
 phase 13's SP attention, SP serving, sharded training per mesh, the CP
 GAN-VAE step, the accumulated sharded step and the training CLI, on every
-rank) runs
+rank; phase 14's 768p request and its four tools) runs
 with every launch counter set to 0 just before it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
@@ -277,7 +303,7 @@ from pyramid_flow_tpu_torch.pipeline.noising import (
     GeneratorDraws, add_ar_noise_stage, latent_pyramid, sample_stage_length)
 from pyramid_flow_tpu_torch.pipeline.packing import pack_clips, patchify
 from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
-    PyramidFlowPipeline)
+    PyramidFlowPipeline, decode_settings, device_memory_gb)
 from pyramid_flow_tpu_torch.pipeline.runner import (
     DEFAULT_NEGATIVE_PROMPT, PROMPT_SUFFIX, PyramidFlowRunner)
 from pyramid_flow_tpu_torch.schedulers.flow_matching import (
@@ -286,6 +312,8 @@ from pyramid_flow_tpu_torch.training.lr_schedules import cosine_schedule
 from pyramid_flow_tpu_torch.training.train_state import (
     TrainConfig, create_train_state)
 from pyramid_flow_tpu_torch.tools import exp_flash_h2
+from pyramid_flow_tpu_torch.tools import (
+    exp_conv_stack, exp_decode_scan, exp_vae_tiling, profile_768p)
 from pyramid_flow_tpu_torch.tools import extract_video_vae_latents
 from pyramid_flow_tpu_torch.tools import serve as serve_app
 from pyramid_flow_tpu_torch.utils.checkpoint import (
@@ -362,11 +390,11 @@ PEAK_BF16_FLOPS, PEAK_BYTES_PER_S = 989e12, 3.35e12
 PAR_DIR = os.path.join("build", "smoke_parallel")
 PAR_WORLD = 2
 SP_SERVE_STEPS, SP_SERVE_TEMP = [2, 2, 2], 1
-PAR_TRAIN_DEPTH, PAR_TRAIN_STEPS = (6, 12), 2
+# (2 + 4 blocks since the 768p phase was added: FSDP2's gathers over gloo
+# take most of a sharded step, and the whole run keeps to about 650 s)
+PAR_TRAIN_DEPTH, PAR_TRAIN_STEPS = (2, 4), 2
 # the accumulated sharded step (accum_steps=2 over a global batch of 8, on
 # the fsdp mesh) and the DCP save and resume: a 2 + 4-block full-width DiT
-# (cut further than the sharded steps': FSDP2's gathers over gloo take
-# most of a step, and two micro-batches double them)
 PAR_ACCUM_DEPTH, PAR_ACCUM_BATCH, PAR_ACCUM_STEPS = (2, 4), 8, 2
 PAR_LOSS_REL, PAR_GNORM_REL = 1e-2, 2e-2
 # fp32 cp=2 against fp32 cp=1: 2.2e-3 measured on an H100: cuDNN's
@@ -1172,14 +1200,14 @@ def plain_attention_route(q, k, v, time_ids, *, causal, sm_scale, bounded):
 
 
 @torch.no_grad()
-def fp32_forward(dit, inputs):
+def fp32_forward(dit, inputs, **forward_kw):
     """The same DiT and inputs in fp32 on the plain route, sp=1: a float
     copy built for the call and freed before it returns."""
     dit32 = type(dit)(dit.config, dtype=torch.float32, device=inputs[0].device)
     dit32.load_state_dict(dit.state_dict())
     inputs32 = [t.float() if t.dtype == torch.bfloat16 else t for t in inputs]
     with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
-        out = dit32(*inputs32)
+        out = dit32(*inputs32, **forward_kw)
     torch.cuda.synchronize()
     del dit32
     gc.collect()
@@ -1188,32 +1216,33 @@ def fp32_forward(dit, inputs):
 
 
 @torch.no_grad()
-def dit_check(dit, meta_pipe, dev, gen):
+def dit_check(dit, meta_pipe, dev, gen, **forward_kw):
     """One bf16 forward through the kernel and through the plain version,
     held to each other (relative L2 ``DIT_REL_L2``) and anchored to fp32:
     the same DiT and inputs in fp32 on the plain route (a copy built after
     the bf16 forwards and freed before this returns). Two bf16 routes drift
     apart with random weights about as far as each drifts from fp32, so the
     kernel route must also be within 1.1x of the plain route's distance to
-    fp32, as the encode check holds the conv kernel."""
+    fp32, as the encode check holds the conv kernel. ``forward_kw`` go to
+    every forward (the guidance DiT's ``guidance``)."""
     inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
                                   next(dit.parameters()).dtype)
     before = fa.flash_fwd_cuda.launches
-    out_k = dit(*inputs)
+    out_k = dit(*inputs, **forward_kw)
     torch.cuda.synchronize()
     launched = fa.flash_fwd_cuda.launches - before
     if launched != dit.num_attention_calls:
         raise AssertionError(f"{launched} kernel launches in one forward, "
                              f"expected {dit.num_attention_calls}")
     with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
-        out_p = dit(*inputs)
+        out_p = dit(*inputs, **forward_kw)
     torch.cuda.synchronize()
     valid = lat_time != fa.INVALID_TIME
     a, b = out_k[:, valid].float(), out_p[:, valid].float()
     if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
         raise AssertionError("non-finite DiT output")
     rel = rel_l2(a, b)
-    out_32 = fp32_forward(dit, inputs)[:, valid]
+    out_32 = fp32_forward(dit, inputs, **forward_kw)[:, valid]
     if not torch.isfinite(out_32).all():
         raise AssertionError("non-finite fp32 DiT output")
     r = dict(dit=type(dit).__name__, L=inputs[2].shape[1] + TEXT_LEN,
@@ -1519,9 +1548,9 @@ def serve(pipe, dev, gen, name, temp):
     seen = []
     decode = pipe.decode_latent
 
-    def spy(latents, plan):
+    def spy(latents, **kw):
         seen.append(latents)
-        return decode(latents, plan)
+        return decode(latents, **kw)
 
     forwards = sum(STEPS) + (temp - 1) * sum(VIDEO_STEPS)
     before = launch_counts()
@@ -1593,9 +1622,9 @@ def serve_i2v(pipe, dev, gen):
     seen, encode_s = [], []
     decode, encode = pipe.decode_latent, vae_model.chunk_encode
 
-    def spy(latents, plan):
+    def spy(latents, **kw):
         seen.append(latents)
-        return decode(latents, plan)
+        return decode(latents, **kw)
 
     def timed_encode(*args, **kw):
         torch.cuda.synchronize()
@@ -2120,9 +2149,9 @@ def checkpoint_path(pipe, dev, paths):
         seen = []
         decode = runner.pipeline.decode_latent
 
-        def spy(latents, plan):
+        def spy(latents, **kw):
             seen.append(latents)
-            return decode(latents, plan)
+            return decode(latents, **kw)
 
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -2485,9 +2514,9 @@ def mmdit_text_request(pipe, dev, paths):
     seen = []
     decode = pipe.decode_latent
 
-    def spy(latents, plan):
+    def spy(latents, **kw):
         seen.append(latents)
-        return decode(latents, plan)
+        return decode(latents, **kw)
 
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3296,6 +3325,397 @@ def parallel_phases(dev, paths: dict, conv_shapes: set) -> dict:
             "cli": cli[0]}
 
 
+# ---------------------------------------------------------- the 768p phase
+# Phase 14: the release models at 768x1280 (depth not cut), the 16 GB
+# class's strip decode, and the 768p tools in this process.
+P768 = (768, 1280)
+P768_TEMP = 2
+P768_SEED = SEED + 9
+# the plan of a 16 GB card with the DiT released: full-height window-2
+# strips as wide as the 9216 budget allows (4 strips of 46 latent pixels)
+P768_PLAN = decode_settings(True, 16.0, dit_resident=False)
+P768_CLASS_GB = 16.0
+TILING_ITERS = 1         # exp_vae_tiling --iters 1
+DECODE_SCAN_ITERS = 3    # exp_decode_scan's default
+CONV_STACK_ITERS = 6     # exp_conv_stack's default
+# the largest input the fp32 plain conv takes in one call in the 768p
+# phase's shape checks (elements of the widest side, front frames included)
+PLAIN_CONV_ELEMENTS = 2 ** 28
+# the tiling experiment's plans: (tiles, window) at the 96 x 160 latent
+TILING_TILES = {"current_384px_ov8": (12, 2), "planned_48x48": (12, 2),
+                "strip_h96_w46": (4, 2), "strip_h96_w58": (3, 2),
+                "strip_h96_w83": (2, 2), "untiled_w2": (1, 2),
+                "untiled_w1": (1, 1), "strip_w83_w1": (2, 1),
+                "strip_w58_w1": (3, 1), "strip_w46_w2": (4, 2)}
+
+
+def decode_launches(vae, frames: int, window: int, tiles: int = 1) -> int:
+    """K5 launches of a windowed decode of ``frames`` latent frames in
+    ``tiles`` tiles: one per admitted decoder conv, window and tile."""
+    return (kernel_conv_count(vae.decoder) * tiles
+            * len(vae_model._window_starts(frames, window, 1)))
+
+
+@torch.no_grad()
+def request_768p(dit, vae, dev, gen) -> dict:
+    """One T2V request at 768x1280, temp 2, steps [20,20,20]/[10,10,10],
+    guidance 7/5, the DiT released before a decode on ``P768_PLAN``: exact
+    launches, its decode's peak memory against the 16 GB class; then the
+    request's latents decoded in the plan's strips through the conv kernel,
+    the plain version and fp32 (each bf16 route's distance to fp32; the
+    kernel route within 1.1x of the plain route's), and untiled (the strips'
+    relative L2 to it, reported)."""
+    height, width = P768
+    pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16, device=dev)
+    cfg = dit.config
+    emb = torch.randn((1, TEXT_LEN, cfg.joint_attention_dim), generator=gen,
+                      device=dev).bfloat16()
+    mask = (text_time(dev) == 0)[None]
+    pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen,
+                         device=dev).bfloat16()
+    seen, mem = [], {}
+    decode = pipe.decode_latent
+
+    def spy(latents, **kw):
+        seen.append(latents)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        mem["base"] = torch.cuda.memory_allocated(dev)
+        out = decode(latents, **kw)
+        torch.cuda.synchronize()
+        mem["peak"] = torch.cuda.max_memory_allocated(dev)
+        return out
+
+    forwards = sum(STEPS) + (P768_TEMP - 1) * sum(VIDEO_STEPS)
+    reset_launch_counts()
+    with mock.patch.object(pipe, "decode_latent", spy):
+        t0 = time.perf_counter()
+        frames = pipe.generate(
+            torch.Generator(dev).manual_seed(P768_SEED), emb, mask, pooled,
+            emb * 0, mask, pooled * 0, height=height, width=width,
+            temp=P768_TEMP, num_inference_steps=STEPS,
+            video_num_inference_steps=VIDEO_STEPS, guidance_scale=7.0,
+            video_guidance_scale=5.0, output_type="pixels",
+            release_dit_before_decode=True, decode_plan=P768_PLAN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = launch_counts()
+    hl, wl = height // 8, width // 8
+    strip_w = P768_PLAN.px_window_budget // (2 * hl)
+    tile_w, wpos = vae_model.plan_axis(wl, strip_w)
+    want = expected(dit.num_attention_calls * forwards,
+                    conv=decode_launches(vae, P768_TEMP, 2, len(wpos)))
+    expect = (1, 1 + 8 * (P768_TEMP - 1), height, width, 3)
+    if tuple(frames.shape) != expect or frames.dtype != torch.uint8:
+        raise AssertionError(f"768p frames {tuple(frames.shape)}")
+    if not torch.isfinite(seen[0]).all() or frames.min() == frames.max():
+        raise AssertionError("768p request: non-finite latents or constant "
+                             "frames")
+    if launched != want:
+        raise AssertionError(f"768p launches {launched}, expected {want}")
+    vae_gb = sum(p.numel() * p.element_size()
+                 for p in vae.parameters()) / 1e9
+    decode_gb = (mem["peak"] - mem["base"]) / 1e9
+    r = dict(request="768p", temp=P768_TEMP, plan=repr(P768_PLAN),
+             strips=len(wpos), strip_latent_width=tile_w,
+             dit_forwards=forwards, launches=launched, wall_s=wall,
+             dit_s=pipe.last_dit_seconds, decode_s=pipe.last_decode_seconds,
+             decode_working_gb=decode_gb,
+             decode_with_vae_gb=decode_gb + vae_gb, class_gb=P768_CLASS_GB,
+             fits_class=decode_gb + vae_gb <= P768_CLASS_GB,
+             frame_std=frames.float().std().item())
+    log("768p request " + json.dumps(r))
+    del frames
+
+    # the strip decode's routes, on the request's latents
+    z = pipe.denormalize_latent(seen[0]).float()
+
+    def strips(model):
+        out = vae_model.tiled_decode_planned(model, z, tile_h=hl,
+                                             tile_w=strip_w, window_size=2)
+        torch.cuda.synchronize()
+        return out
+
+    out_k = strips(vae)
+    with mock.patch.object(vae_layers, "causal_conv3d",
+                           cc.causal_conv3d_reference):
+        out_p = strips(vae)
+    untiled = vae_model.chunk_decode(vae, z, 2)
+    vae32 = copy.deepcopy(vae).float()
+    out_32 = strips(vae32)
+    del vae32
+    if not all(torch.isfinite(o).all() for o in (out_k, out_p, out_32)):
+        raise AssertionError("non-finite 768p strip decode")
+    c = dict(rel_l2=rel_l2(out_k, out_p), kernel_vs_fp32=rel_l2(out_k, out_32),
+             plain_vs_fp32=rel_l2(out_p, out_32),
+             strips_vs_untiled=rel_l2(out_k, untiled))
+    log("768p strip decode, kernel vs plain vs fp32 " + json.dumps(c))
+    if not c["kernel_vs_fp32"] <= 1.1 * c["plain_vs_fp32"]:
+        raise AssertionError(f"768p strip decode kernel route off: {c}")
+    r.update(c)
+    return r
+
+
+def k1_768p_check(dit, dev, gen) -> dict:
+    """K1 at profile_768p's stage-2 layout (its time ids: L plus 128 text
+    tokens) against the plain fp32 version, on phase 3's inputs (q and k
+    rows of RMS 1, as the qk-norm makes them; v standard normal): valid
+    rows within ``O_ATOL`` and ``LSE_ATOL``. The tool's own q = k = v
+    (standard normal, so each row attends mostly to itself and |o| reaches
+    about 5, where one bf16 step is 0.03) is held too, to ``exp_flash_h2``'s
+    limits for q = k = v at this layout (``O_TOL``, ``LSE_TOL``), and its
+    error printed beside max|o|."""
+    height, width = P768
+    _, lat_time = profile_768p.stage_inputs(dit, height, width, 15, 2, gen)
+    cfg = dit.config
+    q_tool, t = profile_768p.attention_inputs(
+        lat_time, cfg.num_attention_heads, cfg.attention_head_dim, gen)
+    shape = tuple(q_tool.shape)
+    q, k = rms_normal(shape, gen, dev), rms_normal(shape, gen, dev)
+    v = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    valid = t[0] != fa.INVALID_TIME
+    errs = {}
+    for name, (qq, kk, vv) in (("rms", (q, k, v)),
+                               ("tool", (q_tool, q_tool, q_tool))):
+        o, lse = fa.flash_fwd_cuda(qq, kk, vv, t, t, causal=True,
+                                   sm_scale=cfg.attention_head_dim ** -0.5,
+                                   bounded=True)
+        o_ref, lse_ref = plain_attention(qq, kk, vv, t, True)
+        errs[name] = ((o.float() - o_ref.float())[:, :, valid].abs()
+                      .max().item(),
+                      (lse - lse_ref)[:, :, valid].abs().max().item(),
+                      o_ref[:, :, valid].abs().max().item())
+        del o, lse, o_ref, lse_ref
+    r = dict(check="K1 at profile_768p's stage-2 layout", L=t.shape[1],
+             max_abs_err_o=errs["rms"][0], max_abs_err_lse=errs["rms"][1],
+             tool_inputs_max_abs_err_o=errs["tool"][0],
+             tool_inputs_max_abs_err_lse=errs["tool"][1],
+             tool_inputs_max_abs_o=errs["tool"][2])
+    log("kernel vs plain " + json.dumps(r))
+    if not (r["max_abs_err_o"] <= O_ATOL
+            and r["max_abs_err_lse"] <= LSE_ATOL
+            and r["tool_inputs_max_abs_err_o"] < exp_flash_h2.O_TOL
+            and r["tool_inputs_max_abs_err_lse"] < exp_flash_h2.LSE_TOL):
+        raise AssertionError(f"K1 disagrees at the 768p layout: {r}")
+    return r
+
+
+def conv_shape_checks(shapes, dev, gen) -> list:
+    """K5 against the fp32 plain version at each (B, T, H, W, C, Co) of
+    ``shapes``, with zero and with carried front frames: finite, max|err|
+    <= ``CONV_REL`` * max|ref| (not timed)."""
+    results = []
+    for b, t, h, w, c, co in sorted({s[:-1] for s in shapes}):
+        weight = (torch.randn((co, c, 3, 3, 3), generator=gen, device=dev)
+                  / math.sqrt(27 * c)).bfloat16()
+        weight = weight.contiguous(memory_format=torch.channels_last_3d)
+        bias = (0.1 * torch.randn((co,), generator=gen, device=dev)
+                ).bfloat16()
+        x = torch.randn((b, t, h, w, c), generator=gen, device=dev).bfloat16()
+        carried = torch.randn((b, 2, h, w, c), generator=gen, device=dev
+                              ).bfloat16()
+        # the plain version a few output frames at a time (frame i reads
+        # input frames i - 2 .. i): at 768x1280 a whole fp32 plain conv
+        # holds several 16-18 GB tensors
+        step = max(1, int(PLAIN_CONV_ELEMENTS // (b * h * w * max(c, co))))
+        for front in (False, True):
+            y = cc.causal_conv3d_cuda(x, weight, bias,
+                                      carried if front else None)
+            torch.cuda.synchronize()
+            xp = torch.cat([carried if front else torch.zeros_like(carried),
+                            x], dim=1)
+            err = scale = 0.0
+            for i in range(0, t, step):
+                j = min(t, i + step)
+                ref = cc.causal_conv3d_reference(
+                    xp[:, i + 2:j + 2].float(), weight.float(), bias.float(),
+                    xp[:, i:i + 2].float())
+                err = max(err, (y[:, i:j].float() - ref).abs().max().item())
+                scale = max(scale, ref.abs().max().item())
+                del ref
+            r = dict(shape=f"{c}->{co} {h}x{w}", b=b, t=t, front=front,
+                     max_abs_err=err, max_abs_ref=scale)
+            del xp, y
+            if not r["max_abs_err"] <= CONV_REL * r["max_abs_ref"]:
+                raise AssertionError(f"conv kernel disagrees at 768p: {r}")
+            results.append(r)
+        del x, carried, weight, bias
+        torch.cuda.empty_cache()
+    log(f"conv kernel vs plain at the 768p phase's {len(results) // 2} "
+        f"shapes, both front modes: largest max|err|/max|ref| "
+        f"{max(r['max_abs_err'] / r['max_abs_ref'] for r in results):.3e} "
+        f"(limit {CONV_REL})")
+    return results
+
+
+@torch.no_grad()
+def vae_2d_twin(dev, gen) -> dict:
+    """A release-width VAE whose blocks are all the 2D twins (bf16, random
+    weights): one encode of a smooth 9-frame 256x256 clip and one decode of
+    its posterior mode; finite, the expected shapes, and no K5 launch (the
+    twins' convs and the 3-, 16- and 32-channel ends are library convs)."""
+    cfg = VAEConfig(down_block_types=("DownEncoderBlock2D",) * 4,
+                    up_block_types=("UpDecoderBlock2D",) * 4,
+                    mid_block_type="UNetMidBlock2D")
+    vae = CausalVideoVAE(cfg, dtype=torch.bfloat16, device=dev)
+    randomize_(vae, gen)
+    clip = smooth_video(gen, dev, 9, 256, 256)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    moments = vae.encode(clip)
+    frames = vae.decode(vae_model.gaussian_mode(moments))
+    torch.cuda.synchronize()
+    r = dict(params_m=sum(p.numel() for p in vae.parameters()) / 1e6,
+             clip=list(clip.shape), moments=list(moments.shape),
+             frames=list(frames.shape), seconds=time.perf_counter() - t0,
+             launches=launch_counts())
+    log("2D-twin VAE encode/decode " + json.dumps(r))
+    if not (torch.isfinite(moments).all() and torch.isfinite(frames).all()):
+        raise AssertionError("non-finite 2D-twin VAE output")
+    # the twins' temporal convs are not causal: 9 frames -> 4 -> 2 -> 1
+    # latent frame, and the decoder repeats each frame 2x three times
+    if tuple(moments.shape) != (1, 1, 32, 32, 32) or \
+            tuple(frames.shape) != (1, 8, 256, 256, 3):
+        raise AssertionError(f"2D-twin VAE shapes {r}")
+    if r["launches"] != expected():
+        raise AssertionError(f"2D-twin VAE launched kernels: {r}")
+    return r
+
+
+def decode_scan_check(vae, dev, gen):
+    """``exp_decode_scan`` on a random 17-frame 48x48 latent: the graph
+    captured, its frames equal to the loop's bit for bit, and exact
+    launches. Returns (the tool's result, the launches)."""
+    reset_launch_counts()
+    z48 = torch.randn((1, 17, 48, 48, 16), generator=gen,
+                      device=dev).bfloat16() * 2.0
+    scan = exp_decode_scan.run(vae, z48, DECODE_SCAN_ITERS)
+    launched = launch_counts()
+    if "graph" not in scan or not scan["graph"]["bit_equal"]:
+        raise AssertionError(f"graph_w2 not captured, or its frames differ "
+                             f"from loop_w2's: {scan}")
+    # each timed form's calls decode every window (the graph's continuation
+    # windows as replays), and building the graph decodes a first and a
+    # continuation window eagerly; the capture launches none
+    calls = 1 + DECODE_SCAN_ITERS
+    per_window = kernel_conv_count(vae.decoder)
+    windows = len(vae_model._window_starts(17, 2, 1))
+    want = expected(conv=2 * calls * decode_launches(vae, 17, 2)
+                    + 2 * per_window)
+    graph = scan["graph"]
+    if launched != want or graph["replays"] != calls * (windows - 1) \
+            or graph["graph_conv_launches"] != per_window:
+        raise AssertionError(f"exp_decode_scan launches {launched} "
+                             f"(expected {want}), {graph}")
+    return scan, launched
+
+
+def conv_stack_check(dev, gen):
+    """``exp_conv_stack`` at its shapes, with exact launches: K5 at each
+    shape for its check, the timer's warm-up and the timed calls. Returns
+    (the tool's rows, the launches)."""
+    reset_launch_counts()
+    stack = exp_conv_stack.run(dev, CONV_STACK_ITERS, gen)
+    launched = launch_counts()
+    want = expected(conv=len(exp_conv_stack.SHAPES) * (
+        1 + exp_flash_h2.WARMUP + CONV_STACK_ITERS))
+    if launched != want:
+        raise AssertionError(f"exp_conv_stack launches {launched}, "
+                             f"expected {want}")
+    return stack, launched
+
+
+def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
+    """Phase 14, with every earlier model freed: the release miniFLUX and
+    VAE (``profile_768p.build_models``) serve one 768p request on the 16 GB
+    class's strip plan; ``profile_768p`` at its defaults (no sweep) with K1
+    held to the plain version at its stage-2 layout; ``exp_vae_tiling
+    --iters 1``, ``exp_conv_stack`` and ``exp_decode_scan`` (frames bit for
+    bit); the guidance-embedded miniFLUX's forward anchored to fp32; a
+    release-width 2D-twin VAE. Every K5 shape of these paths is held to the
+    plain version. Adds each path's launches to ``paths``."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(P768_SEED)
+    dit, vae = profile_768p.build_models(dev, P768_SEED)
+    shapes = set()
+    out = {}
+    with record_conv_shapes(shapes):
+        out["request"] = request_768p(dit, vae, dev, gen)
+        paths["768p text-to-video (strips)"] = out["request"]["launches"]
+        height, width = P768
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        fwd = profile_768p.profile_forwards(dit, height, width, 15,
+                                            profile_768p.ITERS, gen)
+        dec = profile_768p.profile_decode(vae, height, width,
+                                          profile_768p.FRAMES, gen, dit)
+        launched = launch_counts()
+        calls = (exp_flash_h2.WARMUP + profile_768p.ITERS) * 3
+        # the decode on this card's plan with the DiT resident: untiled at
+        # 96 x 160 on a card of 48 GB or more, in the plan's windows
+        plan = decode_settings(True, device_memory_gb(dev))
+        want = expected(
+            calls * (dit.num_attention_calls + 1),
+            conv=2 * decode_launches(vae, profile_768p.FRAMES,
+                                     plan.untiled_window))
+        if launched != want:
+            raise AssertionError(f"profile_768p launches {launched}, "
+                                 f"expected {want}")
+        paths["profile_768p tool"] = launched
+        out["profile"] = dict(forwards=fwd, decode=dec,
+                              seconds=time.perf_counter() - t0)
+        log("profile_768p " + json.dumps(out["profile"]))
+        out["k1_check"] = k1_768p_check(dit, dev, kgen)
+        del dit
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        ballast = torch.empty(exp_vae_tiling.dit_bytes(), dtype=torch.uint8,
+                              device=dev)
+        z = torch.randn((1, 17) + exp_vae_tiling.LATENT + (16,),
+                        generator=gen, device=dev).bfloat16() * 2.0
+        tiling = exp_vae_tiling.run(vae, z, TILING_ITERS)
+        del ballast
+        launched = launch_counts()
+        want = expected(conv=TILING_ITERS * sum(
+            decode_launches(vae, 17, wnd, tiles)
+            for tiles, wnd in TILING_TILES.values()))
+        if launched != want or None in tiling.values():
+            raise AssertionError(f"exp_vae_tiling launches {launched} "
+                                 f"(expected {want}), results {tiling}")
+        paths["exp_vae_tiling tool"] = launched
+        out["tiling"] = dict(plans=tiling, seconds=time.perf_counter() - t0)
+
+        out["decode_scan"], paths["exp_decode_scan tool"] = \
+            decode_scan_check(vae, dev, gen)
+    del vae
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["conv_stack"], paths["exp_conv_stack tool"] = conv_stack_check(
+        dev, gen)
+    shapes |= {(1, t, h, w, c, c, True)
+               for _, t, h, w, c in exp_conv_stack.SHAPES}
+    out["conv_checks"] = conv_shape_checks(shapes, dev, kgen)
+
+    gdit = PyramidFluxTransformer(FluxConfig(guidance_embeds=True),
+                                  dtype=torch.bfloat16, device=dev)
+    randomize_(gdit, gen)
+    guidance = torch.full((B,), 4.5, device=dev)
+    out["guidance_dit"] = dit_check(gdit, meta_pipe, dev, gen,
+                                    guidance=guidance)
+    del gdit
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["vae_2d"] = vae_2d_twin(dev, gen)
+    log(f"768p phase: {time.perf_counter() - t_phase:.1f} s ({card_line()})")
+    return out
+
+
 def build_libraries():
     """The four kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
@@ -3421,6 +3841,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     parallel_phases(dev, paths, conv_shapes)
+    # the 768p phase: the release models and the 768p tools
+    p768 = phase_768p(dev, meta_pipe, paths, kgen)
     log("launches by path " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
     unused = [k for k, n in total.items()
@@ -3460,8 +3882,9 @@ def main() -> int:
         "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:207",
         "launches": total["flash_fwd"],
-        "max_abs_err": max(r["max_abs_err_o"] for r in checks
-                           if r["bounded"]),
+        "max_abs_err": max([r["max_abs_err_o"] for r in checks
+                            if r["bounded"]]
+                           + [p768["k1_check"]["max_abs_err_o"]]),
         "ms": timed["ms"],
         "kernel_ms": timed["kernel_ms"],
         "plain_ms": timed["plain_ms"],
@@ -3517,7 +3940,8 @@ def main() -> int:
         "source": "pyramid_flow_tpu_torch/csrc/causal_conv3d.cu",
         "replaces": "pyramid_flow_tpu/ops/causal_conv3d.py:42",
         "launches": total["causal_conv3d"],
-        "max_abs_err": max(r["max_abs_err"] for r in conv_checks),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in conv_checks + p768["conv_checks"]),
         "ms": ctimed["ms"],
         "plain_ms": ctimed["plain_ms"],
         "bound_ms": ctimed["bound_ms"],

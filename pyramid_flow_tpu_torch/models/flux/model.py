@@ -67,6 +67,11 @@ class FluxConfig:
     axes_dims_rope: Tuple[int, int, int] = (16, 24, 24)
     patch_size: int = 2
     use_temporal_causal: bool = True
+    # the guidance-distilled variant: the conditioning embedding also embeds
+    # the guidance scale (the reference's
+    # ``CombinedTimestepGuidanceTextProjEmbeddings``); no released
+    # Pyramid-Flow config sets it
+    guidance_embeds: bool = False
 
     @property
     def inner_dim(self) -> int:
@@ -94,16 +99,26 @@ class _MLPEmbedder(nn.Module):
 
 
 class TimestepTextEmbed(nn.Module):
-    """Timestep MLP plus pooled-text MLP, summed."""
+    """Timestep MLP plus pooled-text MLP, summed; with ``guidance_embeds``
+    a third MLP embeds the [B] guidance scale through the same sinusoid."""
 
-    def __init__(self, embedding_dim: int, pooled_dim: int, **kw):
+    def __init__(self, embedding_dim: int, pooled_dim: int,
+                 guidance_embeds: bool = False, **kw):
         super().__init__()
         self.timestep_embedder = _MLPEmbedder(256, embedding_dim, **kw)
+        self.guidance_embedder = (_MLPEmbedder(256, embedding_dim, **kw)
+                                  if guidance_embeds else None)
         self.text_embedder = _MLPEmbedder(pooled_dim, embedding_dim, **kw)
 
-    def forward(self, timestep, pooled):
-        t_emb = timestep_sinusoidal(timestep).to(pooled.dtype)
-        return self.timestep_embedder(t_emb) + self.text_embedder(pooled)
+    def forward(self, timestep, pooled, guidance=None):
+        t_emb = self.timestep_embedder(
+            timestep_sinusoidal(timestep).to(pooled.dtype))
+        if self.guidance_embedder is not None:
+            if guidance is None:
+                raise ValueError("a guidance_embeds DiT needs guidance=")
+            t_emb = t_emb + self.guidance_embedder(
+                timestep_sinusoidal(guidance).to(pooled.dtype))
+        return t_emb + self.text_embedder(pooled)
 
 
 class PyramidFluxTransformer(nn.Module):
@@ -117,6 +132,8 @@ class PyramidFluxTransformer(nn.Module):
       text_mask:     [B, Lt] bool.
       pooled:        [B, pooled_projection_dim].
       timestep:      [B] float (0..1000 scale).
+      guidance:      [B] float guidance scale; required by, and only read
+                     by, a ``guidance_embeds`` config.
 
     Returns velocity tokens [B, L, in_channels].
 
@@ -137,7 +154,7 @@ class PyramidFluxTransformer(nn.Module):
                   device=model_device(device, "PyramidFluxTransformer"))
         d = cfg.inner_dim
         self.time_text_embed = TimestepTextEmbed(
-            d, cfg.pooled_projection_dim, **kw)
+            d, cfg.pooled_projection_dim, cfg.guidance_embeds, **kw)
         self.context_embedder = nn.Linear(cfg.joint_attention_dim, d, **kw)
         self.x_embedder = nn.Linear(cfg.in_channels, d, **kw)
         blk = dict(num_heads=cfg.num_attention_heads,
@@ -201,9 +218,9 @@ class PyramidFluxTransformer(nn.Module):
         return block(*args)
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
-                text_mask, pooled, timestep):
+                text_mask, pooled, timestep, guidance=None):
         b, lt = text_emb.shape[:2]
-        temb = self.time_text_embed(timestep, pooled)
+        temb = self.time_text_embed(timestep, pooled, guidance)
         ctx = self.context_embedder(text_emb)
         x = self.x_embedder(latent_tokens)
 

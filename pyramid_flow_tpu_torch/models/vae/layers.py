@@ -23,7 +23,8 @@ public ``encode``/``decode`` take and return ``[B, T, H, W, C]``.
   are the previous cp rank's last two (zeros on the first rank): the
   kernel's ``front`` operand.
 * :func:`causal_group_norm`: GroupNorm with statistics per (batch, frame),
-  which is what makes windowed and monolithic coding agree.
+  which is what makes windowed and monolithic coding agree (and lets a
+  large input be normalised a few frames at a time).
 * :class:`SpatialAttention`: the mid-block's per-frame single-head attention
   over the H*W pixels, fp32 softmax, queries chunked above
   ``ATTN_CHUNK_TOKENS``.
@@ -41,7 +42,8 @@ from ...ops.causal_conv3d import (causal_conv3d, compute_dtype,
 from ...parallel.cp import current_cp_axis, previous_frames
 
 __all__ = ["CausalConv3d", "causal_group_norm", "GroupNorm",
-           "SpatialAttention", "ATTN_CHUNK_TOKENS", "channels_last"]
+           "GN_CHUNK_ELEMENTS", "SpatialAttention", "ATTN_CHUNK_TOKENS",
+           "channels_last"]
 
 
 def channels_last(x: torch.Tensor) -> torch.Tensor:
@@ -53,10 +55,11 @@ def channels_last(x: torch.Tensor) -> torch.Tensor:
 def _carry(front: Optional[torch.Tensor], x: torch.Tensor, kt: int
            ) -> torch.Tensor:
     """The last two frames of ``front ++ x`` (``[B, T, H, W, C]``; ``front``
-    None means ``kt - 1`` zero frames), copied so that the next window does
-    not hold the whole of ``x``."""
+    None means ``kt - 1`` zero frames), copied (contiguous, as the conv
+    kernel takes its front frames) so that the next window does not hold
+    the whole of ``x``."""
     if x.shape[1] >= 2:
-        return x[:, -2:].clone()
+        return x[:, -2:].clone(memory_format=torch.contiguous_format)
     if front is None:
         front = x.new_zeros((x.shape[0], kt - 1) + x.shape[2:])
     return torch.cat([front[:, -1:].to(x.dtype), x], dim=1)
@@ -129,11 +132,31 @@ class CausalConv3d(nn.Module):
         return y.contiguous(memory_format=torch.channels_last_3d)
 
 
+# Above this many elements a group norm normalises a few frames at a time
+# (its statistics are per frame), which bounds its fp32 temporaries: at 768p
+# a decoder resnet's input is 16 frames x 768 x 1280 x 256, whose fp32 copy
+# alone is 16 GB.
+GN_CHUNK_ELEMENTS = 1 << 28
+
+
 def causal_group_norm(x: torch.Tensor, weight: torch.Tensor,
                       bias: torch.Tensor, num_groups: int,
                       eps: float = 1e-6) -> torch.Tensor:
     """Per-frame GroupNorm over [B, C, T, H, W] in fp32: statistics per
-    (batch, group, frame) over (C/G, H, W)."""
+    (batch, group, frame) over (C/G, H, W). Above ``GN_CHUNK_ELEMENTS``
+    elements, in chunks of frames written into one output."""
+    b, c, t, h, w = x.shape
+    step = max(1, GN_CHUNK_ELEMENTS // (b * c * h * w))
+    if t > step:
+        out = torch.empty_like(x)
+        for i in range(0, t, step):
+            out[:, :, i:i + step] = _group_norm(
+                x[:, :, i:i + step], weight, bias, num_groups, eps)
+        return out
+    return _group_norm(x, weight, bias, num_groups, eps)
+
+
+def _group_norm(x, weight, bias, num_groups, eps):
     b, c, t, h, w = x.shape
     xf = x.float().reshape(b, num_groups, c // num_groups, t, h, w)
     var, mean = torch.var_mean(xf, dim=(2, 4, 5), unbiased=False,

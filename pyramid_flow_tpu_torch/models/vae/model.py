@@ -13,15 +13,21 @@ windowed and tiled coding.
 * ``CausalVideoVAE.decode_features`` is ``decode`` up to the decoder's
   ``conv_out``, which the GAN trainer applies itself.
 * :func:`tiled_encode` and :func:`tiled_decode` code overlapping spatial
-  tiles and crossfade their seams; :func:`reconstruct` is encode -> posterior
-  -> decode.
+  tiles and crossfade their seams; :func:`plan_axis` and
+  :func:`tiled_decode_planned` decode tiles of one planned shape (evenly
+  strided, the last flush with the edge, the least overlap the seam blend
+  needs); :func:`reconstruct` is encode -> posterior -> decode.
 * :func:`gaussian_sample`, :func:`gaussian_mode` and :func:`gaussian_kl` are
   the diagonal-Gaussian posterior over the encoder's moments.
 
 The default geometry is the released checkpoint's: 16 latent channels,
 (128, 256, 512, 512) channels, 2 resnets per encoder block and 3 per decoder
 block, and blocks 0-2 that downsample (encoder) and upsample (decoder) in
-space and time.
+space and time. The encoder's per-level ``spatial_down_sample`` and
+``temporal_down_sample`` flags and the block-type strings (the causal 3D
+blocks, or their per-frame non-causal 2D twins, :mod:`.blocks`) are read
+from the config as the JAX package reads them; the decoder's blocks 0-2
+upsample in space and time whatever the flags say, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -34,16 +40,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...utils.devices import model_device
-from .blocks import DownEncoderBlock, MidBlock, UpDecoderBlock
+from .blocks import DOWN_BLOCKS, MID_BLOCKS, UP_BLOCKS
 from .layers import CausalConv3d, GroupNorm, channels_last
 
 __all__ = ["VAEConfig", "Encoder", "Decoder", "CausalVideoVAE",
            "chunk_encode", "chunk_decode", "tiled_encode", "tiled_decode",
-           "reconstruct", "gaussian_sample", "gaussian_mode", "gaussian_kl",
+           "plan_axis", "tiled_decode_planned", "reconstruct", "gaussian_sample", "gaussian_mode", "gaussian_kl",
            "kernel_conv_count"]
 
-# the release VAE's blocks 0-2 resample in space and time, block 3 does not
-_RESAMPLE = (True, True, True, False)
+# the decoder's blocks 0-2 upsample in space and time, block 3 does not
+# (the reference's decoder defaults; the JAX decoder reads no flag either)
+_UPSAMPLE = (True, True, True, False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,14 +60,34 @@ class VAEConfig:
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
     encoder_layers_per_block: Tuple[int, ...] = (2, 2, 2, 2)
     decoder_layers_per_block: Tuple[int, ...] = (3, 3, 3, 3)
+    spatial_down_sample: Tuple[bool, ...] = (True, True, True, False)
+    temporal_down_sample: Tuple[bool, ...] = (True, True, True, False)
     num_groups: int = 32
     downsample_scale: int = 8  # 8x spatial, 8x temporal (+1 frame)
+    # block-type strings (the keys of blocks.DOWN_BLOCKS, UP_BLOCKS and
+    # MID_BLOCKS); the others select the per-frame non-causal 2D twins
+    down_block_types: Tuple[str, ...] = ("DownEncoderBlockCausal3D",) * 4
+    up_block_types: Tuple[str, ...] = ("UpDecoderBlockCausal3D",) * 4
+    mid_block_type: str = "CausalUNetMidBlock2D"
+
+    def __post_init__(self):
+        for name, registry in (("down_block_types", DOWN_BLOCKS),
+                               ("up_block_types", UP_BLOCKS)):
+            unknown = [t for t in getattr(self, name) if t not in registry]
+            if unknown:
+                raise ValueError(f"VAEConfig.{name}: unknown block types "
+                                 f"{unknown}; the port builds "
+                                 f"{sorted(registry)}")
+        if self.mid_block_type not in MID_BLOCKS:
+            raise ValueError(f"VAEConfig.mid_block_type: unknown block type "
+                             f"{self.mid_block_type!r}; the port builds "
+                             f"{sorted(MID_BLOCKS)}")
 
 
 class Encoder(nn.Module):
     """conv_in -> down blocks -> mid block -> norm/silu/conv_out (2 * Zc
-    moments), on [B, C, T, H, W]. Down blocks 0..2 downsample in space and
-    time."""
+    moments), on [B, C, T, H, W]. Down block i downsamples in space and in
+    time where the config's flags say (the release VAE: blocks 0..2)."""
 
     def __init__(self, config: VAEConfig, **kw):
         super().__init__()
@@ -68,13 +95,15 @@ class Encoder(nn.Module):
         ch = cfg.block_out_channels
         self.conv_in = CausalConv3d(cfg.in_channels, ch[0], (3, 3, 3), **kw)
         self.down_blocks = nn.ModuleList([
-            DownEncoderBlock(ch[max(i - 1, 0)], c,
-                             num_layers=cfg.encoder_layers_per_block[i],
-                             add_spatial_downsample=_RESAMPLE[i],
-                             add_temporal_downsample=_RESAMPLE[i],
-                             num_groups=cfg.num_groups, **kw)
+            DOWN_BLOCKS[cfg.down_block_types[i]](
+                ch[max(i - 1, 0)], c,
+                num_layers=cfg.encoder_layers_per_block[i],
+                add_spatial_downsample=cfg.spatial_down_sample[i],
+                add_temporal_downsample=cfg.temporal_down_sample[i],
+                num_groups=cfg.num_groups, **kw)
             for i, c in enumerate(ch)])
-        self.mid_block = MidBlock(ch[-1], num_groups=cfg.num_groups, **kw)
+        self.mid_block = MID_BLOCKS[cfg.mid_block_type](
+            ch[-1], num_groups=cfg.num_groups, **kw)
         self.conv_norm_out = GroupNorm(ch[-1], cfg.num_groups, **kw)
         self.conv_out = CausalConv3d(ch[-1], 2 * cfg.latent_channels,
                                      (3, 3, 3), **kw)
@@ -97,13 +126,15 @@ class Decoder(nn.Module):
         rev = list(reversed(cfg.block_out_channels))
         self.conv_in = CausalConv3d(cfg.latent_channels, rev[0], (3, 3, 3),
                                     **kw)
-        self.mid_block = MidBlock(rev[0], num_groups=cfg.num_groups, **kw)
+        self.mid_block = MID_BLOCKS[cfg.mid_block_type](
+            rev[0], num_groups=cfg.num_groups, **kw)
         self.up_blocks = nn.ModuleList([
-            UpDecoderBlock(rev[max(i - 1, 0)], ch,
-                           num_layers=cfg.decoder_layers_per_block[i],
-                           add_spatial_upsample=_RESAMPLE[i],
-                           add_temporal_upsample=_RESAMPLE[i],
-                           num_groups=cfg.num_groups, **kw)
+            UP_BLOCKS[cfg.up_block_types[i]](
+                rev[max(i - 1, 0)], ch,
+                num_layers=cfg.decoder_layers_per_block[i],
+                add_spatial_upsample=_UPSAMPLE[i],
+                add_temporal_upsample=_UPSAMPLE[i],
+                num_groups=cfg.num_groups, **kw)
             for i, ch in enumerate(rev)])
         self.conv_norm_out = GroupNorm(rev[-1], cfg.num_groups, **kw)
         self.conv_out = CausalConv3d(rev[-1], cfg.in_channels, (3, 3, 3),
@@ -142,7 +173,12 @@ class CausalVideoVAE(nn.Module):
             if isinstance(module, CausalConv3d):
                 module.cache_key = name
         # channels-last conv weights: the kernel reads [Co, 3, 3, 3, C]
-        self.to(memory_format=torch.channels_last_3d)
+        # (the 2D twins' per-frame conv weights stay as they are)
+        with torch.no_grad():
+            for p in self.parameters():
+                if p.dim() == 5:
+                    p.data = p.data.contiguous(
+                        memory_format=torch.channels_last_3d)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -346,6 +382,70 @@ def tiled_decode(model: CausalVideoVAE, z: torch.Tensor,
 
     return _tiled_apply(z, tile_latent, tile_sample_min_size, overlap_factor,
                         dec)
+
+
+def plan_axis(extent: int, tile_max: int, min_overlap: int = 6
+              ) -> Tuple[int, List[int]]:
+    """An exact cover of one spatial axis of ``extent`` latent pixels by
+    tiles of one width: ``(tile, positions)``, every tile ``tile <=
+    tile_max`` wide, the positions evenly strided from 0 with the last tile
+    flush at ``extent``, neighbours overlapping by at least ``min_overlap``.
+    One tile (``extent`` wide) when ``tile_max >= extent``. Needs ``tile_max
+    > min_overlap``."""
+    if tile_max >= extent:
+        return extent, [0]
+    if tile_max <= min_overlap:
+        raise ValueError(f"tile_max {tile_max} must exceed min_overlap "
+                         f"{min_overlap}")
+    n = -(-(extent - min_overlap) // (tile_max - min_overlap))  # ceil
+    while True:
+        tile = -(-(extent + (n - 1) * min_overlap) // n)
+        while (extent - tile) % (n - 1):  # an integral stride
+            tile += 1
+        if tile <= tile_max:
+            break
+        n += 1
+    stride = (extent - tile) // (n - 1)
+    return tile, [i * stride for i in range(n)]
+
+
+@torch.no_grad()
+def tiled_decode_planned(model: CausalVideoVAE, z: torch.Tensor, tile_h: int,
+                         tile_w: int, min_overlap: int = 6,
+                         window_size: int = 2,
+                         _decode_fn: Optional[Callable[[torch.Tensor],
+                                                       torch.Tensor]] = None
+                         ) -> torch.Tensor:
+    """Decode z [B, T, h, w, Zc] in planned tiles (:func:`plan_axis` on
+    each axis, ``tile_h`` and ``tile_w`` the largest tile in latent pixels;
+    ``tile_h >= h`` gives full-height column strips), each window by window,
+    then crossfade the seams over each overlap and crop and stitch.
+    ``_decode_fn`` replaces the per-tile decode (the tests pass a positional
+    fake to hold the stitch arithmetic exactly)."""
+    ds = model.config.downsample_scale
+    th, hpos = plan_axis(z.shape[2], tile_h, min_overlap)
+    tw, wpos = plan_axis(z.shape[3], tile_w, min_overlap)
+    dec = _decode_fn or (lambda tile: chunk_decode(model, tile, window_size))
+    tiles = {(i, j): dec(z[:, :, i:i + th, j:j + tw])
+             for i in hpos for j in wpos}
+    rows = []
+    for ii, i in enumerate(hpos):
+        row = []
+        for jj, j in enumerate(wpos):
+            t = tiles[(i, j)]
+            if ii > 0:
+                t = _blend_axis(tiles[(hpos[ii - 1], j)], t,
+                                (hpos[ii - 1] + th - i) * ds, 2)
+            if jj > 0:
+                t = _blend_axis(tiles[(i, wpos[jj - 1])], t,
+                                (wpos[jj - 1] + tw - j) * ds, 3)
+            lim_h = ((hpos[ii + 1] - i) * ds if ii + 1 < len(hpos)
+                     else t.shape[2])
+            lim_w = ((wpos[jj + 1] - j) * ds if jj + 1 < len(wpos)
+                     else t.shape[3])
+            row.append(t[:, :, :lim_h, :lim_w])
+        rows.append(torch.cat(row, dim=3))
+    return torch.cat(rows, dim=2)
 
 
 @torch.no_grad()

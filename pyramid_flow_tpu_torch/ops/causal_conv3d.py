@@ -133,7 +133,10 @@ def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
     """Launch the CUDA kernel. ``x`` and ``front`` bf16 contiguous
     channels-last, ``weight`` bf16 in ``torch.channels_last_3d`` (physically
     ``[Co, 3, 3, 3, C]``), ``bias`` any float dtype (the kernel adds it in
-    fp32). ``causal_conv3d_cuda.launches`` counts the launches."""
+    fp32). ``causal_conv3d_cuda.launches`` counts the launches; a call
+    under CUDA-graph capture records the kernel without launching it and
+    counts in ``causal_conv3d_cuda.captured`` instead (whoever replays the
+    graph adds its launches)."""
     _check_shapes(x, weight, bias, front)
     b, t, h, w, c = x.shape
     co = weight.shape[0]
@@ -167,14 +170,19 @@ def causal_conv3d_cuda(x: torch.Tensor, weight: torch.Tensor,
             x.data_ptr(), front.data_ptr() if front is not None else None,
             weight.data_ptr(), bias32.data_ptr(), y.data_ptr(), b, t, h, w,
             c, co, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if err != 0:
         raise RuntimeError(f"causal_conv3d kernel launch failed: CUDA error "
                            f"{err}")
-    causal_conv3d_cuda.launches += 1
+    if capturing:
+        causal_conv3d_cuda.captured += 1
+    else:
+        causal_conv3d_cuda.launches += 1
     return y
 
 
 causal_conv3d_cuda.launches = 0
+causal_conv3d_cuda.captured = 0
 
 
 def causal_conv3d_backward(x: torch.Tensor, weight: torch.Tensor,

@@ -32,22 +32,71 @@ from .noising import (LATENT_NORMS, VIDEO_NORM, dit_model_name, down2,
                       latent_pyramid, normalize_latent, up2_nearest)
 from .packing import clip_metadata, patchify, unpatchify
 
-__all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise"]
+__all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise",
+           "decode_settings", "device_memory_gb"]
 
 
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
-    """How :meth:`PyramidFlowPipeline.decode_latent` decodes: windows of
-    ``window`` latent frames, untiled for frames up to
-    ``untiled_max_latent`` squared latent pixels (192 x 192 latent covers
-    384p and 768p on an 80 GB card); larger frames in spatial tiles of
-    ``tile`` pixels that overlap by ``overlap``. The defaults are the JAX
-    package's settings for a device of 48 GB or more."""
+    """How :meth:`PyramidFlowPipeline.decode_latent` decodes (the JAX
+    package's decode settings as one object). Without ``px_window_budget``:
+    untiled in windows of ``untiled_window`` latent frames for frames up to
+    ``untiled_max_latent`` squared latent pixels, larger frames in spatial
+    tiles of ``tile`` pixels that overlap by ``overlap``, in windows of
+    ``window``. With it (latent pixels x window frames one decode may hold
+    at once): the least redundant plan within that budget, rung by rung
+    (:meth:`PyramidFlowPipeline.decode_latent`). The defaults are the plan
+    for a device of 48 GB or more; :func:`decode_settings` picks one by
+    the device's memory."""
 
     window: int = 2
     untiled_max_latent: int = 192
     tile: int = 512
     overlap: float = 0.125
+    untiled_window: int = 2
+    px_window_budget: Optional[int] = None
+
+
+def decode_settings(save_memory: bool, memory_gb: float,
+                    dit_resident: bool = True) -> DecodePlan:
+    """The decode plan for a device of ``memory_gb`` GB, as the JAX
+    package picks it (the same constants):
+
+    * not ``save_memory``: 512-pixel tiles overlapping by 1/4, window 2,
+      untiled up to a 192 x 192 latent on 48 GB or more, else 96 x 96;
+    * 48 GB or more: 512-pixel tiles overlapping by 1/8, window 2, untiled
+      up to a 192 x 192 latent;
+    * below 48 GB with the DiT released: a budget of 9216 latent pixels x
+      window frames (the least redundant plan within it; beyond it
+      384-pixel tiles overlapping by 1/8 in windows of 2, or untiled in
+      windows of 1 up to a 96 x 96 latent);
+    * below 48 GB with the DiT resident: 384-pixel tiles overlapping by
+      1/8, window 2; untiled in windows of 1 up to a 96 x 96 latent.
+
+    The thresholds are the JAX package's, measured on a 16 GB TPU; the
+    port takes them as they are."""
+    big = memory_gb >= 48.0
+    if not save_memory:
+        return DecodePlan(tile=512, overlap=0.25, window=2, untiled_window=2,
+                          untiled_max_latent=192 if big else 96)
+    if big:
+        return DecodePlan(tile=512, overlap=0.125, window=2,
+                          untiled_window=2, untiled_max_latent=192)
+    if not dit_resident:
+        return DecodePlan(px_window_budget=9216, tile=384, overlap=0.125,
+                          window=2, untiled_window=1, untiled_max_latent=96)
+    return DecodePlan(tile=384, overlap=0.125, window=2, untiled_window=1,
+                      untiled_max_latent=96)
+
+
+def device_memory_gb(device) -> float:
+    """The memory of ``device`` in GB: a CUDA device's total memory, and
+    16.0 for any other (the JAX package's floor when it cannot read a
+    device's)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 1e9
+    return 16.0
 
 
 class GeneratorNoise:
@@ -100,6 +149,13 @@ class PyramidFlowPipeline:
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  model_name: Optional[str] = None):
         self.model_name = dit_model_name(dit, model_name)
+        if getattr(getattr(dit, "config", None), "guidance_embeds", False):
+            # the JAX pipeline never passes the DiT a guidance scale (its
+            # apply would fail), so there is no step to port for one
+            raise ValueError(
+                "a guidance_embeds DiT needs a guidance scale in every "
+                "forward, which the pyramid pipeline's CFG steps do not pass "
+                "(nor do the JAX package's); call the DiT itself")
         self.dit = dit
         self.vae = vae
         self.latent_channels = latent_channels
@@ -188,6 +244,12 @@ class PyramidFlowPipeline:
         return cls(infer.eval(), vae, dtype=dtype, device=device, **kwargs)
 
     # ------------------------------------------------------------ helpers
+    def enable_sequential_cpu_offload(self):
+        """A no-op kept for the API (the reference moves modules to host
+        memory to fit small cards; the JAX package's is a no-op too).
+        Returns the pipeline."""
+        return self
+
     def normalize_latent(self, x):
         """VAE latent -> model space; frame 0 uses the image statistics."""
         return normalize_latent(x, self.model_name)
@@ -378,7 +440,8 @@ class PyramidFlowPipeline:
                  use_linear_guidance: bool = False, alpha: float = 0.5,
                  min_guidance_scale: float = 2.0,
                  output_type: str = "latent",
-                 decode_plan: DecodePlan = DecodePlan(),
+                 save_memory: bool = True,
+                 decode_plan: Optional[DecodePlan] = None,
                  input_image_latent: Optional[torch.Tensor] = None,
                  progress_callback: Optional[Callable[[dict], None]] = None,
                  release_dit_before_decode: bool = False,
@@ -394,7 +457,8 @@ class PyramidFlowPipeline:
         ``progress_callback(info)`` is called after each unit and before the
         decode. ``release_dit_before_decode`` drops the DiT before decoding
         to hand its memory to the VAE; the pipeline then cannot generate
-        again until ``pipeline.dit`` is set."""
+        again until ``pipeline.dit`` is set. ``save_memory`` and
+        ``decode_plan`` go to :meth:`decode_latent`."""
         if self.dit is None:
             raise RuntimeError(
                 "the DiT was released by generate(release_dit_before_decode="
@@ -483,7 +547,8 @@ class PyramidFlowPipeline:
         if progress_callback is not None:
             progress_callback({"phase": "decode", "unit": len(unit_range),
                                "units": len(unit_range)})
-        out = self.decode_latent(latents_full, decode_plan)
+        out = self.decode_latent(latents_full, save_memory=save_memory,
+                                 plan=decode_plan)
         self._sync()
         self.last_decode_seconds = time.perf_counter() - t_dit
         return out
@@ -501,20 +566,44 @@ class PyramidFlowPipeline:
 
     # -------------------------------------------------------------- decode
     @torch.no_grad()
-    def decode_latent(self, latents, plan: DecodePlan = DecodePlan()):
-        """Un-normalise and decode window by window; frames above the plan's
-        untiled limit in overlapping spatial tiles. Returns uint8 frames
-        [B, F, H, W, 3]."""
-        from ..models.vae.model import chunk_decode, tiled_decode
+    def decode_latent(self, latents, *, save_memory: bool = True,
+                      plan: Optional[DecodePlan] = None):
+        """Un-normalise and decode to uint8 frames [B, F, H, W, 3].
+
+        ``plan`` None takes :func:`decode_settings` for this device's memory
+        (:func:`device_memory_gb`) and whether the DiT is still held. With a
+        ``px_window_budget`` the decode takes the first rung that fits, in
+        the JAX package's order: untiled in windows of 2, then of 1, then
+        full-height column strips (as wide as the budget allows, at least 32
+        latent pixels) in windows of 2; a frame too tall for that takes the
+        plan's tiled walk. Without a budget, frames above
+        ``untiled_max_latent`` squared latent pixels decode in the plan's
+        spatial tiles, others untiled."""
+        from ..models.vae.model import (chunk_decode, tiled_decode,
+                                        tiled_decode_planned)
 
         if self.vae is None:
             raise ValueError("pipeline built without a VAE")
+        if plan is None:
+            plan = decode_settings(save_memory, device_memory_gb(self.device),
+                                   dit_resident=self.dit is not None)
         z = self.denormalize_latent(latents).float()
         hl, wl = z.shape[2], z.shape[3]
-        if hl * wl > plan.untiled_max_latent ** 2:
+        budget = plan.px_window_budget
+        # the JAX package's window-1 strip rung is left out: budget // hl
+        # >= 64 implies budget // (2 hl) >= 32, so the window-2 rung wins
+        if budget is not None and hl * wl * 2 <= budget:
+            img = chunk_decode(self.vae, z, window_size=2)
+        elif budget is not None and hl * wl <= budget:
+            img = chunk_decode(self.vae, z, window_size=1)
+        elif budget is not None and budget // (hl * 2) >= 32:
+            img = tiled_decode_planned(self.vae, z, tile_h=hl,
+                                       tile_w=budget // (hl * 2),
+                                       window_size=2)
+        elif hl * wl > plan.untiled_max_latent ** 2:
             img = tiled_decode(self.vae, z, tile_sample_min_size=plan.tile,
                                temporal_chunk=True, window_size=plan.window,
                                overlap_factor=plan.overlap)
         else:
-            img = chunk_decode(self.vae, z, window_size=plan.window)
+            img = chunk_decode(self.vae, z, window_size=plan.untiled_window)
         return (img.float() * 127.5 + 127.5).clamp(0, 255).to(torch.uint8)

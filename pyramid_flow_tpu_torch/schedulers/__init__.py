@@ -1,1 +1,3 @@
-
+from .cosine_ddpm import (SCHEDULER_REGISTRY, DDPMCosineScheduler,
+                          get_scheduler)
+from .flow_matching import PyramidFlowMatchEulerDiscreteScheduler

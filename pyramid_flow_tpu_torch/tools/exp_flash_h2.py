@@ -33,7 +33,8 @@ from ..ops.flash_attention import (
     flash_fwd_hn_resources,
 )
 
-__all__ = ["flash_h2", "reference_lse", "layout_768p_stage2", "main"]
+__all__ = ["flash_h2", "reference_lse", "layout_768p_stage2", "median_ms",
+           "main"]
 
 # the JAX tool's correctness thresholds (max |err| on valid rows)
 O_TOL, LSE_TOL = 0.035, 0.02
@@ -98,7 +99,7 @@ def layout_768p_stage2(device="cuda", seed=0):
     return q, tq, L
 
 
-def _cuda_ms(fn, reps: int) -> float:
+def median_ms(fn, reps: int) -> float:
     """Median milliseconds of ``fn`` over ``reps`` launches after
     ``WARMUP`` (CUDA events)."""
     for _ in range(WARMUP):
@@ -163,7 +164,7 @@ def sweep(dev, iters: int) -> list:
     JAX tool does), each timed over ``iters`` launches after ``WARMUP``."""
     q, tq, L = layout_768p_stage2(dev)
     sm_scale = q.shape[-1] ** -0.5
-    base = _cuda_ms(lambda: flash_fwd_cuda(q, q, q, tq, tq, causal=True,
+    base = median_ms(lambda: flash_fwd_cuda(q, q, q, tq, tq, causal=True,
                                            sm_scale=sm_scale, bounded=True),
                     iters)
     rows = [dict(kernel="flash_fwd", L=L, ms=base)]
@@ -175,7 +176,7 @@ def sweep(dev, iters: int) -> list:
                  max_threads=res["max_threads"],
                  shared_bytes=res["shared_bytes"])
         if res["fits"]:
-            r["ms"] = _cuda_ms(lambda: flash_h2(q, q, q, tq, hs=hs), iters)
+            r["ms"] = median_ms(lambda: flash_h2(q, q, q, tq, hs=hs), iters)
             r["speedup_vs_flash_fwd"] = base / r["ms"]
         else:
             r["result"] = "does not fit"

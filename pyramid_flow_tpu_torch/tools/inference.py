@@ -61,8 +61,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sp", type=int, default=1, help="sequence-parallel ways")
     p.add_argument("--save_memory", action="store_true",
-                   help="tile overlap 1/8 instead of 1/4 (frames above a "
-                        "192x192 latent)")
+                   help="plan the decode for this device's memory "
+                        "(pipeline.decode_settings)")
     p.add_argument("--fps", type=int, default=24)
     p.add_argument("--output", default="output")
     p.add_argument("--device", default="cuda")
@@ -73,7 +73,6 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     from ..parallel.mesh import (MeshConfig, make_mesh,
                                  maybe_initialize_distributed)
-    from ..pipeline.pyramid_pipeline import DecodePlan
     from ..pipeline.runner import PyramidFlowRunner
     from ..utils.video_io import save_frames
 
@@ -106,8 +105,7 @@ def main(argv=None) -> int:
         guidance_scale=args.guidance_scale,
         video_guidance_scale=args.video_guidance_scale,
         output_type="pixels", release_dit_before_decode=True,
-        decode_plan=DecodePlan() if args.save_memory
-        else DecodePlan(overlap=0.25))
+        save_memory=args.save_memory)
     t0 = time.perf_counter()
     if args.input_image:
         from PIL import Image

@@ -102,21 +102,13 @@ def require_components(comps: dict, names: Sequence[str], model_path: str):
             f"layout: <variant>/, causal_video_vae/, text_encoder*/)")
 
 
-# fields of the JAX package's configs that the port builds at one value
-# only; a config.json that sets another raises instead of building a model
-# that computes something else
-_FIXED = {
-    "flux": {"guidance_embeds": False},
-    "vae": {"spatial_down_sample": (True, True, True, False),
-            "temporal_down_sample": (True, True, True, False)},
-}
-
-
 def load_model_config(component_dir: str, kind: str):
     """The port's model config from a component directory's
     ``config.json``, read as the JAX package reads it: missing fields take
     the defaults, unknown ones are ignored, and with no JSON the default
-    config comes back. ``kind``: ``"flux"``, ``"mmdit"`` or ``"vae"``."""
+    config comes back. A value the port cannot build (a VAE block type it
+    does not know) raises, naming the field. ``kind``: ``"flux"``,
+    ``"mmdit"`` or ``"vae"``."""
     from ..models.flux.model import FluxConfig
     from ..models.mmdit.model import MMDiTConfig
     from ..models.vae.model import VAEConfig
@@ -133,13 +125,11 @@ def load_model_config(component_dir: str, kind: str):
             and "layers_per_block" in raw:
         raw["encoder_layers_per_block"] = raw["layers_per_block"]
     raw = {k: tuple(v) if isinstance(v, list) else v for k, v in raw.items()}
-    for k, want in _FIXED.get(kind, {}).items():
-        if k in raw and raw[k] != want:
-            raise ValueError(f"{path}: {k}={raw[k]!r}; the port builds "
-                             f"{kind} with {k}={want!r} only")
-
     names = {f.name for f in dataclasses.fields(cls)}
-    return cls(**{k: v for k, v in raw.items() if k in names})
+    try:
+        return cls(**{k: v for k, v in raw.items() if k in names})
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
 
 
 def build_dit(model_path: str, model_variant: str, model_name: str,
@@ -166,12 +156,26 @@ def build_vae(model_path: str, state_dict: Dict[str, torch.Tensor], *,
     """The VAE sized by ``causal_video_vae/config.json``, built on
     ``device`` in ``dtype`` and holding ``state_dict``. Loaded by copy, so
     its conv weights keep the ``channels_last_3d`` layout the conv kernel
-    reads."""
+    reads. A config with the 2D twin blocks raises, naming the keys the
+    released layout cannot place."""
+    from ..models.vae.blocks import (DownEncoderBlock2D, MidBlock2D,
+                                     UpDecoderBlock2D)
     from ..models.vae.model import CausalVideoVAE
 
-    vae = CausalVideoVAE(load_model_config(
-        os.path.join(model_path, "causal_video_vae"), "vae"),
-        dtype=dtype, device=device)
+    vae_dir = os.path.join(model_path, "causal_video_vae")
+    vae = CausalVideoVAE(load_model_config(vae_dir, "vae"), dtype=dtype,
+                         device=device)
+    twins = tuple(name + "." for name, m in vae.named_modules()
+                  if isinstance(m, (DownEncoderBlock2D, UpDecoderBlock2D,
+                                    MidBlock2D)))
+    if twins:
+        keys = sorted(k for k in state_dict if k.startswith(twins))
+        raise ValueError(
+            f"{vae_dir}: the released layout places the causal 3D blocks' "
+            f"keys only, as the JAX package's loader does; it cannot place "
+            f"the 2D twin blocks {[t[:-1] for t in twins]}: keys "
+            f"{keys or '(none in the files)'} (convert the JAX package's "
+            f"variables with utils.converters.vae_state_dict_from_jax)")
     vae.load_state_dict(state_dict, strict=True)
     return vae
 

@@ -137,6 +137,8 @@ _STACKED = ("transformer_blocks", "single_transformer_blocks")
 _FLUX_RENAMES = {
     "timestep_embedder_1": "timestep_embedder.linear_1",
     "timestep_embedder_2": "timestep_embedder.linear_2",
+    "guidance_embedder_1": "guidance_embedder.linear_1",
+    "guidance_embedder_2": "guidance_embedder.linear_2",
     "text_embedder_1": "text_embedder.linear_1",
     "text_embedder_2": "text_embedder.linear_2",
     "to_out": "to_out.0",
@@ -174,6 +176,11 @@ def _module_entries(prefix: str, leaves: dict) -> Dict[str, np.ndarray]:
         out[f"{prefix}.conv.weight"] = kernel.transpose(4, 3, 0, 1, 2)
         if "bias" in leaves:
             out[f"{prefix}.conv.bias"] = leaves["bias"]
+        return out
+    if kernel is not None and kernel.ndim == 4:  # 2D conv: HWIO -> OIHW
+        out[f"{prefix}.weight"] = kernel.transpose(3, 2, 0, 1)
+        if "bias" in leaves:
+            out[f"{prefix}.bias"] = leaves["bias"]
         return out
     if kernel is not None:  # Dense: [in, out] -> [out, in]
         out[f"{prefix}.weight"] = kernel.T
@@ -250,8 +257,10 @@ def mmdit_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
 
 def vae_state_dict_from_jax(params: dict) -> Dict[str, torch.Tensor]:
     """JAX ``CausalVideoVAE`` variables (encoder, ``quant_conv``,
-    ``post_quant_conv`` and decoder) -> the port's ``CausalVideoVAE`` state
-    dict (fp32 tensors)."""
+    ``post_quant_conv`` and decoder, with causal 3D blocks or their 2D
+    twins) -> the port's ``CausalVideoVAE`` state dict (fp32 tensors); a 2D
+    twin's per-frame conv ``<path>`` becomes ``<path>.weight`` ``[O, I, 3,
+    3]``."""
     entries: Dict[str, np.ndarray] = {}
     for path, leaves in _modules(_unwrap(params)):
         names = [re.sub(r"^(\w+?)_(\d+)$", r"\1.\2",

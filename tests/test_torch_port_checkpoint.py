@@ -186,10 +186,20 @@ def test_load_model_config_matches_jax(tmp_path, kind, raw):
 
 
 def test_load_model_config_refuses_what_the_port_does_not_build(tmp_path):
+    """A block type the port has no module for raises, naming the field and
+    the type, before any model is built (guidance_embeds and the VAE's
+    down-sample flags are built now: test_torch_port_surface.py)."""
     (tmp_path / "config.json").write_text(json.dumps(
-        {"guidance_embeds": True}))
-    with pytest.raises(ValueError, match="guidance_embeds"):
-        checkpoint.load_model_config(str(tmp_path), "flux")
+        {"down_block_types": ["DownEncoderBlock2D", "DownEncoderBlock1D",
+                              "DownEncoderBlockCausal3D",
+                              "DownEncoderBlockCausal3D"]}))
+    with pytest.raises(ValueError,
+                       match="down_block_types.*DownEncoderBlock1D"):
+        checkpoint.load_model_config(str(tmp_path), "vae")
+    (tmp_path / "config.json").write_text(json.dumps(
+        {"mid_block_type": "UNetMidBlock3D"}))
+    with pytest.raises(ValueError, match="mid_block_type.*UNetMidBlock3D"):
+        checkpoint.load_model_config(str(tmp_path), "vae")
 
 
 # ------------------------------------------- a release-layout directory

@@ -10,6 +10,8 @@ wherever the statement stands.
 """
 
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -52,3 +54,38 @@ def test_checker_finds_imports_at_any_depth():
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_port_source_imports_no_jax(path):
     assert forbidden_imports(path.read_text()) == []
+
+
+# the modules of the last slice: the planner, profiling, the 768p tools,
+# the schedulers' registry and the resamplers
+SLICE_MODULES = (
+    "pyramid_flow_tpu_torch.utils.profiling",
+    "pyramid_flow_tpu_torch.schedulers",
+    "pyramid_flow_tpu_torch.schedulers.cosine_ddpm",
+    "pyramid_flow_tpu_torch.ops.resample",
+    "pyramid_flow_tpu_torch.models.vae.blocks",
+    "pyramid_flow_tpu_torch.pipeline.pyramid_pipeline",
+    "pyramid_flow_tpu_torch.tools.profile_768p",
+    "pyramid_flow_tpu_torch.tools.exp_vae_tiling",
+    "pyramid_flow_tpu_torch.tools.exp_conv_stack",
+    "pyramid_flow_tpu_torch.tools.exp_decode_scan",
+)
+
+
+def test_slice_modules_import_without_jax():
+    """Importing each of the slice's modules loads no JAX and builds no
+    kernel (no card here)."""
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'pyramid_flow_tpu')"
+            " or m.startswith(('jax.', 'flax', 'pyramid_flow_tpu.'))]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr
+    for m in SLICE_MODULES:
+        path = ROOT / (m.replace(".", "/") + ".py")
+        if not path.exists():
+            path = ROOT / m.replace(".", "/") / "__init__.py"
+        assert path in SOURCES, m

@@ -193,8 +193,10 @@ def test_release_dit_is_one_shot_and_decode_plan_limit(pipelines):
         tpipe.dit = dit
     lat = np.random.default_rng(9).standard_normal(
         (1, 3, 8, 8, 4)).astype(np.float32)
-    out = tpipe.decode_latent(torch.from_numpy(lat), DecodePlan(
-        untiled_max_latent=4, tile=32, overlap=0.25))
+    plan = DecodePlan(untiled_max_latent=4, tile=32, overlap=0.25)
+    with pytest.raises(TypeError):  # save_memory and plan are keyword-only
+        tpipe.decode_latent(torch.from_numpy(lat), plan)
+    out = tpipe.decode_latent(torch.from_numpy(lat), plan=plan)
     z = jpipe.denormalize_latent(jnp.asarray(lat))
     ref = jnp.clip(tiled_decode(jpipe.vae, jpipe.vae_params, z, 32,
                                 temporal_chunk=True, window_size=2,
