@@ -4,9 +4,9 @@ for both DiT families, the string-prompt path from a release-layout
 checkpoint, the HTTP serving app, the latent-extraction tool, the EMA
 evaluation path, GAN-VAE training, the heads-per-block attention experiment,
 the sequence-, fully-sharded- and context-parallel paths (two ranks
-sharing the card), with accumulation and sharded checkpoints, and the 768p
-request on the memory-planned decode with the 768p tools, once on one CUDA
-card.
+sharing the card), with accumulation and sharded checkpoints, the 768p
+request on the memory-planned decode with the 768p tools, and the DiTs'
+classic-softmax route in serving and training, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -55,11 +55,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stage-2 layout, L=11008), its launches held to exactly its count;
 6. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
    blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
-   384x640 unit 15 stage 2 layout through the kernel and through the plain
-   version; relative L2 <= 2e-2 on the valid tokens; then the same DiT and
-   inputs in fp32 on the plain route (a copy built after the bf16 forwards
-   and freed at once): each route's relative L2 to fp32, the kernel route's
-   within 1.1x of the plain route's;
+   384x640 unit 15 stage 2 layout on each softmax route (the bounded
+   forward K1, and the classic one K2 with ``bounded_softmax=False``; 57
+   launches of its kernel and none of the other) and through the plain
+   version; each kernel route within relative L2 2e-2 of the plain version
+   on the valid tokens; then the same DiT and inputs in fp32 on the plain
+   route (a copy built after the bf16 forwards and freed at once): each
+   route's relative L2 to fp32, each kernel route's within 1.1x of the
+   plain route's;
+6b. out of the bounded forward's envelope: a full-width miniFLUX cut to
+   2 + 4 blocks (seeded, SEED + 12) whose qk-norm gains are scaled by 4 and
+   then by 1.25 until ``bounded_softmax_overshoot`` over its attentions
+   reads above 150 log2 units; at phase 6's layout the classic route must
+   stay within 1.1x of the plain version's distance to fp32 and the
+   bounded route must not (beyond it or non-finite): the scenario the
+   training CLI's warning describes (the bf16 plain version is itself
+   about 1e-1 from fp32 there, so fp32 is the anchor);
 7. full-width encode: the release VAE (bf16, random weights)
    ``chunk_encode``s a seeded smooth 17-frame 384x640 clip through the conv
    kernel, through the plain version and in fp32; relative L2 of the
@@ -73,14 +84,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    nonzero gradient, the kernel route's decoder gradient is within 1.1x of
    the plain route's distance to fp32, and each of the 34 admitted convs
    launches the kernel once;
-8. serve: two text-to-video requests through ``PyramidFlowPipeline.generate``
-   (384x640, temp 1 and temp 4, steps [20,20,20]/[10,10,10], guidance 7/5,
-   uint8 frames out) and one image-to-video request through
-   ``PyramidFlowRunner.generate_i2v`` (a seeded smooth 384x640 image, a
-   seeded stand-in text encoder, temp 4, the same steps and guidance). The
-   latents must be finite, the frames not constant, the flash forward
-   launched exactly 57 times per DiT forward and the conv kernel exactly
-   once per admitted conv and VAE window;
+8. serve: text-to-video through ``PyramidFlowPipeline.generate`` (384x640,
+   steps [20,20,20]/[10,10,10], guidance 7/5, uint8 frames out): (a) temp
+   1, then the same request on the classic route (K2), and one
+   image-to-video request through ``PyramidFlowRunner.generate_i2v`` (a
+   seeded smooth 384x640 image, a seeded stand-in text encoder, temp 4,
+   the same steps and guidance); after phase 8b, (b) the JAX bench's
+   request (``bench.py``: temp 16, 121 frames, ``save_memory=True`` and
+   ``release_dit_before_decode=True``, the pipeline then the DiT's only
+   holder). The latents must be finite, the frames not constant, the flash
+   forward of the route launched exactly 57 times per DiT forward and the
+   other not at all, and the conv kernel exactly once per admitted conv and
+   VAE window; each request's wall, DiT and decode seconds and peak memory
+   (of the request, its DiT phase and its decode) are printed;
 8b. a string prompt from a checkpoint: a full-width CLIP-L (12 x 768) and
    T5-XXL (24 x 4096, 64 x 64 heads, d_ff 10240) in bf16 with seeded random
    weights (a generator of their own), written with the serving miniFLUX
@@ -116,11 +132,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and tile;
 9. full-width DiT gradient: the release DiT with fp32 parameters, bf16
    autocast and remat, one training-loss backward of a batch row at the
-   384x640 unit-16 stage-2 training layout (L = 3068), through the kernels
-   and through the plain version; relative L2 of the concatenated parameter
-   gradient <= 5e-2, every parameter with a nonzero gradient, and exactly
-   2 forward launches (forward and recompute) and one of each backward
-   kernel per attention;
+   384x640 unit-16 stage-2 training layout (L = 3068), through the plain
+   version and through the kernels on each softmax route; relative L2 of
+   each route's concatenated parameter gradient to the plain one <= 5e-2,
+   every parameter with a nonzero gradient, and exactly 2 launches of the
+   route's forward (forward and recompute) and one of each backward kernel
+   per attention;
 10. train: the serving DiT freed, ``create_train_state`` on that DiT (its
    output projection zeroed, as the JAX model initialises it) and three
    ``make_train_step`` steps at the JAX CLI's default shape (batch 4, 16
@@ -200,7 +217,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    step as the sharded steps are, then its state saved with
    ``torch.distributed.checkpoint`` and resumed on an sp=2 mesh, equal to
    the saved state gathered, exactly (bytes and seconds printed); then one
-   full-depth step of the training CLI on one NCCL rank. Every rank's
+   full-depth step of the training CLI on one NCCL rank with
+   ``--classic_softmax`` (K2 342 launches, K1 none, K3/K4 171). Every rank's
    launches join the kernels line, beside the card's name and power limit;
 14. 768p, with the earlier models freed: the release miniFLUX and VAE
    (``profile_768p.build_models``, seeded) serve one T2V request at
@@ -213,7 +231,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    plain version and fp32 (the kernel route within 1.1x of the plain
    route's distance to fp32) and untiled (the strips' distance to it,
    printed); ``profile_768p`` at its defaults without the sweep (each
-   stage's forward, K1 alone and its share, the 17-frame decode through
+   stage's forward, K1 and K2 alone and their shares, the 17-frame decode
+   through
    ``decode_latent(save_memory=True)``; exact launches) and K1 against the
    plain version at its stage-2 layout (phase 3's tolerances on phase 3's
    inputs, ``exp_flash_h2``'s on the tool's q = k = v);
@@ -228,14 +247,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    DiT (``guidance`` 4.5); a release-width VAE of 2D twin blocks, one
    encode and decode of a 9-frame 256x256 clip (finite, no kernel launch).
 
-Each path (the experiment, the VAE decode gradient, text-to-video,
-image-to-video, the string prompt from the checkpoint, the HTTP T2V and
+Each path (the experiment, the VAE decode gradient, text-to-video on each
+softmax route, image-to-video, the string prompt from the checkpoint, the
+bench's request, the HTTP T2V and
 I2V requests, the two extraction runs, latent training, the EMA request,
 raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
 latent training, the GAN-VAE generator gradient, GAN-VAE training, and
 phase 13's SP attention, SP serving, sharded training per mesh, the CP
-GAN-VAE step, the accumulated sharded step and the training CLI, on every
-rank; phase 14's 768p request and its four tools) runs
+GAN-VAE step, the accumulated sharded step and the training CLI on the
+classic route, on every rank; phase 14's 768p request and its four tools)
+runs
 with every launch counter set to 0 just before it and read just after. Before the
 last line the script prints one JSON object with each kernel's launches
 summed over those paths, its largest error against the plain version, its
@@ -248,8 +269,8 @@ the paths make; the forwards also give ``kernel_ms``, the kernel's own
 device time. K3 and K4 share one ``ms``, the whole backward as the path
 calls it, with their own ``kernel_ms`` and the delta kernel's
 (``delta_kernel_ms``) beside it; their rate and share are of their own
-time. The classic forward (K2), which no path
-runs, has an entry of its own with 0 launches. The last line is
+time. Each entry gives its launches by path (``launches_by_path``), and
+every kernel must have been launched by some path. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1.
 """
 
@@ -346,7 +367,9 @@ LAYOUTS = (  # (name, height, width, unit, stage)
 )
 TIMED_LAYOUT = "384x640 u15 s2"
 HEIGHT, WIDTH = 384, 640  # the requests', the encode's and the video's
-REQUESTS = (("a", 1), ("b", 4))  # (name, temp)
+# T2V (a), and (b) the JAX bench's request (bench.py: temp 16, 384x640, the
+# steps and guidance below, save_memory, the DiT released before the decode)
+T2V_TEMP, BENCH_TEMP = 1, 16
 I2V_TEMP = 4
 STEPS, VIDEO_STEPS = [20, 20, 20], [10, 10, 10]
 DECODE_WINDOW, ENCODE_WINDOW = 2, 16  # latent frames; pixel frames
@@ -357,6 +380,11 @@ CONV_REL, ENCODE_REL_L2, IN_PLACE_REL_L2 = 2e-2, 2e-2, 2e-3
 VAE_GRAD_LATENT = (12, 20)  # latent h, w of the decode gradient: 96x160
 RAW_STEPS = 2
 MMDIT_TEMP, MMDIT_TRAIN_STEPS = 4, 2
+# out of the bounded forward's envelope: a full-width miniFLUX cut to 2 + 4
+# blocks whose qk-norm gains grow (from GAIN0, by GAIN_STEP) until the
+# bounded forward's overshoot passes ENVELOPE_LOG2 log2 units (its shift
+# underflows near 120)
+ENVELOPE_DEPTH, ENVELOPE_LOG2, GAIN0, GAIN_STEP = (2, 4), 150.0, 4.0, 1.25
 HN_TIMED_HS = 2  # the heads per block timed beside K1 (the JAX default)
 TOOL_ITERS = 8   # the tool's timed launches per kernel
 RAW_FRAMES = 1 + 8 * (TRAIN_FRAMES - 1)  # 121 pixel frames, 16 latent
@@ -1215,49 +1243,130 @@ def fp32_forward(dit, inputs, **forward_kw):
     return out
 
 
+# the DiTs' two softmax routes: (name, bounded_softmax)
+ROUTES = (("bounded", True), ("classic", False))
+
+
+def route_launches(bounded: bool, n: int) -> dict:
+    """``expected``'s keywords for ``n`` forward launches on a DiT's route:
+    K1's on the bounded softmax, K2's on the classic one."""
+    return dict(fwd=n) if bounded else dict(classic=n)
+
+
 @torch.no_grad()
-def dit_check(dit, meta_pipe, dev, gen, **forward_kw):
-    """One bf16 forward through the kernel and through the plain version,
-    held to each other (relative L2 ``DIT_REL_L2``) and anchored to fp32:
-    the same DiT and inputs in fp32 on the plain route (a copy built after
-    the bf16 forwards and freed before this returns). Two bf16 routes drift
-    apart with random weights about as far as each drifts from fp32, so the
-    kernel route must also be within 1.1x of the plain route's distance to
-    fp32, as the encode check holds the conv kernel. ``forward_kw`` go to
-    every forward (the guidance DiT's ``guidance``)."""
-    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
-                                  next(dit.parameters()).dtype)
-    before = fa.flash_fwd_cuda.launches
-    out_k = dit(*inputs, **forward_kw)
-    torch.cuda.synchronize()
-    launched = fa.flash_fwd_cuda.launches - before
-    if launched != dit.num_attention_calls:
-        raise AssertionError(f"{launched} kernel launches in one forward, "
-                             f"expected {dit.num_attention_calls}")
-    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
-        out_p = dit(*inputs, **forward_kw)
-    torch.cuda.synchronize()
+def dit_routes(dit, inputs, lat_time, **forward_kw):
+    """One bf16 forward on each softmax route (K1 for the bounded one, K2
+    for the classic one, each launched once per attention and the other
+    not at all) and one through the plain version, then the same DiT and
+    inputs in fp32 on the plain route (a copy built after the bf16 forwards
+    and freed before this returns). Returns per route whether its output is
+    finite, its relative L2 to the plain version and to fp32, whether it is
+    ``anchored`` (finite and within 1.1x of the plain version's distance to
+    fp32: two bf16 routes drift apart with random weights about as far as
+    each drifts from fp32, as the encode check holds the conv kernel) and
+    whether it ``holds`` (anchored, and within ``DIT_REL_L2`` of the plain
+    version). ``forward_kw`` go to every forward (the guidance DiT's
+    ``guidance``). The DiT's route is left as it was."""
     valid = lat_time != fa.INVALID_TIME
-    a, b = out_k[:, valid].float(), out_p[:, valid].float()
-    if not (torch.isfinite(a).all() and torch.isfinite(b).all()):
-        raise AssertionError("non-finite DiT output")
-    rel = rel_l2(a, b)
+    n, route = dit.num_attention_calls, dit.bounded_softmax
+    outs = {}
+    try:
+        for name, bounded in ROUTES:
+            dit.bounded_softmax = bounded
+            before = launch_counts()
+            out = dit(*inputs, **forward_kw)
+            torch.cuda.synchronize()
+            want = expected(**route_launches(bounded, n))
+            if counted(before) != want:
+                raise AssertionError(f"{name} forward launches "
+                                     f"{counted(before)}, expected {want}")
+            outs[name] = out[:, valid].float()
+    finally:
+        dit.bounded_softmax = route
+    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
+        b = dit(*inputs, **forward_kw)[:, valid].float()
+    torch.cuda.synchronize()
     out_32 = fp32_forward(dit, inputs, **forward_kw)[:, valid]
-    if not torch.isfinite(out_32).all():
-        raise AssertionError("non-finite fp32 DiT output")
+    if not (torch.isfinite(b).all() and torch.isfinite(out_32).all()):
+        raise AssertionError("non-finite plain or fp32 DiT output")
     r = dict(dit=type(dit).__name__, L=inputs[2].shape[1] + TEXT_LEN,
-             rel_l2=rel, kernel_vs_fp32=rel_l2(a, out_32),
              plain_vs_fp32=rel_l2(b, out_32),
              out_rms=b.square().mean().sqrt().item())
-    log(f"full-width {r['dit']} forward, L={r['L']}: kernel vs plain "
-        f"relative L2 {rel:.3e} (limit {DIT_REL_L2}); to fp32: kernel "
-        f"{r['kernel_vs_fp32']:.3e}, plain {r['plain_vs_fp32']:.3e} (kernel "
-        f"within 1.1x of plain); |out| rms {r['out_rms']:.3e}")
-    if not rel <= DIT_REL_L2:
-        raise AssertionError(f"DiT kernel vs plain relative L2 {rel}")
-    if not r["kernel_vs_fp32"] <= 1.1 * r["plain_vs_fp32"]:
-        raise AssertionError(f"DiT kernel route further from fp32 than the "
-                             f"plain route: {r}")
+    for name, a in outs.items():
+        finite = bool(torch.isfinite(a).all())
+        rel = rel_l2(a, b) if finite else None
+        to_32 = rel_l2(a, out_32) if finite else None
+        anchored = finite and to_32 <= 1.1 * r["plain_vs_fp32"]
+        r[name] = dict(finite=finite, rel_l2=rel, vs_fp32=to_32,
+                       anchored=anchored,
+                       holds=anchored and rel <= DIT_REL_L2)
+    return r
+
+
+def dit_check(dit, meta_pipe, dev, gen, **forward_kw):
+    """``dit_routes`` at the 384x640 unit 15 stage 2 layout: both softmax
+    routes must hold."""
+    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
+                                  next(dit.parameters()).dtype)
+    r = dit_routes(dit, inputs, lat_time, **forward_kw)
+    log(f"full-width {r['dit']} forward, L={r['L']}, each route against "
+        f"the plain version (limit {DIT_REL_L2}) and fp32 (within 1.1x of "
+        f"the plain version's {r['plain_vs_fp32']:.3e}): " + ", ".join(
+            f"{name} {r[name]['rel_l2']}, {r[name]['vs_fp32']}"
+            for name, _ in ROUTES) + f"; |out| rms {r['out_rms']:.3e}")
+    failed = [name for name, _ in ROUTES if not r[name]["holds"]]
+    if failed:
+        raise AssertionError(f"DiT forward off on the {failed} route: {r}")
+    return r
+
+
+def envelope_check(meta_pipe, dev) -> dict:
+    """Out of the bounded forward's envelope: a full-width miniFLUX cut to
+    ``ENVELOPE_DEPTH`` blocks, bf16, seeded weights (SEED + 12), whose
+    qk-norm gains are multiplied by ``GAIN0`` and then by ``GAIN_STEP``
+    until ``bounded_softmax_overshoot`` over its attentions' post-RoPE q
+    and k (the training probe's reading) passes ``ENVELOPE_LOG2``. Then at
+    the ``dit_check`` layout the classic route (K2) must stay anchored to
+    fp32 and the bounded route (K1) must not (nor hold): the scenario the
+    training CLI's warning describes, and why ``--classic_softmax`` exists.
+    At these gains the bf16 plain version itself sits about 1e-1 from fp32
+    on an H100 (scores 16 times the envelope's amplify every bf16
+    rounding), and the classic route about 5e-2 from it, so ``DIT_REL_L2``
+    between two bf16 routes is below the rounding there and fp32 is the
+    anchor; the relative L2 to the plain version is printed."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 12)
+    dual, single = ENVELOPE_DEPTH
+    dit = PyramidFluxTransformer(
+        FluxConfig(num_layers=dual, num_single_layers=single),
+        dtype=torch.bfloat16, device=dev)
+    randomize_(dit, gen)
+    inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit, torch.bfloat16)
+    tq = torch.cat([text_time(dev), lat_time.to(torch.int32)])[None]
+    norms = [p for name, p in dit.named_parameters()
+             if name.split(".")[-2] in ("norm_q", "norm_k", "norm_added_q",
+                                        "norm_added_k")]
+    gain, factor, readings = 1.0, GAIN0, []
+    while not readings or readings[-1] <= ENVELOPE_LOG2:
+        with torch.no_grad():
+            for p in norms:
+                p.mul_(factor)
+        gain, factor = gain * factor, GAIN_STEP
+        with torch.no_grad(), dit.capture_qk() as captured:
+            dit(*inputs)
+        readings.append(max(fa.bounded_softmax_overshoot(q[:1], k[:1], tq)
+                            .item() for q, k in captured))
+    r = dit_routes(dit, inputs, lat_time)
+    r.update(depth=list(ENVELOPE_DEPTH), qk_gain=gain,
+             overshoot_log2=readings, seconds=time.perf_counter() - t0)
+    log("out of the envelope " + json.dumps(r))
+    if not r["classic"]["anchored"] or r["bounded"]["anchored"]:
+        raise AssertionError(
+            f"out of the envelope the classic route must stay anchored to "
+            f"fp32 and the bounded route must not: {r}")
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
     return r
 
 
@@ -1280,9 +1389,9 @@ def training_batch(dit_cfg, dev, gen, batch):
 
 def launch_counts() -> dict:
     """Launches by kernel; ``flash_fwd`` is the bounded forward (K1),
-    ``flash_fwd_classic`` the classic one (K2), which no path runs,
-    ``flash_fwd_hn`` the heads-per-block forward (K6), which only the
-    ``exp_flash_h2`` tool runs."""
+    ``flash_fwd_classic`` the classic one (K2, the DiTs' classic-softmax
+    route), ``flash_fwd_hn`` the heads-per-block forward (K6), which only
+    the ``exp_flash_h2`` tool runs."""
     classic = fa.flash_fwd_cuda.classic_launches
     return {"flash_fwd": fa.flash_fwd_cuda.launches - classic,
             "flash_fwd_classic": classic,
@@ -1301,10 +1410,12 @@ def reset_launch_counts():
     fa.flash_fwd_hn_cuda.launches = 0
 
 
-def expected(fwd=0, bwd=0, conv=0, hn=0) -> dict:
-    """Launch counts of a path: ``bwd`` of each backward kernel."""
-    return {"flash_fwd": fwd, "flash_fwd_classic": 0, "flash_bwd_dkv": bwd,
-            "flash_bwd_dq": bwd, "causal_conv3d": conv, "flash_fwd_hn": hn}
+def expected(fwd=0, bwd=0, conv=0, hn=0, classic=0) -> dict:
+    """Launch counts of a path: ``fwd`` of K1, ``classic`` of K2, ``bwd`` of
+    each backward kernel."""
+    return {"flash_fwd": fwd, "flash_fwd_classic": classic,
+            "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd, "causal_conv3d": conv,
+            "flash_fwd_hn": hn}
 
 
 def counted(before: dict) -> dict:
@@ -1313,10 +1424,12 @@ def counted(before: dict) -> dict:
 
 def dit_grad_check(dit, dev, gen):
     """One training-loss backward of a batch row at the stage-2 training
-    layout through the kernels and through the plain version. Every
-    parameter gets a nonzero gradient but the DiT's
-    ``gradient_free_parameters`` (the MMDiT's last-block text-query
-    projection, whose output that block discards), which get exactly 0."""
+    layout through the plain version, then through the kernels on each
+    softmax route (K1 or K2 forward, K3/K4 backward after its ``lse``),
+    each held to the plain gradient. Every parameter gets a nonzero
+    gradient but the DiT's ``gradient_free_parameters`` (the MMDiT's
+    last-block text-query projection, whose output that block discards),
+    which get exactly 0. The DiT's route is left as it was."""
     sched = PyramidFlowMatchEulerDiscreteScheduler()
     batch = training_batch(dit.config, dev, gen, 1)
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
@@ -1343,42 +1456,52 @@ def dit_grad_check(dit, dev, gen):
         dit.zero_grad(set_to_none=True)
         return loss.item(), grads
 
-    before = launch_counts()
-    t0 = time.perf_counter()
-    loss_k, gk = backward()
-    kernel_s = time.perf_counter() - t0
-    launched = counted(before)
-    n = dit.num_attention_calls
-    if launched != expected(2 * n, n):
-        raise AssertionError(f"launches {launched} in one remat forward+"
-                             f"backward, expected {expected(2 * n, n)}")
-    missing = [name for name, g in gk.items()
-               if g is None or not bool((g != 0).any())]
-    if missing != list(getattr(dit, "gradient_free_parameters", ())):
-        raise AssertionError(f"{len(missing)} parameters got no gradient "
-                             f"through the kernels, e.g. {missing[:5]}")
-
     with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
         t0 = time.perf_counter()
         loss_p, gp = backward()
         plain_s = time.perf_counter() - t0
-    diff2 = ref2 = 0.0
-    worst = ("", 0.0)
-    for name, g in gk.items():
-        d2 = (g - gp[name]).float().square().sum().item()
-        r2 = gp[name].float().square().sum().item()
-        diff2, ref2 = diff2 + d2, ref2 + r2
-        if r2 > 0 and math.sqrt(d2 / r2) > worst[1]:
-            worst = (name, math.sqrt(d2 / r2))
-    rel = math.sqrt(diff2 / ref2)
-    r = dict(dit=type(dit).__name__, L=L, loss_kernel=loss_k,
-             loss_plain=loss_p, rel_l2=rel, worst_leaf=worst[0],
-             worst_leaf_rel_l2=worst[1], gradient_free=missing,
-             launches=launched, kernel_s=kernel_s, plain_s=plain_s)
-    log("full-width DiT gradient, kernel vs plain " + json.dumps(r))
-    if not (math.isfinite(rel) and rel <= DIT_GRAD_REL_L2):
-        raise AssertionError(f"DiT gradient relative L2 {rel} > "
-                             f"{DIT_GRAD_REL_L2}")
+    n, route = dit.num_attention_calls, dit.bounded_softmax
+    r = dict(dit=type(dit).__name__, L=L, loss_plain=loss_p, plain_s=plain_s)
+    try:
+        for name, bounded in ROUTES:
+            dit.bounded_softmax = bounded
+            before = launch_counts()
+            t0 = time.perf_counter()
+            loss_k, gk = backward()
+            kernel_s = time.perf_counter() - t0
+            launched = counted(before)
+            want = expected(bwd=n, **route_launches(bounded, 2 * n))
+            if launched != want:
+                raise AssertionError(f"{name} route: launches {launched} in "
+                                     f"one remat forward+backward, expected "
+                                     f"{want}")
+            missing = [m for m, g in gk.items()
+                       if g is None or not bool((g != 0).any())]
+            if missing != list(getattr(dit, "gradient_free_parameters", ())):
+                raise AssertionError(f"{len(missing)} parameters got no "
+                                     f"gradient on the {name} route, e.g. "
+                                     f"{missing[:5]}")
+            diff2 = ref2 = 0.0
+            worst = ("", 0.0)
+            for m, g in gk.items():
+                d2 = (g - gp[m]).float().square().sum().item()
+                r2 = gp[m].float().square().sum().item()
+                diff2, ref2 = diff2 + d2, ref2 + r2
+                if r2 > 0 and math.sqrt(d2 / r2) > worst[1]:
+                    worst = (m, math.sqrt(d2 / r2))
+            del gk
+            r[name] = dict(loss=loss_k, rel_l2=math.sqrt(diff2 / ref2),
+                           worst_leaf=worst[0], worst_leaf_rel_l2=worst[1],
+                           gradient_free=missing, launches=launched,
+                           seconds=kernel_s)
+    finally:
+        dit.bounded_softmax = route
+    log("full-width DiT gradient, each route vs plain " + json.dumps(r))
+    for name, _ in ROUTES:
+        rel = r[name]["rel_l2"]
+        if not (math.isfinite(rel) and rel <= DIT_GRAD_REL_L2):
+            raise AssertionError(f"DiT gradient on the {name} route: "
+                                 f"relative L2 {rel} > {DIT_GRAD_REL_L2}")
     return r
 
 
@@ -1538,19 +1661,31 @@ def train_raw_pixels(dit, vae, state, dev, gen):
     return steps, launched, peak
 
 
-def serve(pipe, dev, gen, name, temp):
-    cfg = pipe.dit.config
+def serve(pipe, dev, gen, name, temp, bench=False):
+    """One T2V request at 384x640 through ``pipe`` on its DiT's softmax
+    route, the features drawn from ``gen``, with its exact launches; the
+    peak memory of the whole request, of its DiT phase and of its decode,
+    and the memory held when the decode starts. ``bench``: as the JAX bench
+    makes it, the DiT released before the decode, which frees its memory
+    where the pipeline is its only holder; the pipeline then has no DiT."""
+    cfg, n = pipe.dit.config, pipe.dit.num_attention_calls
+    bounded = pipe.dit.bounded_softmax
     emb = torch.randn((1, TEXT_LEN, cfg.joint_attention_dim), generator=gen,
                       device=dev).to(pipe.dtype)
     mask = (text_time(dev) == 0)[None]
     pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen,
                          device=dev).to(pipe.dtype)
-    seen = []
+    seen, memory = [], {}
     decode = pipe.decode_latent
 
     def spy(latents, **kw):
         seen.append(latents)
-        return decode(latents, **kw)
+        memory["dit_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        memory["decode_start_gb"] = torch.cuda.memory_allocated(dev) / 1e9
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = decode(latents, **kw)
+        memory["decode_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        return out
 
     forwards = sum(STEPS) + (temp - 1) * sum(VIDEO_STEPS)
     before = launch_counts()
@@ -1562,20 +1697,24 @@ def serve(pipe, dev, gen, name, temp):
             emb * 0, mask, pooled * 0, height=HEIGHT, width=WIDTH, temp=temp,
             num_inference_steps=STEPS, video_num_inference_steps=VIDEO_STEPS,
             guidance_scale=7.0, video_guidance_scale=5.0,
-            output_type="pixels")
+            output_type="pixels", save_memory=True,
+            release_dit_before_decode=bench)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = counted(before)
     windows = len(vae_model._window_starts(temp, DECODE_WINDOW, 1))
-    want = expected(pipe.dit.num_attention_calls * forwards,
+    want = expected(**route_launches(bounded, n * forwards),
                     conv=kernel_conv_count(pipe.vae.decoder) * windows)
     check_request(frames, seen, launched, want, temp)
     r = dict(request=name, temp=temp, frames=frames.shape[1],
-             dit_forwards=forwards, launches=launched, wall_s=wall,
+             bounded_softmax=bounded, bench=bench,
+             dit_released=pipe.dit is None, dit_forwards=forwards,
+             launches=launched, wall_s=wall,
              dit_s=pipe.last_dit_seconds, decode_s=pipe.last_decode_seconds,
-             peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+             peak_mem_gb=max(memory["dit_peak_gb"],
+                             memory["decode_peak_gb"]), **memory,
              latent_rms=seen[0].square().mean().sqrt().item(),
-             frame_std=frames.float().std().item())
+             frame_std=frames.float().std().item(), card=card_line())
     log("request " + json.dumps(r))
     return r
 
@@ -3217,29 +3356,50 @@ def write_latent_anno(directory: str) -> str:
 
 def cli_train_phase(dev) -> dict:
     """One step of the training CLI at full depth on a world of one
-    (NCCL, ``--fsdp 1``): FSDP2's DTensor route end to end on the real
-    backend."""
+    (NCCL, ``--fsdp 1``) with ``--classic_softmax``: FSDP2's DTensor route
+    end to end on the real backend, every attention on K2 and the backward
+    kernels after K2's ``lse``. The whole run's seconds, and the step's
+    own (``make_train_step``'s step timed where the CLI calls it)."""
     from pyramid_flow_tpu_torch.tools import train_pyramid_flow
+    from pyramid_flow_tpu_torch.training import trainer
+
+    step_s = []  # the step's own seconds, synchronised
+    make = trainer.make_train_step
+
+    def timed_make_train_step(*args, **kw):
+        step_fn = make(*args, **kw)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step_fn(*a, **k)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return out
+        return timed
 
     anno = os.path.join(PAR_DIR, "latents.jsonl")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    code = train_pyramid_flow.main([
-        "--anno_file", anno, "--fsdp", "1", "--epochs", "1",
-        "--steps_per_epoch", "1", "--gradient_checkpointing",
-        "--bound_probe_freq", "0", "--save_ckpt_freq", "1000",
-        "--print_freq", "1", "--output_dir",
-        os.path.join(PAR_DIR, "cli_run")])
+    with mock.patch.object(trainer, "make_train_step", timed_make_train_step):
+        code = train_pyramid_flow.main([
+            "--anno_file", anno, "--fsdp", "1", "--epochs", "1",
+            "--steps_per_epoch", "1", "--gradient_checkpointing",
+            "--bound_probe_freq", "0", "--save_ckpt_freq", "1000",
+            "--print_freq", "1", "--classic_softmax", "--output_dir",
+            os.path.join(PAR_DIR, "cli_run")])
     torch.cuda.synchronize()
     launched = launch_counts()
     res = dict(card=card_line(), exit=code,
-               seconds=time.perf_counter() - t0,
+               seconds=time.perf_counter() - t0, step_s=step_s,
                peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
                launches=launched)
-    log("[rank 0] training CLI, one rank on NCCL " + json.dumps(res))
+    log("[rank 0] training CLI, one rank on NCCL, --classic_softmax "
+        + json.dumps(res))
     attentions = FluxConfig().num_layers + FluxConfig().num_single_layers
-    if code != 0 or launched != expected(2 * 3 * attentions, 3 * attentions):
+    if code != 0 or launched != expected(bwd=3 * attentions,
+                                         classic=2 * 3 * attentions):
         raise AssertionError(f"training CLI step: {res}")
     return {"result": res, "launches": launched}
 
@@ -3318,7 +3478,8 @@ def parallel_phases(dev, paths: dict, conv_shapes: set) -> dict:
         conv_shapes.update(tuple(s) for s in r["cp_gan"]["conv_shapes"])
     write_latent_anno(PAR_DIR)
     cli = run_children("cli_train", 1, "nccl")
-    paths["training CLI (one NCCL rank)"] = cli[0]["launches"]
+    paths["training CLI, classic softmax (one NCCL rank)"] = \
+        cli[0]["launches"]
     log(f"multi-rank phases: {time.perf_counter() - t0:.1f} s "
         f"({card_line()})")
     return {"world": world, "backend": backend, "ranks": ranks,
@@ -3629,7 +3790,8 @@ def conv_stack_check(dev, gen):
 def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
     """Phase 14, with every earlier model freed: the release miniFLUX and
     VAE (``profile_768p.build_models``) serve one 768p request on the 16 GB
-    class's strip plan; ``profile_768p`` at its defaults (no sweep) with K1
+    class's strip plan; ``profile_768p`` at its defaults (no sweep, K2
+    timed beside K1) with K1
     held to the plain version at its stage-2 layout; ``exp_vae_tiling
     --iters 1``, ``exp_conv_stack`` and ``exp_decode_scan`` (frames bit for
     bit); the guidance-embedded miniFLUX's forward anchored to fp32; a
@@ -3654,10 +3816,11 @@ def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
         launched = launch_counts()
         calls = (exp_flash_h2.WARMUP + profile_768p.ITERS) * 3
         # the decode on this card's plan with the DiT resident: untiled at
-        # 96 x 160 on a card of 48 GB or more, in the plan's windows
+        # 96 x 160 on a card of 48 GB or more, in the plan's windows; K2
+        # timed beside K1 at each stage
         plan = decode_settings(True, device_memory_gb(dev))
         want = expected(
-            calls * (dit.num_attention_calls + 1),
+            calls * (dit.num_attention_calls + 1), classic=calls,
             conv=2 * decode_launches(vae, profile_768p.FRAMES,
                                      plan.untiled_window))
         if launched != want:
@@ -3784,6 +3947,7 @@ def main() -> int:
         f"{kernel_conv_count(vae.decoder)} decoder convs on the conv "
         f"kernel), built in {time.perf_counter() - t0:.1f} s")
     dit_check(dit, meta_pipe, dev, gen)
+    envelope_check(meta_pipe, dev)
     conv_shapes = set()
     with record_conv_shapes(conv_shapes):
         encode_check(vae, dev, gen)
@@ -3795,23 +3959,32 @@ def main() -> int:
         pipe = PyramidFlowPipeline(dit, vae, dtype=torch.bfloat16,
                                    device=dev)
         reset_launch_counts()
-        requests = [serve(pipe, dev, gen, name, temp)
-                    for name, temp in REQUESTS]
+        serve(pipe, dev, gen, "a", T2V_TEMP)
         paths["text-to-video"] = launch_counts()
-        log("text-to-video decode seconds through the conv kernel: "
-            + ", ".join(f"({r['request']}) {r['decode_s']:.3f} of "
-                        f"{r['wall_s']:.3f} s wall" for r in requests)
-            + "; PR 2 call 4 on cuDNN (NVIDIA H100 80GB HBM3, 700 W): (a) "
-              "6.142 s and (b) 15.107 s wall, decode about 0.5 s")
+        # the same request on the classic route (its features from a
+        # generator of their own)
+        dit.bounded_softmax = False
+        reset_launch_counts()
+        serve(pipe, dev, torch.Generator(dev).manual_seed(SEED + 13),
+              "a, classic softmax", T2V_TEMP)
+        paths["text-to-video, classic softmax"] = launch_counts()
+        dit.bounded_softmax = True
         reset_launch_counts()
         serve_i2v(pipe, dev, gen)
         paths["image-to-video"] = launch_counts()
         # a string prompt through from_pretrained, from a checkpoint of the
         # serving models and full-width text encoders
         checkpoint_path(pipe, dev, paths)
+        # the JAX bench's request last: the pipeline is then the serving
+        # DiT's only holder, so that releasing it before the decode frees
+        # its memory, as in bench.py
+        del dit
+        reset_launch_counts()
+        serve(pipe, dev, gen, "b", BENCH_TEMP, bench=True)
+        paths["text-to-video, the bench's request"] = launch_counts()
 
-        # training: free the serving DiT first; the VAE stays for raw pixels
-        del pipe, dit
+        # training: the serving DiT is gone; the VAE stays for raw pixels
+        del pipe
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -3845,8 +4018,7 @@ def main() -> int:
     p768 = phase_768p(dev, meta_pipe, paths, kgen)
     log("launches by path " + json.dumps(paths))
     total = {k: sum(p[k] for p in paths.values()) for k in launch_counts()}
-    unused = [k for k, n in total.items()
-              if n == 0 and k != "flash_fwd_classic"]
+    unused = [k for k, n in total.items() if n == 0]
     if unused:
         raise AssertionError(f"kernels no path launched: {unused}")
 
@@ -3876,7 +4048,9 @@ def main() -> int:
 
     log(json.dumps({"kernels": [dict(
         e, tflops=flops[e["name"]] / own_ms(e) / 1e9,
-        bound_share=e["bound_ms"] / own_ms(e)) for e in [{
+        bound_share=e["bound_ms"] / own_ms(e),
+        launches_by_path={path: p[e["name"]] for path, p in paths.items()
+                          if p[e["name"]]}) for e in [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",

@@ -17,6 +17,11 @@ process group (the DiT sets it from its mesh): the module then holds this
 rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
 :func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention`; a capture
 then appends the whole sequence's q and k, gathered from the ranks.
+
+Every block and attention module takes ``bounded`` as its last forward
+argument, the softmax form of its attention: the bounded forward (True, the
+default) or the classic online softmax. The DiT passes its
+``bounded_softmax`` on every forward.
 """
 
 from __future__ import annotations
@@ -139,14 +144,16 @@ def _unheads(x):
     return x.transpose(1, 2).reshape(b, l, h * d)
 
 
-def _attention(q, k, v, time_ids, causal, head_dim, sp_group=None):
-    """q, k are RMS-normalised, which keeps the bounded-softmax form exact.
-    With an sp group of more than one rank, q, k, v are this rank's shard
-    of the sequence and the attention is Ulysses' (JAX's
-    ``_dispatch_attention``)."""
+def _attention(q, k, v, time_ids, causal, head_dim, sp_group=None,
+               bounded=True):
+    """q, k are RMS-normalised, which keeps the bounded-softmax form exact
+    while the qk-norm gains stay in its envelope; ``bounded=False`` takes
+    the classic online softmax, exact at any gain. With an sp group of more
+    than one rank, q, k, v are this rank's shard of the sequence and the
+    attention is Ulysses' (JAX's ``_dispatch_attention``)."""
     return sp_flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               time_ids, sp_group, causal=causal,
-                              sm_scale=head_dim ** -0.5, bounded=True)
+                              sm_scale=head_dim ** -0.5, bounded=bounded)
 
 
 def _capture(attn, q, k):
@@ -178,7 +185,7 @@ class JointAttention(nn.Module):
         self.capture = None
         self.sp_group = None
 
-    def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
+    def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
         n = self.num_heads
         q = self.norm_q(_heads(self.to_q(x), n))
         k = self.norm_k(_heads(self.to_k(x), n))
@@ -194,7 +201,7 @@ class JointAttention(nn.Module):
         if self.capture is not None:
             _capture(self, q, k)
         o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
-                                self.sp_group))
+                                self.sp_group, bounded))
         return self.to_out[0](o[:, lt:]), self.to_add_out(o[:, :lt])
 
 
@@ -214,7 +221,7 @@ class SingleAttention(nn.Module):
         self.capture = None
         self.sp_group = None
 
-    def forward(self, x, rope_cos, rope_sin, time_ids):
+    def forward(self, x, rope_cos, rope_sin, time_ids, bounded=True):
         n = self.num_heads
         q = apply_rope(self.norm_q(_heads(self.to_q(x), n)), rope_cos,
                        rope_sin)
@@ -224,7 +231,7 @@ class SingleAttention(nn.Module):
         if self.capture is not None:
             _capture(self, q, k)
         return _unheads(_attention(q, k, v, time_ids, self.causal,
-                                   self.head_dim, self.sp_group))
+                                   self.head_dim, self.sp_group, bounded))
 
 
 class FluxTransformerBlock(nn.Module):
@@ -240,11 +247,13 @@ class FluxTransformerBlock(nn.Module):
         self.ff = FeedForward(d, **kw)
         self.ff_context = FeedForward(d, **kw)
 
-    def forward(self, x, ctx, temb, rope_cos, rope_sin, time_ids):
+    def forward(self, x, ctx, temb, rope_cos, rope_sin, time_ids,
+                bounded=True):
         nx, gate, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
         nc, c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(
             ctx, temb)
-        x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids)
+        x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids,
+                                     bounded)
 
         x = x + gate * x_attn
         h = layer_norm(x) * (1 + scale_mlp) + shift_mlp
@@ -270,8 +279,8 @@ class FluxSingleTransformerBlock(nn.Module):
         self.attn = SingleAttention(num_heads, head_dim, causal, **kw)
         self.proj_out = nn.Linear(d + mlp_dim, d, **kw)
 
-    def forward(self, x, temb, rope_cos, rope_sin, time_ids):
+    def forward(self, x, temb, rope_cos, rope_sin, time_ids, bounded=True):
         nx, gate = self.norm(x, temb)
         mlp = F.gelu(self.proj_mlp(nx), approximate="tanh")
-        attn = self.attn(nx, rope_cos, rope_sin, time_ids)
+        attn = self.attn(nx, rope_cos, rope_sin, time_ids, bounded)
         return x + gate * self.proj_out(torch.cat([attn, mlp], dim=-1))

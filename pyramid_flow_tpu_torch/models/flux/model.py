@@ -26,6 +26,16 @@ a multiple of ``sp * 128``) over the sp ranks after the embedders, runs
 every block on this rank's ``L / sp`` tokens (everything between the
 attentions is per token or per row; the attentions are Ulysses'), and
 gathers the output tokens at exit. Every sp rank returns the whole output.
+
+``bounded_softmax`` is the softmax form of every attention: the bounded
+forward (True, JAX's default for the DiTs) or the classic online softmax
+(False), the counterpart of running the JAX package under
+``PF_BOUNDED_SOFTMAX=0``. The bounded form shifts each row by an a-priori
+bound from |q| and |k|, exact while ``bound - true max`` stays well under
+~120 log2 units (``training.telemetry``); the classic form is exact at any
+qk-norm gain. It is one attribute that every forward reads, so setting it
+after a load or after ``set_mesh`` switches every attention, under sequence
+parallelism too; it is saved in no state dict, config or train state.
 """
 
 from __future__ import annotations
@@ -146,10 +156,12 @@ class PyramidFluxTransformer(nn.Module):
 
     def __init__(self, config: FluxConfig = FluxConfig(), *,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 remat: bool = False, mesh=None):
+                 remat: bool = False, mesh=None,
+                 bounded_softmax: bool = True):
         super().__init__()
         cfg = self.config = config
         self.remat = remat
+        self.bounded_softmax = bounded_softmax
         kw = dict(dtype=dtype,
                   device=model_device(device, "PyramidFluxTransformer"))
         d = cfg.inner_dim
@@ -238,11 +250,13 @@ class PyramidFluxTransformer(nn.Module):
             ctx, x = shard.split(ctx, x)
             cos, sin = shard.local(cos, 1), shard.local(sin)
             time_ids = shard.pad(time_ids, INVALID_TIME)
+        bounded = self.bounded_softmax
         for block in self.transformer_blocks:
-            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids)
+            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                               bounded)
         h = torch.cat([ctx, x], dim=1)  # text first
         for block in self.single_transformer_blocks:
-            h = self._run(block, h, temb, cos, sin, time_ids)
+            h = self._run(block, h, temb, cos, sin, time_ids, bounded)
         if shard is not None:  # the output of every local token, gathered
             return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
         return self.proj_out(self.norm_out(h[:, lt:], temb))

@@ -5,7 +5,8 @@ the miniFLUX primitives. Differences from the flux dual block: the text
 stream's qk-norms are ``norm_add_q``/``norm_add_k``, and the last block is
 ``context_pre_only``: its context goes through ``AdaLayerNormContinuous``,
 has no ``to_add_out`` and no ``ff_context``, and comes back unchanged.
-Module names follow the released checkpoint.
+Module names follow the released checkpoint. ``bounded``, the last forward
+argument, is the softmax form, as in the flux blocks.
 """
 
 from __future__ import annotations
@@ -52,7 +53,7 @@ class MMDiTJointAttention(nn.Module):
         self.capture = None
         self.sp_group = None
 
-    def forward(self, x, ctx, rope_cos, rope_sin, time_ids):
+    def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
         n = self.num_heads
         q = self.norm_q(_heads(self.to_q(x), n))
         k = self.norm_k(_heads(self.to_k(x), n))
@@ -67,7 +68,7 @@ class MMDiTJointAttention(nn.Module):
         if self.capture is not None:
             _capture(self, q, k)
         o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
-                                self.sp_group))
+                                self.sp_group, bounded))
         x_o = self.to_out[0](o[:, lt:])
         if self.context_pre_only:
             return x_o, None
@@ -92,14 +93,16 @@ class JointTransformerBlock(nn.Module):
         if not context_pre_only:
             self.ff_context = FeedForward(d, **kw)
 
-    def forward(self, x, ctx, temb, rope_cos, rope_sin, time_ids):
+    def forward(self, x, ctx, temb, rope_cos, rope_sin, time_ids,
+                bounded=True):
         nx, gate, shift_mlp, scale_mlp, gate_mlp = self.norm1(x, temb)
         if self.context_pre_only:
             nc = self.norm1_context(ctx, temb)
         else:
             nc, c_gate, c_shift_mlp, c_scale_mlp, c_gate_mlp = \
                 self.norm1_context(ctx, temb)
-        x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids)
+        x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids,
+                                     bounded)
 
         x = x + gate * x_attn
         h = layer_norm(x) * (1 + scale_mlp) + shift_mlp

@@ -28,7 +28,8 @@ parameter's step is JAX's wherever the clip does not bind.
 
 The default config is the release architecture (24 blocks, 24 heads x 64,
 16 latent channels, patch 2, T5 dim 4096, pooled CLIP-L+G dim 2048).
-Precision, ``remat`` and ``mesh`` (sequence parallelism) work as in the
+Precision, ``remat``, ``mesh`` (sequence parallelism) and
+``bounded_softmax`` (the softmax form of every attention) work as in the
 flux model; the last block is ``context_pre_only``, so under sp the local
 text tokens' outputs are junk that the gather at exit drops. Built on the
 CUDA device unless ``device=`` says otherwise.
@@ -170,13 +171,15 @@ class PyramidDiffusionMMDiT(nn.Module):
 
     def __init__(self, config: MMDiTConfig = MMDiTConfig(), *,
                  dtype: torch.dtype = torch.float32, device="cuda",
-                 remat: bool = False, mesh=None):
+                 remat: bool = False, mesh=None,
+                 bounded_softmax: bool = True):
         super().__init__()
         cfg = self.config = config
         if cfg.caption_projection_dim != cfg.inner_dim:
             raise ValueError("the joint blocks need caption_projection_dim "
                              "== num_attention_heads * attention_head_dim")
         self.remat = remat
+        self.bounded_softmax = bounded_softmax
         kw = dict(dtype=dtype,
                   device=model_device(device, "PyramidDiffusionMMDiT"))
         d = cfg.inner_dim
@@ -270,7 +273,8 @@ class PyramidDiffusionMMDiT(nn.Module):
             cos, sin = shard.local(cos, 1), shard.local(sin)
             time_ids = shard.pad(time_ids, INVALID_TIME)
         for block in self.transformer_blocks:
-            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids)
+            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                               self.bounded_softmax)
         if shard is not None:  # every local token's output, gathered
             h = torch.cat([ctx, x], dim=1)
             return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)

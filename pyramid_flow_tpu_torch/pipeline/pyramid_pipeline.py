@@ -176,7 +176,7 @@ class PyramidFlowPipeline:
                         load_vae: bool = True,
                         dtype: torch.dtype = torch.bfloat16, device="cuda",
                         components: Optional[dict] = None, mesh=None,
-                        **kwargs):
+                        bounded_softmax: bool = True, **kwargs):
         """A pipeline from a released checkpoint directory
         (``utils.checkpoint``): the DiT from ``<model_variant>/`` and the
         VAE from ``causal_video_vae/``, each built on ``device`` in
@@ -190,7 +190,9 @@ class PyramidFlowPipeline:
         (dp, fsdp, sp) mesh whose sp dim shards every DiT forward's tokens
         (the DiT's sequence parallelism, JAX's ``mesh=``): each sp rank runs
         the same denoising loop on the same draws and gets the whole
-        frames."""
+        frames. ``bounded_softmax=False`` builds the DiT on the classic
+        online softmax (the DiT's ``bounded_softmax``; JAX's
+        ``PF_BOUNDED_SOFTMAX=0``)."""
         from ..utils.checkpoint import (build_dit, build_vae,
                                         load_pretrained_components,
                                         require_components)
@@ -204,7 +206,7 @@ class PyramidFlowPipeline:
                            model_path)
         dit = build_dit(model_path, model_variant, model_name,
                         components["dit"], dtype=dtype, device=device,
-                        mesh=mesh)
+                        mesh=mesh, bounded_softmax=bounded_softmax)
         vae = None
         if load_vae:
             vae = build_vae(model_path, components["vae"], dtype=dtype,
@@ -226,12 +228,14 @@ class PyramidFlowPipeline:
         and ships it for inference), cast, and the model's persistent
         buffers. A sharded state is gathered, a collective that every rank
         calls; each rank gets the whole DiT. The training model and its EMA stay as they were, so a
-        later train step is the one it would have been. ``kwargs`` go to
-        the pipeline."""
+        later train step is the one it would have been. The new DiT takes
+        ``dit``'s softmax route (``bounded_softmax``). ``kwargs`` go to the
+        pipeline."""
         if device is None:
             p = next(train_state.model.parameters())
             device = (p.to_local() if hasattr(p, "to_local") else p).device
-        infer = type(dit)(dit.config, dtype=dtype, device=device)
+        infer = type(dit)(dit.config, dtype=dtype, device=device,
+                          bounded_softmax=dit.bounded_softmax)
         target = infer.state_dict()
         seen = set()
         with torch.no_grad():

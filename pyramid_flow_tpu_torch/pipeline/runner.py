@@ -58,7 +58,8 @@ class PyramidFlowRunner:
         kwargs too) and ``FluxTextEncoder`` (CLIP-L + T5) or
         ``SD3TextEncoder`` (CLIP-L + CLIP-G + T5), with the checkpoint's
         tokenizers. A ``mesh`` kwarg makes the DiT sequence-parallel (every
-        sp rank returns the whole frames)."""
+        sp rank returns the whole frames), and ``bounded_softmax=False``
+        puts its attention on the classic online softmax."""
         from ..models.text.encoder import build_text_encoder
         from ..utils.checkpoint import load_pretrained_components
 

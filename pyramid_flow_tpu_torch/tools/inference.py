@@ -6,9 +6,12 @@
         --output out/
 
 The flags are those of the JAX package's ``tools/inference.py``, plus
-``--device``. The frames go to ``--output`` as PNG files and
-``video.mp4`` at ``--fps`` (``utils.video_io``; without imageio's ffmpeg
-plugin the PNG files alone, said on stderr).
+``--device`` and ``--classic_softmax``, which puts every DiT attention on
+the classic online softmax (K2) instead of the bounded one: the
+counterpart of running JAX's CLI under ``PF_BOUNDED_SOFTMAX=0``. The frames
+go to ``--output`` as PNG files and ``video.mp4`` at ``--fps``
+(``utils.video_io``; without imageio's ffmpeg plugin the PNG files alone,
+said on stderr).
 ``PyramidFlowRunner.from_pretrained`` loads the released layout under
 ``--model_path`` (the DiT of ``--variant``, the VAE, the text encoders and
 their tokenizers); ``--input_image`` makes the request image-to-video. The
@@ -63,6 +66,10 @@ def parse_args(argv=None):
     p.add_argument("--save_memory", action="store_true",
                    help="plan the decode for this device's memory "
                         "(pipeline.decode_settings)")
+    p.add_argument("--classic_softmax", action="store_true",
+                   help="every DiT attention on the classic online softmax "
+                        "(exact at any qk-norm gain) instead of the bounded "
+                        "one")
     p.add_argument("--fps", type=int, default=24)
     p.add_argument("--output", default="output")
     p.add_argument("--device", default="cuda")
@@ -96,7 +103,7 @@ def main(argv=None) -> int:
     print(f"loading checkpoints from {args.model_path} ...", file=sys.stderr)
     runner = PyramidFlowRunner.from_pretrained(
         args.model_path, args.variant, args.model_name, dtype=dtype,
-        device=device, mesh=mesh)
+        device=device, mesh=mesh, bounded_softmax=not args.classic_softmax)
     common = dict(
         negative_prompt=args.negative_prompt, seed=args.seed,
         height=args.height, width=args.width, temp=args.temp,

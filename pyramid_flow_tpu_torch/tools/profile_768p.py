@@ -13,7 +13,10 @@ conditioning history is longest):
    and the current clip), the median of ``ITERS`` calls after two (CUDA
    events, ``exp_flash_h2.median_ms``, as K1's time below);
 2. the bounded flash forward (K1) alone at each stage's ``[2, 24, L + 128,
-   64]``, and the share of the forward that its 57 calls would take;
+   64]``, and the share of the forward that its 57 calls would take; the
+   classic forward (K2, the DiT's ``bounded_softmax=False`` route) beside
+   it on the same inputs, as the JAX tool times its default (classic)
+   attention;
 3. ``--trace DIR``: a ``torch.profiler`` trace of three stage-2 forwards
    (``utils.profiling.trace``), for TensorBoard;
 4. unless ``--skip-vae``: the 17-frame latent decoded through
@@ -107,10 +110,10 @@ def attention_inputs(lat_time: torch.Tensor, heads: int, head_dim: int,
 @torch.no_grad()
 def profile_forwards(dit, height: int, width: int, unit: int, iters: int,
                      gen: torch.Generator, trace_dir=None) -> list:
-    """Per stage: the DiT forward's and K1's milliseconds at the unit's
-    layout, and K1's share of the forward (its time x the DiT's attention
-    calls over the forward's). ``trace_dir``: a profiler trace of three
-    stage-2 forwards there."""
+    """Per stage: the DiT forward's, K1's and K2's milliseconds at the unit's
+    layout, and each kernel's share of the forward (its time x the DiT's
+    attention calls over the forward's). ``trace_dir``: a profiler trace of
+    three stage-2 forwards there."""
     cfg = dit.config
     rows = []
     for stage in range(3):
@@ -118,13 +121,15 @@ def profile_forwards(dit, height: int, width: int, unit: int, iters: int,
         fwd_ms = median_ms(lambda: dit(*inputs), iters)
         q, t = attention_inputs(lat_time, cfg.num_attention_heads,
                                 cfg.attention_head_dim, gen)
-        k1_ms = median_ms(lambda: flash_attention(
-            q, q, q, t, causal=True, bounded=True), iters)
+        k1_ms, k2_ms = (median_ms(lambda: flash_attention(
+            q, q, q, t, causal=True, bounded=bounded), iters)
+            for bounded in (True, False))
         calls = dit.num_attention_calls
         rows.append(_emit(dict(
             stage=stage, L=int(lat_time.shape[0]), L_attention=t.shape[1],
             dit_forward_ms=fwd_ms, k1_ms=k1_ms, k1_calls=calls,
-            k1_share=k1_ms * calls / fwd_ms)))
+            k1_share=k1_ms * calls / fwd_ms, k2_ms=k2_ms,
+            k2_share=k2_ms * calls / fwd_ms)))
         del q, t
     if trace_dir is not None:
         with trace(trace_dir):

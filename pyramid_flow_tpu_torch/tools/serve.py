@@ -25,10 +25,14 @@ generation runs at a time. Errors answer as JSON 500s.
     python -m pyramid_flow_tpu_torch.tools.serve --model_path CKPT \
         --variant diffusion_transformer_384p --port 7860
 
-The models serve on the CUDA card in bf16. ``--debug_tiny`` serves a tiny
+The models serve on the CUDA card in bf16; without a visible card the app
+refuses to start (and ``ServingApp`` to load a ``--model_path``) rather than
+load the release models onto the CPU. ``--debug_tiny`` serves a tiny
 random-weight pipeline with a word-hash tokenizer, on the CPU in fp32 (its
 head dim of 8 is one the flash kernel does not take), to drive the serving
-surface without checkpoints; its output is noise.
+surface without checkpoints; its output is noise. ``--classic_softmax``
+serves with every DiT attention on the classic online softmax instead of
+the bounded one (JAX's app under ``PF_BOUNDED_SOFTMAX=0``).
 
 ``--sp N`` serves sequence-parallel under ``torchrun`` (one process per
 rank, N ranks; NCCL on CUDA, gloo with ``--debug_tiny``)::
@@ -71,12 +75,12 @@ NEGATIVE_PROMPT = "cartoon style, worst quality, low quality, blurry"
 EVICT_BELOW_BYTES = 8e9
 
 
-def free_device_memory(device) -> float:
-    """Free bytes on ``device``'s card; 0 where that is unknown (no CUDA), so
+def free_device_memory() -> float:
+    """Free bytes on the current card; 0 where that is unknown (no CUDA), so
     that the cache evicts rather than loads a second copy into a full
     card."""
     try:
-        return float(torch.cuda.mem_get_info(device)[0])
+        return float(torch.cuda.mem_get_info()[0])
     except (AssertionError, RuntimeError, ValueError):
         return 0.0
 
@@ -141,10 +145,13 @@ class ServingApp:
     """The serving state: the pipeline cache, the text encoder, the
     progress dict and the one-generation-at-a-time lock.
 
-    ``args`` carries ``model_path``, ``variant`` and ``model_name`` (the
-    command line's); ``pipe`` and ``text_encoder`` inject a pipeline that
-    requests without a ``variant`` take (``--debug_tiny``). ``mesh``: the
-    (1, 1, sp) mesh of a sequence-parallel app (one per rank)."""
+    ``args`` carries ``model_path``, ``variant``, ``model_name`` and
+    ``classic_softmax`` (the command line's); ``pipe`` and ``text_encoder``
+    inject a pipeline that requests without a ``variant`` take
+    (``--debug_tiny``). ``mesh``: the (1, 1, sp) mesh of a sequence-parallel
+    app (one per rank). Without an injected pipeline the models load onto
+    the current CUDA card, and without a visible card :attr:`device`
+    raises."""
 
     def __init__(self, args=None, pipe=None, text_encoder=None, mesh=None):
         self.args = args
@@ -178,9 +185,11 @@ class ServingApp:
     def device(self) -> torch.device:
         if self.pipe is not None:
             return self.pipe.device
-        if torch.cuda.is_available():
-            return torch.device("cuda", torch.cuda.current_device())
-        return torch.device("cpu")
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the serving app loads --model_path onto a CUDA card and no "
+                "CUDA device is visible (--debug_tiny serves on the CPU)")
+        return torch.device("cuda", torch.cuda.current_device())
 
     def devices(self) -> int:
         """The devices one request runs on: the ranks of the mesh."""
@@ -194,7 +203,7 @@ class ServingApp:
         if variant in self.pipelines:
             return self.pipelines[variant]
         if self.pipelines:
-            free = free_device_memory(self.device)
+            free = free_device_memory()
             if free < EVICT_BELOW_BYTES:
                 evicted = sorted(self.pipelines)
                 self.pipelines.clear()  # freed once in-flight requests end
@@ -212,13 +221,14 @@ class ServingApp:
         from ..utils.checkpoint import load_pretrained_components
 
         a = self.args
+        kw = dict(dtype=torch.bfloat16, device=self.device)
         comps = load_pretrained_components(
             a.model_path, variant, a.model_name,
             load_text_encoders=self.text_encoder is None)
-        kw = dict(dtype=torch.bfloat16, device=self.device)
         pipe = PyramidFlowPipeline.from_pretrained(
             a.model_path, variant, a.model_name, components=comps,
-            mesh=self.mesh, **kw)
+            mesh=self.mesh,
+            bounded_softmax=not getattr(a, "classic_softmax", False), **kw)
         if self.text_encoder is None:
             self.text_encoder = build_text_encoder(comps, a.model_path,
                                                    a.model_name, **kw)
@@ -436,6 +446,10 @@ def parse_args(argv=None):
     p.add_argument("--port", type=int, default=7860)
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks (under torchrun)")
+    p.add_argument("--classic_softmax", action="store_true",
+                   help="every DiT attention on the classic online softmax "
+                        "(exact at any qk-norm gain) instead of the bounded "
+                        "one")
     return p.parse_args(argv)
 
 
@@ -444,6 +458,9 @@ def main(argv=None) -> int:
     if not (args.debug_tiny or args.model_path):
         sys.exit("--model_path is required (or use --debug_tiny)")
     device_type = "cpu" if args.debug_tiny else "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        sys.exit("the models serve on a CUDA card; none is visible (use "
+                 "--debug_tiny on the CPU)")
     mesh, rank = None, 0
     if args.sp > 1:
         import torch.distributed as dist
@@ -458,13 +475,11 @@ def main(argv=None) -> int:
                      f"started {dist.get_world_size()}")
         mesh = make_mesh(MeshConfig(sp=args.sp), device_type)
         rank = dist.get_rank()
-    elif device_type == "cuda" and not torch.cuda.is_available():
-        sys.exit("the models serve on a CUDA card; none is visible (use "
-                 "--debug_tiny on the CPU)")
     app = ServingApp(args, mesh=mesh)
     print("loading models ...", file=sys.stderr)
     if args.debug_tiny:
         app.pipe, app.text_encoder = build_debug_tiny(mesh)
+        app.pipe.dit.bounded_softmax = not args.classic_softmax
     else:
         app.build_pipeline()
     try:

@@ -10,7 +10,12 @@ a tiny DiT, or with ``--model_path`` the checkpoint's), ``--anno_file``
 (pre-extracted latents and text features, read by the port's numpy data
 loaders, ``pyramid_flow_tpu_torch.data``), the schedule, pyramid and
 logging flags, ``--gradient_checkpointing``, ``--bound_probe_freq``,
-``--output_dir`` and ``--auto_resume``. The full-size DiT trains on one
+``--output_dir`` and ``--auto_resume``. ``--classic_softmax`` trains with
+every DiT attention on the classic online softmax (K2, whose ``lse`` the
+backward kernels take as they take the bounded one's), the counterpart of
+JAX's ``PF_BOUNDED_SOFTMAX=0``: the remedy the overshoot probe's warning
+names when fine-tuned qk-norm gains leave the bounded forward's envelope.
+The probe runs on both routes. The full-size DiT trains on one
 CUDA device with fp32 parameters and bf16 autocast.
 
 ``--model_path`` finetunes the released DiT of ``--model_variant`` (its
@@ -117,6 +122,10 @@ def parse_args(argv=None):
                    help="log train/bound_overshoot_log2 every N steps and "
                         "warn when the bounded flash kernel's exactness "
                         "envelope is at risk (0 disables)")
+    p.add_argument("--classic_softmax", action="store_true",
+                   help="every DiT attention on the classic online softmax "
+                        "(exact at any qk-norm gain) instead of the bounded "
+                        "one")
     p.add_argument("--tensorboard_dir", default=None)
     p.add_argument("--wandb_project", default=None)
     p.add_argument("--seed", type=int, default=0)
@@ -329,7 +338,8 @@ def main(argv=None) -> int:
                      f"--model_variant")
         dit = build_dit(args.model_path, args.model_variant, args.model_name,
                         comps.pop("dit"), dtype=torch.float32, device=device,
-                        remat=args.gradient_checkpointing, mesh=mesh)
+                        remat=args.gradient_checkpointing, mesh=mesh,
+                        bounded_softmax=not args.classic_softmax)
     else:
         if not args.debug_tiny:
             cfg = MMDiTConfig() if mmdit else FluxConfig()
@@ -347,7 +357,7 @@ def main(argv=None) -> int:
         torch.manual_seed(args.seed)
         dit_cls = PyramidDiffusionMMDiT if mmdit else PyramidFluxTransformer
         dit = dit_cls(cfg, device=device, remat=args.gradient_checkpointing,
-                      mesh=mesh)
+                      mesh=mesh, bounded_softmax=not args.classic_softmax)
     cfg = dit.config
     if mesh is not None:
         from ..parallel.mesh import param_sharding
@@ -469,12 +479,14 @@ def main(argv=None) -> int:
                 if mesh is not None:  # a forward without grad leaves the
                     dit.reshard()     # root's parameters gathered
                 logger.update(step=step, bound_overshoot_log2=over)
-                if over > OVERSHOOT_WARN_LOG2:
+                if over > OVERSHOOT_WARN_LOG2 and dit.bounded_softmax:
                     logger.print_fn(
                         f"WARNING: bounded-softmax overshoot {over:.0f} log2 "
                         f"units (> {OVERSHOOT_WARN_LOG2:.0f}): qk-norm gains "
                         "are drifting out of the bounded attention's "
-                        "exactness envelope")
+                        "exactness envelope; restart this run with "
+                        "--classic_softmax (the classic online softmax is "
+                        "exact at any gain)")
             if step % args.print_freq == 0:
                 logger.print_fn(f"epoch {epoch} step {step}  {logger}")
             step += 1

@@ -1,13 +1,16 @@
 """Training telemetry: the bounded-softmax exactness envelope.
 
-The DiT's attention uses the bounded forward: its softmax shift is an a-priori
-bound from |q| and |k| instead of the running row max, exact only while
-``bound - true_max_score`` stays well under ~120 log2 units. The qk-norm keeps
-released weights in the low tens, but a fine-tune that grows the qk-norm
-gains can drift out of the envelope and would then denormalise attention
-silently. :func:`make_bound_overshoot_probe` runs one DiT forward that
-captures every attention's q and k and returns the largest overshoot; the
-train CLI logs it and warns past :data:`OVERSHOOT_WARN_LOG2`.
+The DiT's attention uses the bounded forward by default: its softmax shift is
+an a-priori bound from |q| and |k| instead of the running row max, exact only
+while ``bound - true_max_score`` stays well under ~120 log2 units. The
+qk-norm keeps released weights in the low tens, but a fine-tune that grows the
+qk-norm gains can drift out of the envelope and would then denormalise
+attention silently. :func:`make_bound_overshoot_probe` runs one DiT forward
+that captures every attention's q and k and returns the largest overshoot,
+on either softmax route; the train CLI logs it and, on the bounded route,
+warns past :data:`OVERSHOOT_WARN_LOG2` that the run should restart with
+``--classic_softmax`` (the DiT's ``bounded_softmax=False``), whose classic
+online softmax is exact at any gain.
 """
 
 from __future__ import annotations

@@ -134,11 +134,13 @@ def load_model_config(component_dir: str, kind: str):
 
 def build_dit(model_path: str, model_variant: str, model_name: str,
               state_dict: Dict[str, torch.Tensor], *, dtype: torch.dtype,
-              device, remat: bool = False, mesh=None):
+              device, remat: bool = False, mesh=None,
+              bounded_softmax: bool = True):
     """The family's DiT (``PyramidFluxTransformer`` for ``pyramid_flux``,
     else ``PyramidDiffusionMMDiT``) sized by ``<model_variant>/config.json``,
     built on ``device`` in ``dtype`` and holding ``state_dict`` (copied in,
-    strictly); ``mesh`` as the DiT takes it (sequence parallelism)."""
+    strictly); ``mesh`` and ``bounded_softmax`` as the DiT takes them
+    (sequence parallelism; the attention's softmax form)."""
     from ..models.flux.model import PyramidFluxTransformer
     from ..models.mmdit.model import PyramidDiffusionMMDiT
 
@@ -146,7 +148,8 @@ def build_dit(model_path: str, model_variant: str, model_name: str,
     cls = PyramidFluxTransformer if flux else PyramidDiffusionMMDiT
     cfg = load_model_config(os.path.join(model_path, model_variant),
                             "flux" if flux else "mmdit")
-    dit = cls(cfg, dtype=dtype, device=device, remat=remat, mesh=mesh)
+    dit = cls(cfg, dtype=dtype, device=device, remat=remat, mesh=mesh,
+              bounded_softmax=bounded_softmax)
     dit.load_state_dict(state_dict, strict=True)
     return dit
 

@@ -77,14 +77,33 @@ def _tiny_dit(kind, config, state_dict, mesh):
 def dit_forward(rank, world, kind, config, state_dict, inputs, weight,
                 mesh_shape):
     """The DiT's forward on every rank of a (dp, fsdp, sp) mesh, and each
-    parameter's gradient of ``sum(out * weight)``."""
+    parameter's gradient of ``sum(out * weight)``; then the softmax form
+    that reached ``flash_attention`` in each attention of that forward and
+    of one forward on the classic route (``bounded_softmax=False``), with
+    the classic forward's output."""
+    from pyramid_flow_tpu_torch.parallel import sp
+
     mesh = make_mesh(MeshConfig(*mesh_shape), "cpu")
     dit = _tiny_dit(kind, config, state_dict, mesh)
     args = [torch.from_numpy(x) for x in inputs]
-    out = dit(*args)
-    (out * torch.from_numpy(weight)).sum().backward()
+    routes = []
+    real = sp.flash_attention
+
+    def spy(*a, bounded=None, **kw):
+        routes.append(bounded)
+        return real(*a, bounded=bounded, **kw)
+
+    sp.flash_attention = spy
+    try:
+        out = dit(*args)
+        (out * torch.from_numpy(weight)).sum().backward()
+        dit.bounded_softmax = False
+        with torch.no_grad():
+            classic = dit(*args)
+    finally:
+        sp.flash_attention = real
     return _np(out), {n: _np(p.grad) for n, p in dit.named_parameters()
-                      if p.grad is not None}
+                      if p.grad is not None}, (routes, _np(classic))
 
 
 def train_steps(rank, world, kind, config, state_dict, batch, units,

@@ -11,7 +11,9 @@ JAX runs in the pytest process on its 8-device virtual CPU mesh.
 * the tiny miniFLUX and MMDiT (tests/test_torch_port_dit_loss.py's and
   tests/test_torch_port_mmdit.py's) at sp=2 against JAX's forward and
   parameter gradients on the same inputs; the MMDiT layout carries INVALID
-  padding between its history and its current clip.
+  padding between its history and its current clip. Each rank also runs a
+  forward on the classic route, and each attention's softmax form is seen
+  where ``sp_flash_attention`` hands over to ``flash_attention``.
 
 Tolerances (fp32): attention atol 2e-5 (JAX's own SP test); the DiTs'
 outputs rtol/atol 1e-4 and gradients atol 2e-6 + rtol 2e-3 (the one-device
@@ -170,9 +172,14 @@ def test_sp_dit_matches_jax(tmp_path, case):
     sd = {k: v.numpy() for k, v in make_port().state_dict().items()}
     out = run_ranks(ranks.dit_forward, 2, tmp_path, kind, cfg, sd, inputs,
                     weight, (1, 1, 2))
-    for o, _ in out:
+    n = make_port().num_attention_calls
+    for o, _, (routes, classic) in out:
         np.testing.assert_allclose(o[:, valid], ref[:, valid], rtol=1e-4,
                                    atol=1e-4)
+        # the DiT's route reaches flash_attention through Ulysses
+        assert routes == [True] * n + [False] * n
+        np.testing.assert_allclose(classic[:, valid], ref[:, valid],
+                                   rtol=1e-4, atol=1e-4)
     got = {n: (out[0][1][n] + out[1][1][n]) / 2 for n in out[0][1]}
     for name, g in got.items():
         np.testing.assert_allclose(g, jgrads[name].numpy(), **GRAD_TOL,

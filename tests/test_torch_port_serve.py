@@ -13,7 +13,9 @@
   variant without ``--model_path``, and one generation;
 * the pipeline cache's eviction rule with ``torch.cuda.mem_get_info``
   stubbed (unknown free memory evicts);
-* ``--sp 2`` on two gloo ranks: rank 0's bytes equal the sp=1 handler's.
+* ``--sp 2`` on two gloo ranks: rank 0's bytes equal the sp=1 handler's;
+* without a visible card a ``--model_path`` app and ``main`` raise by name
+  instead of loading onto the CPU.
 
 This machine's imageio has no ffmpeg plugin, so the bodies are npz frame
 stacks here.
@@ -224,3 +226,25 @@ def test_main_needs_a_model_or_debug_tiny():
         serve.main([])
     with pytest.raises(SystemExit, match="torchrun"):
         serve.main(["--debug_tiny", "--sp", "2"])
+
+
+def test_app_without_a_card_refuses_to_load(monkeypatch):
+    """A ``--model_path`` app on a machine with no visible card raises by
+    name before it reads a file, where it once loaded the release models
+    onto the CPU; ``main`` exits the same way, before ``--sp``'s torchrun
+    check. ``--debug_tiny`` is the CPU app."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    read = []
+    from pyramid_flow_tpu_torch.utils import checkpoint
+    monkeypatch.setattr(checkpoint, "load_pretrained_components",
+                        lambda *a, **kw: read.append(a))
+    app = serve.ServingApp(argparse.Namespace(
+        model_path="ckpt", variant="v", model_name="pyramid_flux"))
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        app.build_pipeline()
+    assert read == [] and app.pipelines == {}
+    for argv in (["--model_path", "ckpt"],
+                 ["--model_path", "ckpt", "--sp", "2"]):
+        with pytest.raises(SystemExit, match="none is visible"):
+            serve.main(argv)
+    assert read == []
