@@ -5,8 +5,9 @@ checkpoint, the HTTP serving app, the latent-extraction tool, the EMA
 evaluation path, GAN-VAE training, the heads-per-block attention experiment,
 the sequence-, fully-sharded- and context-parallel paths (two ranks
 sharing the card), with accumulation and sharded checkpoints, the 768p
-request on the memory-planned decode with the 768p tools, and the DiTs'
-classic-softmax route in serving and training, once on one CUDA card.
+request on the memory-planned decode with the 768p tools, the DiTs'
+classic-softmax route in serving and training, and a request at two latent
+frames per unit, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -51,8 +52,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    device time from a profiler trace, and SDPA's backward timed the same
    way (its forward plus backward less its forward);
 5. the experiment: ``pyramid_flow_tpu_torch.tools.exp_flash_h2.main`` in
-   this process (its checks, and K1 and K6 at each hs timed at the 768p
-   stage-2 layout, L=11008), its launches held to exactly its count;
+   this process with ``--full`` (its checks, K1 and K6 at each hs timed at
+   the 768p stage-2 layout, L=11008, then K1 and K6 at hs=2 again with
+   every time id equal, every tile FULL: the masked and FULL times are
+   logged side by side), its launches held to exactly its count;
 6. full-width DiT: the release-architecture miniFLUX (19 dual + 38 single
    blocks, 24 x 64 heads) in bf16 with random weights, one forward at the
    384x640 unit 15 stage 2 layout on each softmax route (the bounded
@@ -86,7 +89,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches the kernel once;
 8. serve: text-to-video through ``PyramidFlowPipeline.generate`` (384x640,
    steps [20,20,20]/[10,10,10], guidance 7/5, uint8 frames out): (a) temp
-   1, then the same request on the classic route (K2), and one
+   1, then the same request on the classic route (K2); then the pyramid at
+   two latent frames per unit, a second pipeline
+   (``frame_per_unit=2``) over the same models: the DiT's forward at its
+   widest layout (unit 2 stage 2, L = 4608, two time ids in the current
+   clip) on both routes held as phase 6 holds them, and one request at
+   temp 5 (unit 0, then two units of two frames: 5 latent frames, 33
+   pixel frames; K1 57 x (60 + 2 x 30) = 6840, K5 34 x 3 windows); one
    image-to-video request through ``PyramidFlowRunner.generate_i2v`` (a
    seeded smooth 384x640 image, a seeded stand-in text encoder, temp 4,
    the same steps and guidance); after phase 8b, (b) the JAX bench's
@@ -371,6 +380,11 @@ HEIGHT, WIDTH = 384, 640  # the requests', the encode's and the video's
 # steps and guidance below, save_memory, the DiT released before the decode)
 T2V_TEMP, BENCH_TEMP = 1, 16
 I2V_TEMP = 4
+# the pyramid at two latent frames per unit: a second pipeline over the
+# serving models; its request (unit 0, then two units of two frames: 5
+# latent frames, 33 pixel frames), and the (unit, stage) of its widest
+# layout, the last unit's stage 2 (L = 4608), where the DiT is checked
+FPU, FPU_TEMP, FPU_CHECK = 2, 5, (2, 2)
 STEPS, VIDEO_STEPS = [20, 20, 20], [10, 10, 10]
 DECODE_WINDOW, ENCODE_WINDOW = 2, 16  # latent frames; pixel frames
 # (B, T, H, W, C, Co, front): the decoder's 128->128 conv in its steady
@@ -523,12 +537,15 @@ def text_time(dev) -> torch.Tensor:
 
 
 def layout_time_ids(meta_pipe, height, width, unit, stage, dev):
-    """[B, L] attention time ids of the DiT at one (unit, stage): the
-    prompt, then the pipeline's own packed latent layout."""
+    """[B, L] attention time ids of the DiT at one (unit, stage) of
+    ``meta_pipe``'s pyramid: the prompt, then the pipeline's own packed
+    latent layout, whose current clip is one frame at unit 0 and
+    ``meta_pipe.frame_per_unit`` frames after it."""
     h_lat, w_lat = height // 8, width // 8
     budget = meta_pipe._cond_token_budget(unit, h_lat, w_lat)[stage]
+    frames = 1 if unit == 0 else meta_pipe.frame_per_unit
     positions, time_ids, _ = meta_pipe._stage_metadata(
-        B, 1, h_lat, w_lat, unit, stage, budget)
+        B, frames, h_lat, w_lat, unit, stage, budget)
     t = torch.cat([text_time(dev), torch.as_tensor(time_ids, device=dev)])
     return positions, t[None].expand(B, -1).contiguous()
 
@@ -779,21 +796,25 @@ def hn_empty_rows(dev, gen):
 
 
 def tool_path():
-    """The experiment's entry point, ``exp_flash_h2.main``, in this process:
-    its checks (three K6 launches at hs=2) and its sweep at L=11008 (K1 and
-    K6 at each hs that fits, each warmed up and timed); launches counted
-    from 0 and held to exactly that."""
+    """The experiment's entry point, ``exp_flash_h2.main``, in this process
+    with ``--full``: its checks (three K6 launches at hs=2), its sweep at
+    L=11008 (K1 and K6 at each hs that fits, each warmed up and timed), then
+    K1 and K6 at ``FULL_HS`` again with every tile FULL (the tool prints
+    the masked and FULL rows one after the other); launches counted from 0
+    and held to exactly that."""
     reset_launch_counts()
     t0 = time.perf_counter()
-    if exp_flash_h2.main(["--iters", str(TOOL_ITERS)]) != 0:
+    if exp_flash_h2.main(["--iters", str(TOOL_ITERS), "--full"]) != 0:
         raise AssertionError("exp_flash_h2.main failed")
     seconds = time.perf_counter() - t0
     launched = launch_counts()
     runs = exp_flash_h2.WARMUP + TOOL_ITERS
     fit = sum(fa.flash_fwd_hn_resources(hs, True)["fits"]
               for hs in fa.HN_HEADS_PER_BLOCK)
-    want = expected(fwd=runs, hn=3 + fit * runs)
-    log(f"exp_flash_h2 tool: {seconds:.3f} s, launches {launched}")
+    full_fits = fa.flash_fwd_hn_resources(exp_flash_h2.FULL_HS,
+                                          True)["fits"]
+    want = expected(fwd=2 * runs, hn=3 + (fit + full_fits) * runs)
+    log(f"exp_flash_h2 tool (--full): {seconds:.3f} s, launches {launched}")
     if launched != want:
         raise AssertionError(f"tool launches {launched}, expected {want}")
     return launched
@@ -1199,11 +1220,13 @@ def randomize_(module: torch.nn.Module, gen: torch.Generator, std=0.02):
             p.add_(1.0)
 
 
-def dit_inputs(meta_pipe, dev, gen, dit, dtype):
-    """Inputs of one forward at the 384x640 unit 15 stage 2 layout (the
-    MMDiT's crop origin last)."""
+def dit_inputs(meta_pipe, dev, gen, dit, dtype, unit=15, stage=2):
+    """Inputs of one forward at a 384x640 (unit, stage) layout of
+    ``meta_pipe``'s pyramid, by default unit 15 stage 2 (the MMDiT's crop
+    origin last)."""
     cfg = dit.config
-    positions, t = layout_time_ids(meta_pipe, 384, 640, 15, 2, dev)
+    positions, t = layout_time_ids(meta_pipe, HEIGHT, WIDTH, unit, stage,
+                                   dev)
     lat_time = t[:, TEXT_LEN:]
     lat_len = lat_time.shape[1]
     width = cfg.patch_size ** 2 * dit.latent_channels  # one token
@@ -1216,8 +1239,10 @@ def dit_inputs(meta_pipe, dev, gen, dit, dtype):
     pooled = torch.randn((B, cfg.pooled_projection_dim), generator=gen,
                          device=dev).to(dtype)
     ts = torch.full((B,), 900.0, device=dev)
+    shrink = meta_pipe.num_stages - 1 - stage
     return ((tokens, pos, lat_time, text, mask, pooled, ts)
-            + dit.stage_inputs(B, 48, 80, dev)), lat_time[0]
+            + dit.stage_inputs(B, HEIGHT // 8 >> shrink, WIDTH // 8 >> shrink,
+                               dev)), lat_time[0]
 
 
 def plain_attention_route(q, k, v, time_ids, *, causal, sm_scale, bounded):
@@ -1303,15 +1328,17 @@ def dit_routes(dit, inputs, lat_time, **forward_kw):
     return r
 
 
-def dit_check(dit, meta_pipe, dev, gen, **forward_kw):
-    """``dit_routes`` at the 384x640 unit 15 stage 2 layout: both softmax
-    routes must hold."""
+def dit_check(dit, meta_pipe, dev, gen, unit=15, stage=2, **forward_kw):
+    """``dit_routes`` at a 384x640 (unit, stage) layout of ``meta_pipe``'s
+    pyramid, by default unit 15 stage 2: both softmax routes must hold."""
     inputs, lat_time = dit_inputs(meta_pipe, dev, gen, dit,
-                                  next(dit.parameters()).dtype)
+                                  next(dit.parameters()).dtype, unit, stage)
     r = dit_routes(dit, inputs, lat_time, **forward_kw)
-    log(f"full-width {r['dit']} forward, L={r['L']}, each route against "
-        f"the plain version (limit {DIT_REL_L2}) and fp32 (within 1.1x of "
-        f"the plain version's {r['plain_vs_fp32']:.3e}): " + ", ".join(
+    log(f"full-width {r['dit']} forward, L={r['L']} (unit {unit} stage "
+        f"{stage}, {meta_pipe.frame_per_unit} frames per unit), each route "
+        f"against the plain version (limit {DIT_REL_L2}) and fp32 (within "
+        f"1.1x of the plain version's {r['plain_vs_fp32']:.3e}): "
+        + ", ".join(
             f"{name} {r[name]['rel_l2']}, {r[name]['vs_fp32']}"
             for name, _ in ROUTES) + f"; |out| rms {r['out_rms']:.3e}")
     failed = [name for name, _ in ROUTES if not r[name]["holds"]]
@@ -1661,9 +1688,23 @@ def train_raw_pixels(dit, vae, state, dev, gen):
     return steps, launched, peak
 
 
+def request_shape(pipe, temp, i2v=False):
+    """(DiT forwards, latent frames) of a request at ``temp`` through
+    ``pipe``, by the pipeline's unit arithmetic on its ``frame_per_unit``
+    (fpu): text-to-video generates unit 0 (one frame, ``STEPS``) and
+    (temp - 1) // fpu later units (fpu frames each, ``VIDEO_STEPS``);
+    image-to-video takes the image as unit 0 and generates
+    temp // fpu - 1 later units."""
+    fpu = pipe.frame_per_unit
+    later = temp // fpu - 1 if i2v else (temp - 1) // fpu
+    first = 0 if i2v else sum(STEPS)
+    return first + later * sum(VIDEO_STEPS), 1 + later * fpu
+
+
 def serve(pipe, dev, gen, name, temp, bench=False):
     """One T2V request at 384x640 through ``pipe`` on its DiT's softmax
-    route, the features drawn from ``gen``, with its exact launches; the
+    route and its frames per unit, the features drawn from ``gen``, with
+    its exact launches; the
     peak memory of the whole request, of its DiT phase and of its decode,
     and the memory held when the decode starts. ``bench``: as the JAX bench
     makes it, the DiT released before the decode, which frees its memory
@@ -1687,7 +1728,7 @@ def serve(pipe, dev, gen, name, temp, bench=False):
         memory["decode_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
         return out
 
-    forwards = sum(STEPS) + (temp - 1) * sum(VIDEO_STEPS)
+    forwards, n_latent = request_shape(pipe, temp)
     before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     with mock.patch.object(pipe, "decode_latent", spy):
@@ -1702,11 +1743,12 @@ def serve(pipe, dev, gen, name, temp, bench=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = counted(before)
-    windows = len(vae_model._window_starts(temp, DECODE_WINDOW, 1))
+    windows = len(vae_model._window_starts(n_latent, DECODE_WINDOW, 1))
     want = expected(**route_launches(bounded, n * forwards),
                     conv=kernel_conv_count(pipe.vae.decoder) * windows)
-    check_request(frames, seen, launched, want, temp)
-    r = dict(request=name, temp=temp, frames=frames.shape[1],
+    check_request(frames, seen, launched, want, n_latent)
+    r = dict(request=name, temp=temp, frame_per_unit=pipe.frame_per_unit,
+             latent_frames=n_latent, frames=frames.shape[1],
              bounded_softmax=bounded, bench=bench,
              dit_released=pipe.dit is None, dit_forwards=forwards,
              launches=launched, wall_s=wall,
@@ -1719,8 +1761,14 @@ def serve(pipe, dev, gen, name, temp, bench=False):
     return r
 
 
-def check_request(frames, seen, launched, want, temp):
-    expect = (1, 1 + 8 * (temp - 1), HEIGHT, WIDTH, 3)
+def check_request(frames, seen, launched, want, n_latent):
+    """A request's ``n_latent`` latent frames (``request_shape``), decoded
+    to 1 + 8 (n_latent - 1) uint8 frames, finite and not constant, with
+    exactly the launches ``want``."""
+    if seen[0].shape[1] != n_latent:
+        raise AssertionError(f"{seen[0].shape[1]} latent frames, expected "
+                             f"{n_latent}")
+    expect = (1, 1 + 8 * (n_latent - 1), HEIGHT, WIDTH, 3)
     if tuple(frames.shape) != expect or frames.dtype != torch.uint8:
         raise AssertionError(f"frames {tuple(frames.shape)} {frames.dtype}, "
                              f"expected {expect} uint8")
@@ -1773,7 +1821,7 @@ def serve_i2v(pipe, dev, gen):
         encode_s.append(time.perf_counter() - t0)
         return out
 
-    forwards = (I2V_TEMP - 1) * sum(VIDEO_STEPS)
+    forwards, n_latent = request_shape(pipe, I2V_TEMP, i2v=True)
     before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     with mock.patch.object(pipe, "decode_latent", spy), \
@@ -1788,11 +1836,11 @@ def serve_i2v(pipe, dev, gen):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launched = counted(before)
-    windows = len(vae_model._window_starts(I2V_TEMP, DECODE_WINDOW, 1))
+    windows = len(vae_model._window_starts(n_latent, DECODE_WINDOW, 1))
     want = expected(pipe.dit.num_attention_calls * forwards, conv=(
         kernel_conv_count(pipe.vae.encoder)
         + kernel_conv_count(pipe.vae.decoder) * windows))
-    check_request(frames, seen, launched, want, I2V_TEMP)
+    check_request(frames, seen, launched, want, n_latent)
     r = dict(request="i2v", temp=I2V_TEMP, frames=frames.shape[1],
              dit_forwards=forwards, launches=launched, wall_s=wall,
              encode_s=encode_s[0], dit_s=pipe.last_dit_seconds,
@@ -1802,6 +1850,43 @@ def serve_i2v(pipe, dev, gen):
              frame_std=frames.float().std().item())
     log("request " + json.dumps(r))
     return r
+
+
+def two_frame_units(dit, vae, dev, paths):
+    """The pyramid at ``FPU`` latent frames per unit, through a second
+    ``PyramidFlowPipeline(dit, vae, frame_per_unit=FPU)`` over the serving
+    models (no model memory of its own), its draws from a generator of
+    their own (SEED + 14). First the DiT at the request's widest layout,
+    ``FPU_CHECK`` (text, a padded history of two stage-2 frames and one
+    stage-1 frame, two current frames with a time id each), on both softmax
+    routes against the plain version and fp32 as ``dit_check`` holds them
+    (launches made for that count for no path); then one T2V request at
+    ``FPU_TEMP`` with its exact launches (``serve``)."""
+    pipe = PyramidFlowPipeline(dit, vae, frame_per_unit=FPU,
+                               dtype=torch.bfloat16, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 14)
+    unit, stage = FPU_CHECK
+    _, t = layout_time_ids(pipe, HEIGHT, WIDTH, unit, stage, dev)
+    budget = pipe._cond_token_budget(unit, HEIGHT // 8, WIDTH // 8)[stage]
+    current = t[0, TEXT_LEN + budget:]
+    ids = current.unique().tolist()
+    # 64-row query tiles holding more than one valid time id
+    rows = t[0, :t.shape[1] // fa.FWD_TILE_Q * fa.FWD_TILE_Q].view(
+        -1, fa.FWD_TILE_Q)
+    straddle = [i for i, r in enumerate(rows)
+                if len(set(r.tolist()) - {fa.INVALID_TIME}) > 1]
+    log(f"two frames per unit: unit {unit} stage {stage} layout L="
+        f"{t.shape[1]}, history budget {budget}, current time ids {ids}, "
+        f"query tiles straddling two time ids {straddle}, tiles (causal) "
+        f"{tile_split(t, t, True)}")
+    if len(ids) != FPU or fa.INVALID_TIME in ids:
+        raise AssertionError(f"the current clip's time ids {ids}: expected "
+                             f"{FPU} valid ones")
+    check = dit_check(dit, pipe, dev, gen, unit=unit, stage=stage)
+    reset_launch_counts()
+    request = serve(pipe, dev, gen, "a, two frames per unit", FPU_TEMP)
+    paths["text-to-video, two frames per unit"] = launch_counts()
+    return check, request
 
 
 def mmdit_paths(vae, meta_pipe, dev, gen, paths):
@@ -3547,7 +3632,7 @@ def request_768p(dit, vae, dev, gen) -> dict:
         mem["peak"] = torch.cuda.max_memory_allocated(dev)
         return out
 
-    forwards = sum(STEPS) + (P768_TEMP - 1) * sum(VIDEO_STEPS)
+    forwards, _ = request_shape(pipe, P768_TEMP)
     reset_launch_counts()
     with mock.patch.object(pipe, "decode_latent", spy):
         t0 = time.perf_counter()
@@ -3969,6 +4054,8 @@ def main() -> int:
               "a, classic softmax", T2V_TEMP)
         paths["text-to-video, classic softmax"] = launch_counts()
         dit.bounded_softmax = True
+        # two latent frames per unit: a second pipeline over the same models
+        two_frame_units(dit, vae, dev, paths)
         reset_launch_counts()
         serve_i2v(pipe, dev, gen)
         paths["image-to-video"] = launch_counts()

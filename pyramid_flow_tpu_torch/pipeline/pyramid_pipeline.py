@@ -124,9 +124,18 @@ class GeneratorNoise:
 
 class PyramidFlowPipeline:
     """Inference runner: AR unit loop -> per-stage CFG Euler loops -> causal
-    VAE decode, with the release settings: 3 stages (1/4, 1/2 and full
+    VAE decode. The pyramid is its scheduler's (the stage count, timestep
+    shift, stage windows and block-noise gamma) and ``frame_per_unit``; the
+    defaults are the release settings: 3 stages (1/4, 1/2 and full
     resolution), one latent frame per temporal unit, timestep shift 1 and
     block-noise gamma 1/3.
+
+    Unit 0 of a text-to-video request is one latent frame and every later
+    unit ``frame_per_unit`` frames, so ``temp`` gives
+    ``1 + ((temp - 1) // frame_per_unit) * frame_per_unit`` latent frames;
+    image-to-video fixes unit 0 to the image and gives
+    ``1 + (temp // frame_per_unit - 1) * frame_per_unit``. Each latent
+    frame after the first decodes to 8 pixel frames.
 
     Args:
       dit: a ``PyramidFluxTransformer`` or ``PyramidDiffusionMMDiT``
@@ -134,6 +143,11 @@ class PyramidFlowPipeline:
         selects the latent normalisation, and its ``stage_inputs`` give the
         forward's extra inputs per stage (the MMDiT's table crop origin).
       vae: a ``CausalVideoVAE``, or None for latent output only.
+      scheduler: a ``PyramidFlowMatchEulerDiscreteScheduler``, whose
+        ``stages`` is the pipeline's stage count (each stage doubles the
+        one before); None builds the default one.
+      frame_per_unit: latent frames per temporal unit after the first.
+      latent_channels: the VAE latent's width.
       dtype: the DiT's compute dtype; tokens are cast to it at patchify,
         latents stay fp32.
       device: where the loop runs; defaults to the DiT's device.
@@ -141,11 +155,12 @@ class PyramidFlowPipeline:
         given it must name the DiT's family.
     """
 
-    num_stages = 3
-    frame_per_unit = 1
     downsample = 8
 
-    def __init__(self, dit, vae=None, latent_channels: int = 16,
+    def __init__(self, dit, vae=None,
+                 scheduler: Optional[
+                     PyramidFlowMatchEulerDiscreteScheduler] = None,
+                 frame_per_unit: int = 1, latent_channels: int = 16,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  model_name: Optional[str] = None):
         self.model_name = dit_model_name(dit, model_name)
@@ -158,11 +173,14 @@ class PyramidFlowPipeline:
                 "(nor do the JAX package's); call the DiT itself")
         self.dit = dit
         self.vae = vae
+        self.scheduler = (scheduler if scheduler is not None
+                          else PyramidFlowMatchEulerDiscreteScheduler())
+        self.num_stages = self.scheduler.stages
+        self.frame_per_unit = frame_per_unit
         self.latent_channels = latent_channels
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None else next(dit.parameters()).device)
-        self.scheduler = PyramidFlowMatchEulerDiscreteScheduler()
         self.vae_shift_factor, self.vae_scale_factor = LATENT_NORMS[
             self.model_name]
         self.vae_video_shift_factor, self.vae_video_scale_factor = VIDEO_NORM
@@ -192,7 +210,9 @@ class PyramidFlowPipeline:
         the same denoising loop on the same draws and gets the whole
         frames. ``bounded_softmax=False`` builds the DiT on the classic
         online softmax (the DiT's ``bounded_softmax``; JAX's
-        ``PF_BOUNDED_SOFTMAX=0``)."""
+        ``PF_BOUNDED_SOFTMAX=0``). Other ``kwargs`` go to the constructor:
+        the pyramid's (``scheduler``, ``frame_per_unit``) and
+        ``latent_channels``."""
         from ..utils.checkpoint import (build_dit, build_vae,
                                         load_pretrained_components,
                                         require_components)
@@ -230,7 +250,8 @@ class PyramidFlowPipeline:
         calls; each rank gets the whole DiT. The training model and its EMA stay as they were, so a
         later train step is the one it would have been. The new DiT takes
         ``dit``'s softmax route (``bounded_softmax``). ``kwargs`` go to the
-        pipeline."""
+        constructor (the pyramid's ``scheduler`` and ``frame_per_unit``
+        among them)."""
         if device is None:
             p = next(train_state.model.parameters())
             device = (p.to_local() if hasattr(p, "to_local") else p).device

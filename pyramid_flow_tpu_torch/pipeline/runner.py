@@ -58,8 +58,10 @@ class PyramidFlowRunner:
         kwargs too) and ``FluxTextEncoder`` (CLIP-L + T5) or
         ``SD3TextEncoder`` (CLIP-L + CLIP-G + T5), with the checkpoint's
         tokenizers. A ``mesh`` kwarg makes the DiT sequence-parallel (every
-        sp rank returns the whole frames), and ``bounded_softmax=False``
-        puts its attention on the classic online softmax."""
+        sp rank returns the whole frames), ``bounded_softmax=False``
+        puts its attention on the classic online softmax, and the
+        pyramid's ``scheduler`` and ``frame_per_unit`` reach the
+        pipeline's constructor."""
         from ..models.text.encoder import build_text_encoder
         from ..utils.checkpoint import load_pretrained_components
 

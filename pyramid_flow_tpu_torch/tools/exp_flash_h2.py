@@ -1,6 +1,6 @@
 """Experiment: the bounded flash forward with ``hs`` heads per block.
 
-    python -m pyramid_flow_tpu_torch.tools.exp_flash_h2 [--iters 8]
+    python -m pyramid_flow_tpu_torch.tools.exp_flash_h2 [--iters 8] [--full]
 
 The counterpart of the JAX package's ``tools/exp_flash_h2.py``, on the CUDA
 card: the heads-per-block forward (``csrc/flash_fwd_hn.cu``) is checked
@@ -10,8 +10,11 @@ stage-2 layout (B=2, H=24, D=64, L=11008) at every ``hs`` it is built for,
 beside the one-head-per-block forward (``flash_fwd_cuda``). An ``hs`` whose
 block does not fit the card is reported as such and not launched. The
 question is the JAX tool's: whether grouping heads in one block makes the
-forward faster. Results print as one JSON object per line. Without a CUDA
-device it exits 1.
+forward faster. With ``--full`` both forwards are then timed once more at
+that layout with every time id equal, so that every tile is FULL (no mask
+to apply, none to skip): the ceiling that shows what the masking costs.
+Results print as one JSON object per line. Without a CUDA device it exits
+1.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ __all__ = ["flash_h2", "reference_lse", "layout_768p_stage2", "median_ms",
 # the JAX tool's correctness thresholds (max |err| on valid rows)
 O_TOL, LSE_TOL = 0.035, 0.02
 WARMUP = 2
+FULL_HS = 2  # the heads per block ``--full`` times (the JAX tool's)
 
 
 def flash_h2(q, k, v, time_q, time_kv=None, *, causal=True, sm_scale=None,
@@ -158,20 +162,25 @@ def check(dev) -> list:
     return out + [r]
 
 
-def sweep(dev, iters: int) -> list:
+def sweep(dev, iters: int, full: bool = False) -> list:
     """The one-head-per-block forward and the heads-per-block forward at
     each hs at the 768p stage-2 layout (causal, self-attention on q as the
-    JAX tool does), each timed over ``iters`` launches after ``WARMUP``."""
+    JAX tool does), each timed over ``iters`` launches after ``WARMUP``.
+    ``full``: the JAX tool's ``--full`` ceiling, every time id equal (every
+    key visible to every query, every tile FULL) and only ``FULL_HS``."""
     q, tq, L = layout_768p_stage2(dev)
+    tag = {}
+    if full:
+        tq, tag = torch.ones_like(tq), dict(tiles="full")
     sm_scale = q.shape[-1] ** -0.5
     base = median_ms(lambda: flash_fwd_cuda(q, q, q, tq, tq, causal=True,
                                            sm_scale=sm_scale, bounded=True),
                     iters)
-    rows = [dict(kernel="flash_fwd", L=L, ms=base)]
+    rows = [dict(kernel="flash_fwd", **tag, L=L, ms=base)]
     print(json.dumps(rows[0]), flush=True)
-    for hs in HN_HEADS_PER_BLOCK:
+    for hs in (FULL_HS,) if full else HN_HEADS_PER_BLOCK:
         res = flash_fwd_hn_resources(hs, True)
-        r = dict(kernel="flash_fwd_hn", hs=hs, L=L,
+        r = dict(kernel="flash_fwd_hn", hs=hs, **tag, L=L,
                  registers=res["registers"], threads=res["threads"],
                  max_threads=res["max_threads"],
                  shared_bytes=res["shared_bytes"])
@@ -189,6 +198,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=8,
                     help="timed launches per kernel")
+    ap.add_argument("--full", action="store_true",
+                    help="also time both forwards with every tile FULL")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("exp_flash_h2: no CUDA device is visible", file=sys.stderr)
@@ -197,6 +208,8 @@ def main(argv=None) -> int:
     print(json.dumps({"device": torch.cuda.get_device_name(dev)}), flush=True)
     check(dev)
     sweep(dev, args.iters)
+    if args.full:
+        sweep(dev, args.iters, full=True)
     return 0
 
 

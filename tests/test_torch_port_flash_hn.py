@@ -97,3 +97,4 @@ def test_wrapper_guards_and_main_without_a_card(monkeypatch):
         fa.flash_fwd_hn_resources(5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tool.main([]) == 1
+    assert tool.main(["--full", "--iters", "1"]) == 1
