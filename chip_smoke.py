@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port's text-to-video, image-to-video and DiT-training paths
-for both DiT families, the string-prompt path from a release-layout
-checkpoint, the HTTP serving app, the latent-extraction tool, the EMA
-evaluation path, GAN-VAE training, the heads-per-block attention experiment,
-the sequence-, fully-sharded- and context-parallel paths (two ranks
+(the AR and the full-sequence recipe) for both DiT families, the
+string-prompt path from a release-layout checkpoint, the HTTP serving app,
+the latent-extraction tool, the EMA evaluation path, GAN-VAE training, the
+heads-per-block attention experiment, the sequence-, fully-sharded- and
+context-parallel paths (two ranks
 sharing the card), with accumulation and sharded checkpoints, the 768p
 request on the memory-planned decode with the 768p tools, the DiTs'
 classic-softmax route in serving and training, and a request at two latent
@@ -160,6 +161,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``from_train_state(use_ema=True)`` builds a bf16 DiT holding exactly the
    EMA, cast, which serves one temp-1 request with its exact launches, and
    the training model's parameters and EMA are unchanged afterwards;
+10b. the full-sequence recipe (``--no_temporal_pyramid``,
+   ``scripts/train_pyramid_flow_without_ar.sh``) on phase 10's DiT and
+   train state, its draws from a generator of its own (SEED + 15): at its
+   stage-2 layout (one clip of 16 frames of 48x80 latents after the
+   prompt, L = 15488, B=1, H=24, D=64, causal) K1 and K2 forward and
+   K3/K4 backward after each one's ``lse`` against the plain version
+   computed one head at a time (phase 3's and phase 4's tolerances), each
+   wrapper timed as the training path calls it beside SDPA with the same
+   mask, with the tile split; the whole DiT's gradient at its stage-1
+   layout (L = 3968, where the plain route fits beside the state) on both
+   routes against the plain route as phase 9 holds it; then three
+   full-depth steps of a full-sequence step function on that state at
+   phase 10's shape (each stage forward one clip of all 16 frames: 960,
+   3840 and 15360 latent tokens; finite, one at least applied and moving
+   the parameters, exactly 342 K1 and 171 K3/K4 launches per step; seconds
+   and peak memory printed);
 11. the MMDiT, after the flux training state is freed: the release SD3
    MMDiT (24 joint blocks, 24 x 64 heads, 1536 wide) in bf16, its forward
    kernel vs plain (relative L2 <= 2e-2, with the table's crop origin),
@@ -170,10 +187,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    string-prompt request (temp 1) through ``PyramidFlowRunner`` with the
    SD3 text encoders at full width (CLIP-L projected, CLIP-G 32 x 1280
    projected to 1280, T5-XXL; seeded random weights from a generator of
-   their own, the word-hash tokenizers; pooled 2048 wide); then with
+   their own, the word-hash tokenizers; pooled 2048 wide), and one I2V
+   request (temp 2) from the flux I2V request's image, checked as that
+   one is; then with
    fp32 parameters and remat the gradient check of phase 9 (every
    parameter nonzero but the last block's text-query projection, which it
-   discards) and two latent train steps at the shape of phase 10;
+   discards), two latent train steps at the shape of phase 10 and one
+   full-sequence step on that state (144 K1, 72 K3/K4 launches; its batch
+   from SEED + 16);
 11b. GAN-VAE training: the release VAE (335.4 M parameters) in fp32 under
    bf16 autocast, a frozen random LPIPS (VGG16, 14.7 M) and
    ``PatchDiscriminator2D()`` (7.0 M), each from a generator of its own
@@ -260,8 +281,9 @@ Each path (the experiment, the VAE decode gradient, text-to-video on each
 softmax route, image-to-video, the string prompt from the checkpoint, the
 bench's request, the HTTP T2V and
 I2V requests, the two extraction runs, latent training, the EMA request,
-raw-pixel training, MMDiT text-to-video, the MMDiT string prompt, MMDiT
-latent training, the GAN-VAE generator gradient, GAN-VAE training, and
+raw-pixel training, full-sequence training, MMDiT text-to-video, the MMDiT
+string prompt, MMDiT image-to-video, MMDiT latent training on each recipe,
+the GAN-VAE generator gradient, GAN-VAE training, and
 phase 13's SP attention, SP serving, sharded training per mesh, the CP
 GAN-VAE step, the accumulated sharded step and the training CLI on the
 classic route, on every rank; phase 14's 768p request and its four tools)
@@ -330,7 +352,8 @@ from pyramid_flow_tpu_torch.models.vae.model import (
 from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
 from pyramid_flow_tpu_torch.ops import flash_attention as fa
 from pyramid_flow_tpu_torch.pipeline.noising import (
-    GeneratorDraws, add_ar_noise_stage, latent_pyramid, sample_stage_length)
+    GeneratorDraws, add_ar_noise_stage, add_pyramid_noise_stage,
+    latent_pyramid, sample_stage_length)
 from pyramid_flow_tpu_torch.pipeline.packing import pack_clips, patchify
 from pyramid_flow_tpu_torch.pipeline.pyramid_pipeline import (
     PyramidFlowPipeline, decode_settings, device_memory_gb)
@@ -394,6 +417,16 @@ CONV_REL, ENCODE_REL_L2, IN_PLACE_REL_L2 = 2e-2, 2e-2, 2e-3
 VAE_GRAD_LATENT = (12, 20)  # latent h, w of the decode gradient: 96x160
 RAW_STEPS = 2
 MMDIT_TEMP, MMDIT_TRAIN_STEPS = 4, 2
+# the MMDiT's I2V request, from the flux I2V request's image
+MMDIT_I2V_TEMP = 2
+# the full-sequence recipe (scripts/train_pyramid_flow_without_ar.sh:
+# --no_temporal_pyramid, at phase 10's shape): each stage row is one clip
+# of all 16 frames, so the stage-2 row is L = 128 + 16 x 960 = 15488
+# tokens, where the kernels are checked (B=1: the recipe's one stage-2
+# row); the gradient check at stage 1 (L = 128 + 16 x 240 = 3968), where
+# the plain route fits beside the train state; the steps of each DiT, and
+# the timed calls per kernel at L = 15488
+FULL_GRAD_STAGE, FULL_STEPS, FULL_MMDIT_STEPS, FULL_REPS = 1, 3, 1, 5
 # out of the bounded forward's envelope: a full-width miniFLUX cut to 2 + 4
 # blocks whose qk-norm gains grow (from GAIN0, by GAIN_STEP) until the
 # bounded forward's overshoot passes ENVELOPE_LOG2 log2 units (its shift
@@ -834,9 +867,10 @@ BWD_KERNELS = {"dkv": "flash_bwd_dkv_kernel", "dq": "flash_bwd_dq_kernel",
                "delta": "bwd_delta_kernel"}
 
 
-def bwd_path_ms(q, k, v, t, do, causal, reps):
+def bwd_path_ms(q, k, v, t, do, causal, reps, bounded=True):
     """The attention backward as the training path calls it:
-    ``torch.autograd.grad`` through ``flash_attention`` less its forward,
+    ``torch.autograd.grad`` through ``flash_attention`` (on the softmax
+    route ``bounded`` picks) less its forward,
     as :func:`sdpa_backward_ms` times SDPA (``ms``), and each backward
     kernel's own device time from a profiler trace of the same calls
     (``kernel_ms_dkv``, ``kernel_ms_dq``, ``kernel_ms_delta``; None where
@@ -846,7 +880,7 @@ def bwd_path_ms(q, k, v, t, do, causal, reps):
     qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
 
     def fwd():
-        return fa.flash_attention(*qkv, t, causal=causal, bounded=True)
+        return fa.flash_attention(*qkv, t, causal=causal, bounded=bounded)
 
     def fwd_bwd():
         torch.autograd.grad(fwd(), qkv, do)
@@ -1449,25 +1483,40 @@ def counted(before: dict) -> dict:
     return {k: n - before[k] for k, n in launch_counts().items()}
 
 
-def dit_grad_check(dit, dev, gen):
-    """One training-loss backward of a batch row at the stage-2 training
-    layout through the plain version, then through the kernels on each
-    softmax route (K1 or K2 forward, K3/K4 backward after its ``lse``),
-    each held to the plain gradient. Every parameter gets a nonzero
-    gradient but the DiT's ``gradient_free_parameters`` (the MMDiT's
-    last-block text-query projection, whose output that block discards),
-    which get exactly 0. The DiT's route is left as it was."""
+def ar_noise_stage(draws, sched, pyramid, stage):
+    """The AR recipe's noising of one stage row, every unit of the clip."""
+    return add_ar_noise_stage(draws, sched, pyramid, stage, 3, TRAIN_FRAMES)
+
+
+def full_noise_stage(draws, sched, pyramid, stage):
+    """The full-sequence recipe's noising of one stage row: one clip of
+    every frame."""
+    return add_pyramid_noise_stage(draws, sched, pyramid, stage, 3)
+
+
+def dit_grad_check(dit, dev, gen, stage=2, noise_stage=ar_noise_stage):
+    """One training-loss backward of a batch row at a training layout,
+    by default the AR recipe's at stage 2 (``noise_stage`` noises the row
+    at ``stage``), through the plain version, then through the kernels on
+    each softmax route (K1 or K2 forward, K3/K4 backward after its
+    ``lse``), each held to the plain gradient. Every parameter gets a
+    nonzero gradient but the DiT's ``gradient_free_parameters`` (the
+    MMDiT's last-block text-query projection, whose output that block
+    discards), which get exactly 0. The plain gradient waits in host
+    memory, each leaf brought back for its comparison, so that the check
+    fits beside a train state on the card. The DiT's route is left as it
+    was."""
     sched = PyramidFlowMatchEulerDiscreteScheduler()
     batch = training_batch(dit.config, dev, gen, 1)
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
-    sb = add_ar_noise_stage(draws, sched, latent_pyramid(batch["latents"], 3),
-                            2, 3, TRAIN_FRAMES)
+    pyramid = latent_pyramid(batch["latents"], 3)
+    sb = noise_stage(draws, sched, pyramid, stage)
     tokens, positions, time_ids, trainable = pack_clips(sb.clips)
     pos = torch.as_tensor(positions, device=dev)[None]
     times = torch.as_tensor(time_ids, device=dev)[None]
     target = patchify(sb.targets)
     L = TEXT_LEN + tokens.shape[1]
-    extra = dit.stage_inputs(1, 48, 80, dev)
+    extra = dit.stage_inputs(1, *pyramid[stage].shape[2:4], dev)
 
     def backward():
         dit.zero_grad(set_to_none=True)
@@ -1487,8 +1536,11 @@ def dit_grad_check(dit, dev, gen):
         t0 = time.perf_counter()
         loss_p, gp = backward()
         plain_s = time.perf_counter() - t0
+    gp = {m: g.cpu() for m, g in gp.items()}
+    torch.cuda.empty_cache()
     n, route = dit.num_attention_calls, dit.bounded_softmax
-    r = dict(dit=type(dit).__name__, L=L, loss_plain=loss_p, plain_s=plain_s)
+    r = dict(dit=type(dit).__name__, L=L, stage=stage,
+             recipe=noise_stage.__name__, loss_plain=loss_p, plain_s=plain_s)
     try:
         for name, bounded in ROUTES:
             dit.bounded_softmax = bounded
@@ -1511,8 +1563,9 @@ def dit_grad_check(dit, dev, gen):
             diff2 = ref2 = 0.0
             worst = ("", 0.0)
             for m, g in gk.items():
-                d2 = (g - gp[m]).float().square().sum().item()
-                r2 = gp[m].float().square().sum().item()
+                ref = gp[m].to(dev)
+                d2 = (g - ref).float().square().sum().item()
+                r2 = ref.float().square().sum().item()
                 diff2, ref2 = diff2 + d2, ref2 + r2
                 if r2 > 0 and math.sqrt(d2 / r2) > worst[1]:
                     worst = (m, math.sqrt(d2 / r2))
@@ -1540,39 +1593,58 @@ def zero_output_(dit):
     dit.proj_out.bias.zero_()
 
 
-def train(dit, dev, gen, n_steps=TRAIN_STEPS):
-    """``n_steps`` train steps of a release DiT at the CLI's default shape.
-    Returns (steps, launches, peak GB, state)."""
-    zero_output_(dit)
+def train(dit, dev, gen, n_steps=TRAIN_STEPS, use_temporal_pyramid=True,
+          state=None):
+    """``n_steps`` train steps of a release DiT at the CLI's default shape,
+    on the AR recipe or (``use_temporal_pyramid=False``) the full-sequence
+    one, from a new train state or on ``state``. Returns (steps, launches,
+    peak GB, state)."""
     torch.cuda.reset_peak_memory_stats(dev)
-    state = create_train_state(dit, TrainConfig(
-        learning_rate=5e-5, weight_decay=1e-4, max_grad_norm=1.0,
-        lr_schedule=cosine_schedule(5e-5, 1e-6, 1000, 10, 1000)))
+    if state is None:
+        zero_output_(dit)
+        state = create_train_state(dit, TrainConfig(
+            learning_rate=5e-5, weight_decay=1e-4, max_grad_norm=1.0,
+            lr_schedule=cosine_schedule(5e-5, 1e-6, 1000, 10, 1000)))
     sched = PyramidFlowMatchEulerDiscreteScheduler()
-    step_fn = make_train_step(dit, sched, (1, 2, 1), True, 1, 1 / 3,
-                              cfg_rate=0.1, compute_dtype=torch.bfloat16)
+    step_fn = make_train_step(dit, sched, (1, 2, 1), use_temporal_pyramid, 1,
+                              1 / 3, cfg_rate=0.1,
+                              compute_dtype=torch.bfloat16)
     batch = training_batch(dit.config, dev, gen, TRAIN_BATCH)
     draws = GeneratorDraws(torch.Generator(dev).manual_seed(SEED))
     steps = []
     reset_launch_counts()
+    # the latent tokens of each stage forward: on the full-sequence recipe
+    # every stage row is one clip of all TRAIN_FRAMES frames
+    tokens = []
+    hook = dit.register_forward_pre_hook(
+        lambda module, args: tokens.append(args[0].shape[1]))
+    full = [TRAIN_FRAMES * (48 >> (3 - s)) * (80 >> (3 - s))
+            for s in range(3)]
     for _ in range(n_steps):
         units = tuple(sample_stage_length(0, state.step, 3, 31, 1, 8,
                                           max_units=TRAIN_FRAMES))
         before = dit.proj_out.weight.detach().clone()
+        tokens.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step_fn(state, batch, draws, units)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         moved = not torch.equal(before, dit.proj_out.weight)
-        r = dict(dit=type(dit).__name__, step=state.step, units=units,
+        r = dict(dit=type(dit).__name__, step=state.step,
+                 recipe="AR" if use_temporal_pyramid else "full sequence",
+                 units=units, latent_tokens=list(tokens),
                  loss=m["train/loss"],
                  grad_norm=m["train/grad_norm"], applied=m["train/applied"],
                  moved=moved, lr_count=state.opt_count, seconds=seconds)
         log("train step " + json.dumps(r))
         if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
             raise AssertionError(f"non-finite train step {r}")
+        if not use_temporal_pyramid and tokens != full:
+            raise AssertionError(f"full-sequence stage forwards of "
+                                 f"{tokens} latent tokens, expected {full}")
         steps.append(r)
+    hook.remove()
     launched = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     attentions = dit.num_attention_calls * 3 * n_steps  # 3 stage forwards
@@ -1582,7 +1654,8 @@ def train(dit, dev, gen, n_steps=TRAIN_STEPS):
     if not any(r["applied"] and r["moved"] for r in steps):
         raise AssertionError("no train step passed the anomaly gate and "
                              "moved the parameters")
-    log(f"train: peak memory {peak:.3f} GB, launches {launched}")
+    log(f"train ({'AR' if use_temporal_pyramid else 'full sequence'}): "
+        f"peak memory {peak:.3f} GB, launches {launched} ({card_line()})")
     return steps, launched, peak, state
 
 
@@ -1686,6 +1759,119 @@ def train_raw_pixels(dit, vae, state, dev, gen):
                              f"expected {want}")
     log(f"raw-pixel train: peak memory {peak:.3f} GB, launches {launched}")
     return steps, launched, peak
+
+
+def full_sequence_time_ids(dev) -> torch.Tensor:
+    """[1, L] attention time ids of the full-sequence recipe's stage-2 row:
+    the prompt (100 valid tokens, time id 0), then its one clip of
+    ``TRAIN_FRAMES`` frames of 48x80 latents as ``pack_clips`` packs it
+    (frame f: time id f, 960 tokens)."""
+    _, _, time_ids, _ = pack_clips(
+        [torch.zeros((1, TRAIN_FRAMES, 48, 80, 16), device=dev)])
+    return torch.cat([text_time(dev),
+                      torch.as_tensor(time_ids, device=dev)])[None]
+
+
+def full_sequence_kernels(dev, gen) -> list:
+    """K1 and K2 forward, and K3/K4 backward after each one's ``lse``, at
+    the full-sequence stage-2 layout (B=1, H=24, D=64, L = 15488, causal)
+    against the plain version computed one head at a time (one head's fp32
+    scores take 0.96 GB, all 24 heads 23 GB), with phase 3's and phase 4's
+    tolerances (the upstream gradient zero on padded rows). Each wrapper is
+    timed with CUDA events as the training path calls it (the backward:
+    ``torch.autograd.grad`` through ``flash_attention`` less its forward),
+    beside SDPA with the same mask and the plain version; the tile split
+    of the layout. Returns one result per softmax route."""
+    t = full_sequence_time_ids(dev)
+    L = t.shape[1]
+    shape = (1, H, L, D)
+    q, k = rms_normal(shape, gen, dev), rms_normal(shape, gen, dev)
+    v = torch.randn(shape, generator=gen, device=dev).bfloat16()
+    valid = t[0] != fa.INVALID_TIME
+    do = (torch.randn(shape, generator=gen, device=dev)
+          * valid[:, None]).bfloat16()
+    o_ref, lse_ref = plain_attention(q, k, v, t, True, head_chunk=1)
+    plain_ms = cuda_ms(lambda: plain_attention(q, k, v, t, True, head_chunk=1),
+                       reps=1, warmup=0)
+    plain_bwd_ms = None
+    # bounds: operations on the visible pairs; bytes as phases 3 and 4 count
+    pairs = H * visible_pairs(t[0], True)
+    io = H * L * D * 2  # one [1, H, L, D] bf16 tensor
+    reads = 4 * io + 2 * H * L * 4 + 2 * L * 4
+    fwd_bound = bound(4 * D * pairs, 4 * io + H * L * 4 + 2 * L * 4)
+    dkv_bound = bound(8 * D * pairs, reads + 2 * io)
+    dq_bound = bound(6 * D * pairs, reads + io)
+    mask = sdpa_mask(t, True)
+    sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), FULL_REPS)
+    del mask
+    sdpa_bwd = sdpa_backward_ms(q, k, v, t, do, True, FULL_REPS)
+    split = tile_split(t, t, True)
+    results = []
+    for name, bounded in ROUTES:
+        def run():
+            return fa.flash_fwd_cuda(q, k, v, t, t, causal=True,
+                                     sm_scale=D ** -0.5, bounded=bounded)
+        o, lse = run()
+        got = fa.flash_bwd_cuda(q, k, v, t, t, o, lse, do, causal=True,
+                                sm_scale=D ** -0.5)
+        torch.cuda.synchronize()
+        r = dict(layout="full sequence, stage 2", L=L, route=name,
+                 tiles=split,
+                 max_abs_err_o=(o.float() - o_ref.float())[:, :, valid]
+                 .abs().max().item(),
+                 max_abs_err_lse=(lse - lse_ref)[:, :, valid].abs().max()
+                 .item())
+        ok = r["max_abs_err_o"] <= O_ATOL and r["max_abs_err_lse"] <= LSE_ATOL
+        ref = plain_backward(q, k, v, t, o, lse, do, True, head_chunk=1)
+        if plain_bwd_ms is None:
+            plain_bwd_ms = cuda_ms(lambda: plain_backward(
+                q, k, v, t, o, lse, do, True, head_chunk=1), reps=1, warmup=0)
+        for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
+            err = (a.float() - b.float()).abs().max().item()
+            scale = b.float().abs().max().item()
+            ok = (ok and bool(torch.isfinite(a).all())
+                  and err <= GRAD_REL * scale)
+            r[f"max_abs_err_{gname}"], r[f"max_abs_{gname}"] = err, scale
+        del o, lse, got, ref
+        r.update(ms=cuda_ms(run, FULL_REPS), plain_ms=plain_ms,
+                 library_ms=sdpa_fwd_ms, bound_ms=fwd_bound[0],
+                 bound_by=fwd_bound[1])
+        bwd = bwd_path_ms(q, k, v, t, do, True, FULL_REPS, bounded)[0]
+        r["backward"] = dict(
+            bwd, plain_ms=plain_bwd_ms, library_ms=sdpa_bwd["library_ms"],
+            bound_ms_dkv=dkv_bound[0], bound_by_dkv=dkv_bound[1],
+            bound_ms_dq=dq_bound[0], bound_by_dq=dq_bound[1])
+        log(f"kernels at the full-sequence stage-2 layout, {card_line()} "
+            + json.dumps(r))
+        if not ok:
+            raise AssertionError(f"kernel disagrees with plain at the "
+                                 f"full-sequence layout: {r}")
+        results.append(r)
+    del q, k, v, do, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return results
+
+
+def full_sequence_paths(dit, state, dev, paths) -> dict:
+    """Phase 10b, the full-sequence recipe on phase 10's train DiT and
+    state (fp32 parameters, bf16 autocast, remat), its draws from a
+    generator of its own (SEED + 15): the kernels at its stage-2 layout
+    (``full_sequence_kernels``), the whole DiT's gradient at its stage-1
+    layout on both softmax routes against the plain route
+    (``dit_grad_check``), then ``FULL_STEPS`` train steps at phase 10's
+    shape on that state with a full-sequence step function (``train``)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    kernels = full_sequence_kernels(dev, gen)
+    grad = dit_grad_check(dit, dev, gen, FULL_GRAD_STAGE, full_noise_stage)
+    steps, paths["train (latents), full sequence"], peak, _ = train(
+        dit, dev, gen, FULL_STEPS, use_temporal_pyramid=False, state=state)
+    r = dict(steps=steps, peak_mem_gb=peak,
+             phase_s=time.perf_counter() - t_phase, card=card_line())
+    log("full-sequence recipe " + json.dumps(r))
+    r.update(kernels=kernels, grad=grad)
+    return r
 
 
 def request_shape(pipe, temp, i2v=False):
@@ -1800,12 +1986,17 @@ class StandInTextEncoder:
         return emb, mask, pooled
 
 
-def serve_i2v(pipe, dev, gen):
-    """One image-to-video request through ``PyramidFlowRunner``."""
+def i2v_image(gen, dev) -> np.ndarray:
+    """The image-to-video requests' seeded smooth 384x640 uint8 image."""
+    return ((smooth_video(gen, dev, 1, HEIGHT, WIDTH)[0, 0] + 1) * 127.5
+            ).round().to(torch.uint8).cpu().numpy()
+
+
+def serve_i2v(pipe, dev, image, temp=I2V_TEMP, name="i2v"):
+    """One image-to-video request from ``image`` through
+    ``PyramidFlowRunner`` at ``temp``, with its exact launches."""
     runner = PyramidFlowRunner(pipe, StandInTextEncoder(pipe.dit.config, dev,
                                                         pipe.dtype))
-    image = ((smooth_video(gen, dev, 1, HEIGHT, WIDTH)[0, 0] + 1) * 127.5
-             ).round().to(torch.uint8).cpu().numpy()
     seen, encode_s = [], []
     decode, encode = pipe.decode_latent, vae_model.chunk_encode
 
@@ -1821,7 +2012,7 @@ def serve_i2v(pipe, dev, gen):
         encode_s.append(time.perf_counter() - t0)
         return out
 
-    forwards, n_latent = request_shape(pipe, I2V_TEMP, i2v=True)
+    forwards, n_latent = request_shape(pipe, temp, i2v=True)
     before = launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     with mock.patch.object(pipe, "decode_latent", spy), \
@@ -1829,7 +2020,7 @@ def serve_i2v(pipe, dev, gen):
         t0 = time.perf_counter()
         frames = runner.generate_i2v(
             "a red kite over a beach at dawn", image, seed=SEED,
-            height=HEIGHT, width=WIDTH, temp=I2V_TEMP,
+            height=HEIGHT, width=WIDTH, temp=temp,
             num_inference_steps=STEPS,
             video_num_inference_steps=VIDEO_STEPS, guidance_scale=7.0,
             video_guidance_scale=5.0, output_type="pixels")
@@ -1841,7 +2032,7 @@ def serve_i2v(pipe, dev, gen):
         kernel_conv_count(pipe.vae.encoder)
         + kernel_conv_count(pipe.vae.decoder) * windows))
     check_request(frames, seen, launched, want, n_latent)
-    r = dict(request="i2v", temp=I2V_TEMP, frames=frames.shape[1],
+    r = dict(request=name, temp=temp, frames=frames.shape[1],
              dit_forwards=forwards, launches=launched, wall_s=wall,
              encode_s=encode_s[0], dit_s=pipe.last_dit_seconds,
              decode_s=pipe.last_decode_seconds,
@@ -1889,13 +2080,16 @@ def two_frame_units(dit, vae, dev, paths):
     return check, request
 
 
-def mmdit_paths(vae, meta_pipe, dev, gen, paths):
+def mmdit_paths(vae, meta_pipe, dev, gen, paths, image):
     """The release MMDiT (24 joint blocks, 24 x 64 heads): a bf16 forward
     kernel vs plain, one T2V request through
     ``PyramidFlowPipeline(model_name="pyramid_mmdit")`` with the release
-    VAE, then with fp32 parameters and remat the gradient check and
-    ``MMDIT_TRAIN_STEPS`` latent train steps. Adds the request's and the
-    steps' launches to ``paths``."""
+    VAE, the string-prompt request, one I2V request from ``image`` (the
+    flux I2V request's), then with fp32 parameters and remat the gradient
+    check, ``MMDIT_TRAIN_STEPS`` latent train steps and
+    ``FULL_MMDIT_STEPS`` on the full-sequence recipe (its batch from a
+    generator of its own, SEED + 16). Adds the requests' and the steps'
+    launches to ``paths``."""
     t0 = time.perf_counter()
     mmdit = PyramidDiffusionMMDiT(MMDiTConfig(), dtype=torch.bfloat16,
                                   device=dev)
@@ -1910,6 +2104,8 @@ def mmdit_paths(vae, meta_pipe, dev, gen, paths):
     serve(pipe, dev, gen, "mmdit", MMDIT_TEMP)
     paths["MMDiT text-to-video"] = launch_counts()
     mmdit_text_request(pipe, dev, paths)
+    paths["MMDiT image-to-video"] = serve_i2v(
+        pipe, dev, image, MMDIT_I2V_TEMP, "mmdit i2v")["launches"]
     del pipe, mmdit
     gc.collect()
     torch.cuda.empty_cache()
@@ -1924,6 +2120,9 @@ def mmdit_paths(vae, meta_pipe, dev, gen, paths):
     dit_grad_check(tmm, dev, gen)
     _, paths["MMDiT train (latents)"], _, state = train(
         tmm, dev, gen, MMDIT_TRAIN_STEPS)
+    _, paths["MMDiT train (latents), full sequence"], _, _ = train(
+        tmm, dev, torch.Generator(dev).manual_seed(SEED + 16),
+        FULL_MMDIT_STEPS, use_temporal_pyramid=False, state=state)
     del tmm, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4056,8 +4255,9 @@ def main() -> int:
         dit.bounded_softmax = True
         # two latent frames per unit: a second pipeline over the same models
         two_frame_units(dit, vae, dev, paths)
+        image = i2v_image(gen, dev)
         reset_launch_counts()
-        serve_i2v(pipe, dev, gen)
+        serve_i2v(pipe, dev, image)
         paths["image-to-video"] = launch_counts()
         # a string prompt through from_pretrained, from a checkpoint of the
         # serving models and full-width text encoders
@@ -4086,13 +4286,15 @@ def main() -> int:
         ema_evaluation(state, vae, dev, paths)
         _, paths["train (raw pixels)"], _ = train_raw_pixels(
             tdit, vae, state, dev, gen)
+        # the full-sequence recipe on the same DiT and state
+        full = full_sequence_paths(tdit, state, dev, paths)
 
         # the MMDiT at full width and depth, after the flux training state
         # is freed: a forward check, one request, the gradient, two steps
         del tdit, state
         gc.collect()
         torch.cuda.empty_cache()
-        mmdit_paths(vae, meta_pipe, dev, gen, paths)
+        mmdit_paths(vae, meta_pipe, dev, gen, paths, image)
         # GAN-VAE training: an fp32-master VAE of its own under bf16 autocast
         gan_vae_paths(dev, paths)
 
@@ -4145,7 +4347,9 @@ def main() -> int:
         "launches": total["flash_fwd"],
         "max_abs_err": max([r["max_abs_err_o"] for r in checks
                             if r["bounded"]]
-                           + [p768["k1_check"]["max_abs_err_o"]]),
+                           + [p768["k1_check"]["max_abs_err_o"]]
+                           + [r["max_abs_err_o"] for r in full["kernels"]
+                              if r["route"] == "bounded"]),
         "ms": timed["ms"],
         "kernel_ms": timed["kernel_ms"],
         "plain_ms": timed["plain_ms"],
@@ -4158,8 +4362,10 @@ def main() -> int:
         "source": "pyramid_flow_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:122",
         "launches": total["flash_fwd_classic"],
-        "max_abs_err": max(r["max_abs_err_o"] for r in checks
-                           if not r["bounded"]),
+        "max_abs_err": max([r["max_abs_err_o"] for r in checks
+                            if not r["bounded"]]
+                           + [r["max_abs_err_o"] for r in full["kernels"]
+                              if r["route"] == "classic"]),
         "ms": classic["ms"],
         "kernel_ms": classic["kernel_ms"],
         "plain_ms": classic["plain_ms"],
@@ -4173,7 +4379,7 @@ def main() -> int:
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:447",
         "launches": total["flash_bwd_dkv"],
         "max_abs_err": max(max(r["max_abs_err_dk"], r["max_abs_err_dv"])
-                           for r in bwd_checks),
+                           for r in bwd_checks + full["kernels"]),
         "ms": btimed["ms"],
         "kernel_ms": btimed["kernel_ms_dkv"],
         "delta_kernel_ms": btimed["kernel_ms_delta"],
@@ -4187,7 +4393,8 @@ def main() -> int:
         "source": "pyramid_flow_tpu_torch/csrc/flash_bwd.cu",
         "replaces": "pyramid_flow_tpu/ops/flash_attention.py:514",
         "launches": total["flash_bwd_dq"],
-        "max_abs_err": max(r["max_abs_err_dq"] for r in bwd_checks),
+        "max_abs_err": max(r["max_abs_err_dq"]
+                           for r in bwd_checks + full["kernels"]),
         "ms": btimed["ms"],
         "kernel_ms": btimed["kernel_ms_dq"],
         "delta_kernel_ms": btimed["kernel_ms_delta"],

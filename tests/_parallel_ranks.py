@@ -107,9 +107,12 @@ def dit_forward(rank, world, kind, config, state_dict, inputs, weight,
 
 
 def train_steps(rank, world, kind, config, state_dict, batch, units,
-                mesh_shape, min_shard_dim, key, steps, lr, accum_steps=1):
+                mesh_shape, min_shard_dim, key, steps, lr, accum_steps=1,
+                use_temporal_pyramid=True):
     """``steps`` DiT train steps (of ``accum_steps`` micro-batches) on a
-    (dp, fsdp, sp) mesh with FSDP2, each rank on its slice of ``batch``. ``key``: a table of recorded draws
+    (dp, fsdp, sp) mesh with FSDP2, each rank on its slice of ``batch``,
+    on the AR recipe or (``use_temporal_pyramid=False``) the full-sequence
+    one. ``key``: a table of recorded draws
     (:class:`ReplayDraws`), or an int seed for a torch generator. Returns per step (loss, grad_norm) and, on rank 0, the
     parameters and EMA after the steps, the sharding stats and a
     checkpoint round trip's parameters."""
@@ -129,6 +132,7 @@ def train_steps(rank, world, kind, config, state_dict, batch, units,
     state = create_train_state(dit, TrainConfig(learning_rate=lr,
                                                 ema_decay=0.9))
     step = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
+                           use_temporal_pyramid=use_temporal_pyramid,
                            accum_steps=accum_steps, mesh=mesh)
     index, count = data_rank(mesh)
     b = next(iter(batch.values())).shape[0] // count

@@ -1,5 +1,6 @@
 """Port parity for the MMDiT's paths, JAX vs torch, on the CPU: T2V
-``generate``, the train step, the overshoot probe and the training CLI.
+``generate``, I2V ``generate_i2v``, the train step, the overshoot probe and
+the training CLI.
 
 The tiny MMDiT of test_torch_port_mmdit.py (JAX weights redrawn from a numpy
 seed, carried over by ``mmdit_state_dict_from_jax``). ``generate`` replays
@@ -10,12 +11,12 @@ the train step is held to JAX's on every other parameter. The
 JAX pipeline is given the tiny table's size (``pos_embed_max_size=24``); the
 port reads it from the DiT's config.
 
-Tolerances (fp32): latents atol 5e-4 (the flux ``generate`` test's bound:
-about 30 DiT forwards summed in another order, fed back through the AR
-history); the train step's loss rtol 1e-5 and grad norm rtol 1e-4 (the flux
-train-step test's; JAX's norm less the table's gradient); parameters after
-a step within ``adamw_close``; the probe atol 1e-3 log2 units (the flux
-probe test's).
+Tolerances (fp32): latents atol 5e-4, T2V and I2V (the flux ``generate``
+test's bound: about 30 DiT forwards summed in another order, fed back
+through the AR history); the train step's loss rtol 1e-5 and grad norm
+rtol 1e-4 (the flux train-step test's; JAX's norm less the table's
+gradient); parameters after a step within ``adamw_close``; the probe atol
+1e-3 log2 units (the flux probe test's).
 """
 
 import math
@@ -94,6 +95,37 @@ def test_generate_latents_match_jax(mmdits):
     np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=0)
 
 
+def test_generate_i2v_latents_match_jax(mmdits):
+    """Image-to-video from the same raw image latent, the port replaying
+    JAX's key splits from unit 1 on; unit 0 is the image normalised by the
+    MMDiT's own latent norms."""
+    dit_j, params, make_port = mmdits
+    jpipe = JPipeline(dit_j, params, model_name="pyramid_mmdit",
+                      latent_channels=4, dtype=jnp.float32,
+                      pos_embed_max_size=TINY["pos_embed_max_size"])
+    img = np.random.default_rng(3).standard_normal(
+        (1, 1, 8, 8, 4)).astype(np.float32)
+    emb, mask, pooled = _text()
+    want = np.asarray(jpipe.generate_i2v(
+        jax.random.PRNGKey(SEED), jnp.asarray(img), *map(jnp.asarray, (
+            emb, mask, pooled, emb * 0, mask, pooled * 0)),
+        output_type="latent", **GEN))
+    tpipe = PyramidFlowPipeline(make_port(), latent_channels=4,
+                                dtype=torch.float32,
+                                model_name="pyramid_mmdit")
+    got = tpipe.generate_i2v(
+        None, torch.from_numpy(img), *map(torch.from_numpy, (
+            emb, mask, pooled, emb * 0, mask, pooled * 0)),
+        noise=JaxNoise(SEED, first_unit=1), output_type="latent", **GEN)
+    assert got.shape == want.shape == (1, 3, 8, 8, 4)
+    np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=0)
+    shift, scale = LATENT_NORMS["pyramid_mmdit"]
+    np.testing.assert_allclose(got[:, :1].numpy(), (img - shift) * scale,
+                               rtol=1e-6)
+    np.testing.assert_allclose(got[:, :1].numpy(), (img - 0.1490) / 1.8415,
+                               rtol=1e-6)
+
+
 def _tiny_flux():
     return PyramidFluxTransformer(FluxConfig(
         in_channels=16, num_layers=1, num_single_layers=1,
@@ -153,14 +185,15 @@ def test_dits_state_their_latent_width_and_stage_inputs(mmdits):
 TABLE = "pos_embed.pos_embed"
 
 
-def _jax_step(dit_j, params, batch, key, config):
+def _jax_step(dit_j, params, batch, key, config, **step_kw):
     """One JAX train step: (state after it, metrics, the parameters, Adam's
     mu and nu and the pre-clip gradient norm without the sincos table, all
     keyed like the port). JAX's table is a parameter; its raw gradient is
-    read back from the first step's mu = (1 - b1) * clipped gradient."""
+    read back from the first step's mu = (1 - b1) * clipped gradient.
+    ``step_kw`` go to JAX's ``make_train_step``."""
     jstate = jts.create_train_state(params, config)
     jstep = jtrainer.make_train_step(dit_j, JScheduler(), donate=False,
-                                     model_name="pyramid_mmdit")
+                                     model_name="pyramid_mmdit", **step_kw)
     jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
                        key, num_units_per_stage=UNITS)
     adam = jstate.opt_state[1][0]

@@ -13,6 +13,10 @@ JAX's ``test_sharded_train_step`` takes dp=2 x fsdp=2 x sp=2 (8 devices);
 with at most 4 ranks here each shape keeps two of the axes: (1, 2, 2) and
 (2, 2, 1), and (2, 1, 2) for dp beside sp.
 
+The (1, 2, 2) shape also runs the full-sequence recipe
+(``use_temporal_pyramid=False``, JAX's ``train_pyramid_flow_without_ar.sh``),
+as JAX's test parametrises over both recipes.
+
 One more configuration accumulates: ``accum_steps=2`` on a (1, 2, 1) mesh
 with a global batch of 8 (JAX needs it to divide by accum x sum(ratios)),
 so each rank holds all of one micro-batch and none of the other, and runs
@@ -83,13 +87,15 @@ class RecordingDraws:
                               self.path + (("fold", int(data)),))
 
 
-def record_draws(make_port, batch, key, steps=2, accum_steps=1):
+def record_draws(make_port, batch, key, steps=2, accum_steps=1,
+                 use_temporal_pyramid=True):
     """The draws of ``steps`` one-device port steps on ``batch``: every
     rank's, which draw the global batch's."""
     table = {}
     dit = make_port()
     state = create_train_state(dit, TrainConfig(learning_rate=LR))
     step = make_train_step(dit, PyramidFlowMatchEulerDiscreteScheduler(),
+                           use_temporal_pyramid=use_temporal_pyramid,
                            accum_steps=accum_steps)
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     draws = RecordingDraws(JaxDraws(key), table)
@@ -98,13 +104,15 @@ def record_draws(make_port, batch, key, steps=2, accum_steps=1):
     return table
 
 
-def jax_steps(dit_j, params, batch, key, steps=2, accum_steps=1):
+def jax_steps(dit_j, params, batch, key, steps=2, accum_steps=1,
+              use_temporal_pyramid=True):
     """JAX's two steps on the global batch: per step (loss, grad norm),
     and the parameters, second moments and EMA after them."""
     state = jts.create_train_state(params, jts.TrainConfig(
         learning_rate=LR, ema_decay=0.9))
     step = jtrainer.make_train_step(dit_j, JScheduler(), donate=False,
-                                    accum_steps=accum_steps)
+                                    accum_steps=accum_steps,
+                                    use_temporal_pyramid=use_temporal_pyramid)
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     metrics = []
     for _ in range(steps):
@@ -130,26 +138,45 @@ def check_against_jax(out, ref):
                     0.2 * LR, 2)
 
 
-@pytest.fixture(scope="module")
-def case():
+def make_case(use_temporal_pyramid=True):
+    """The JAX model, its parameters, the port's state dict, the batch, the
+    recorded draws and JAX's two steps, on one recipe."""
     dit_j, params, make_port = tiny_dits()
     batch = tiny_batch(b=4)
     key = jax.random.PRNGKey(9)
     sd = {k: v.numpy() for k, v in make_port().state_dict().items()}
-    return (dit_j, params, sd, batch, record_draws(make_port, batch, key),
-            jax_steps(dit_j, params, batch, key))
+    return (dit_j, params, sd, batch,
+            record_draws(make_port, batch, key,
+                         use_temporal_pyramid=use_temporal_pyramid),
+            jax_steps(dit_j, params, batch, key,
+                      use_temporal_pyramid=use_temporal_pyramid))
 
 
-@pytest.mark.parametrize("mesh_shape", [(1, 2, 2), (2, 1, 2)],
-                         ids=["fsdp2_sp2", "dp2_sp2"])
-def test_sharded_train_step_matches_jax(tmp_path, case, mesh_shape):
+@pytest.fixture(scope="module")
+def case():
+    return make_case()
+
+
+@pytest.fixture(scope="module")
+def full_sequence_case():
+    return make_case(use_temporal_pyramid=False)
+
+
+@pytest.mark.parametrize("mesh_shape,use_temporal_pyramid", [
+    ((1, 2, 2), True), ((2, 1, 2), True), ((1, 2, 2), False)],
+    ids=["fsdp2_sp2", "dp2_sp2", "fsdp2_sp2_full_sequence"])
+def test_sharded_train_step_matches_jax(tmp_path, request, mesh_shape,
+                                        use_temporal_pyramid):
     """Two steps on a 4-rank mesh: every parameter sharded where JAX's rule
     shards it at min_shard_dim 64 (the tiny model's dims are 16-32 wide:
-    most fall back to dim 0), tokens sharded over sp."""
-    dit_j, params, sd, batch, draws, ref = case
+    most fall back to dim 0), tokens sharded over sp. On the full-sequence
+    recipe the second data rank of (1, 2, 2) holds none of stage 0's rows
+    and runs its forward on a zero-weighted stand-in row."""
+    dit_j, params, sd, batch, draws, ref = request.getfixturevalue(
+        "case" if use_temporal_pyramid else "full_sequence_case")
     out = run_ranks(ranks.train_steps, 4, tmp_path, "flux",
                     FluxConfig(**DIT), sd, batch, UNITS, mesh_shape, 16,
-                    draws, 2, LR)
+                    draws, 2, LR, 1, use_temporal_pyramid)
     assert out[0]["stats"]["sharded_fraction"] == (
         1.0 if mesh_shape[1] > 1 else 0.0)
     check_against_jax(out, ref)
@@ -169,3 +196,4 @@ def test_accumulated_sharded_step_matches_jax(tmp_path):
                     FluxConfig(**DIT), sd, batch, UNITS, (1, 2, 1), 16,
                     draws, 2, LR, 2)
     check_against_jax(out, ref)
+
