@@ -1,0 +1,9 @@
+"""Mean host milliseconds between the DiT's forward pre-hook and its hook,
+over the forwards of the counted steps (one per stage; the launch cost of a
+forward, the backward not included)."""
+
+from portbench.harness import readers
+
+
+def read(summary):
+    return readers.mean_ms(summary, "forward_host_s")

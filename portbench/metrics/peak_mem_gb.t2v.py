@@ -1,0 +1,8 @@
+"""Device memory peak over the window (``max_memory_allocated`` after a
+reset at the window's start), in GB."""
+
+from portbench.harness import readers
+
+
+def read(summary):
+    return readers.peak_gb(summary)
