@@ -36,6 +36,9 @@ bound from |q| and |k|, exact while ``bound - true max`` stays well under
 qk-norm gain. It is one attribute that every forward reads, so setting it
 after a load or after ``set_mesh`` switches every attention, under sequence
 parallelism too; it is saved in no state dict, config or train state.
+
+Each forward is a ``dit.forward`` span (``utils.profiling.span``) with its
+rows, tokens and flash-forward launches; the MMDiT's forward is one too.
 """
 
 from __future__ import annotations
@@ -50,11 +53,12 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.flash_attention import INVALID_TIME
+from ...ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
 from ...ops.rope import rope_freqs
 from ...parallel.mesh import SP_AXIS, mesh_dim
 from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
+from ...utils.profiling import span
 from .blocks import (
     AdaLayerNormContinuous,
     FluxSingleTransformerBlock,
@@ -231,35 +235,40 @@ class PyramidFluxTransformer(nn.Module):
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, guidance=None):
-        b, lt = text_emb.shape[:2]
-        temb = self.time_text_embed(timestep, pooled, guidance)
-        ctx = self.context_embedder(text_emb)
-        x = self.x_embedder(latent_tokens)
+        with span("dit.forward", counters=FORWARD_LAUNCHES,
+                  rows=latent_tokens.shape[0], tokens=latent_tokens.shape[1]):
+            b, lt = text_emb.shape[:2]
+            temb = self.time_text_embed(timestep, pooled, guidance)
+            ctx = self.context_embedder(text_emb)
+            x = self.x_embedder(latent_tokens)
 
-        # RoPE over [text; latent]: text at position 0 on every axis
-        text_pos = torch.zeros((b, lt, 3), dtype=torch.float32,
-                               device=latent_pos.device)
-        cos, sin = rope_freqs(torch.cat([text_pos, latent_pos.float()], dim=1),
-                              self.config.axes_dims_rope)
-        # attention time ids: text t=0, masked-out text INVALID
-        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
+            # RoPE over [text; latent]: text at position 0 on every axis
+            text_pos = torch.zeros((b, lt, 3), dtype=torch.float32,
+                                   device=latent_pos.device)
+            cos, sin = rope_freqs(
+                torch.cat([text_pos, latent_pos.float()], dim=1),
+                self.config.axes_dims_rope)
+            # attention time ids: text t=0, masked-out text INVALID
+            text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
+            time_ids = torch.cat([text_time, latent_time.to(torch.int32)],
+                                 dim=1)
 
-        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-        if shard is not None:
-            ctx, x = shard.split(ctx, x)
-            cos, sin = shard.local(cos, 1), shard.local(sin)
-            time_ids = shard.pad(time_ids, INVALID_TIME)
-        bounded = self.bounded_softmax
-        for block in self.transformer_blocks:
-            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
-                               bounded)
-        h = torch.cat([ctx, x], dim=1)  # text first
-        for block in self.single_transformer_blocks:
-            h = self._run(block, h, temb, cos, sin, time_ids, bounded)
-        if shard is not None:  # the output of every local token, gathered
-            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
-        return self.proj_out(self.norm_out(h[:, lt:], temb))
+            shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+            if shard is not None:
+                ctx, x = shard.split(ctx, x)
+                cos, sin = shard.local(cos, 1), shard.local(sin)
+                time_ids = shard.pad(time_ids, INVALID_TIME)
+            bounded = self.bounded_softmax
+            for block in self.transformer_blocks:
+                x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                                   bounded)
+            h = torch.cat([ctx, x], dim=1)  # text first
+            for block in self.single_transformer_blocks:
+                h = self._run(block, h, temb, cos, sin, time_ids, bounded)
+            if shard is not None:  # every local token's output, gathered
+                return gather_seq(self.proj_out(self.norm_out(h, temb)),
+                                  shard)
+            return self.proj_out(self.norm_out(h[:, lt:], temb))
 
 
 def set_dit_mesh(dit: nn.Module, attns, mesh) -> None:

@@ -47,10 +47,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.flash_attention import INVALID_TIME
+from ...ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
 from ...ops.rope import rope_freqs
 from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
+from ...utils.profiling import span
 from ..flux.blocks import AdaLayerNormContinuous
 from ..flux.model import TimestepTextEmbed, set_dit_mesh
 from .blocks import JointTransformerBlock
@@ -254,28 +255,31 @@ class PyramidDiffusionMMDiT(nn.Module):
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, pos_offset):
-        b, lt = text_emb.shape[:2]
-        temb = self.time_text_embed(timestep, pooled)
-        ctx = self.context_embedder(text_emb)
-        x = self.pos_embed(latent_tokens, latent_pos, pos_offset)
+        with span("dit.forward", counters=FORWARD_LAUNCHES,
+                  rows=latent_tokens.shape[0], tokens=latent_tokens.shape[1]):
+            b, lt = text_emb.shape[:2]
+            temb = self.time_text_embed(timestep, pooled)
+            ctx = self.context_embedder(text_emb)
+            x = self.pos_embed(latent_tokens, latent_pos, pos_offset)
 
-        # temporal RoPE over the whole head dim, text at t=0
-        t_pos = torch.cat([torch.zeros((b, lt, 1), dtype=torch.float32,
-                                       device=latent_pos.device),
-                           latent_pos[..., :1].float()], dim=1)
-        cos, sin = rope_freqs(t_pos, (self.config.attention_head_dim,))
-        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
+            # temporal RoPE over the whole head dim, text at t=0
+            t_pos = torch.cat([torch.zeros((b, lt, 1), dtype=torch.float32,
+                                           device=latent_pos.device),
+                               latent_pos[..., :1].float()], dim=1)
+            cos, sin = rope_freqs(t_pos, (self.config.attention_head_dim,))
+            text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
+            time_ids = torch.cat([text_time, latent_time.to(torch.int32)],
+                                 dim=1)
 
-        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-        if shard is not None:
-            ctx, x = shard.split(ctx, x)
-            cos, sin = shard.local(cos, 1), shard.local(sin)
-            time_ids = shard.pad(time_ids, INVALID_TIME)
-        for block in self.transformer_blocks:
-            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
-                               self.bounded_softmax)
-        if shard is not None:  # every local token's output, gathered
-            h = torch.cat([ctx, x], dim=1)
-            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
-        return self.proj_out(self.norm_out(x, temb))
+            shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+            if shard is not None:
+                ctx, x = shard.split(ctx, x)
+                cos, sin = shard.local(cos, 1), shard.local(sin)
+                time_ids = shard.pad(time_ids, INVALID_TIME)
+            for block in self.transformer_blocks:
+                x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                                   self.bounded_softmax)
+            if shard is not None:  # every local token's output, gathered
+                h = torch.cat([ctx, x], dim=1)
+                return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
+            return self.proj_out(self.norm_out(x, temb))

@@ -56,7 +56,7 @@ __all__ = ["flash_attention", "attention_reference",
            "flash_fwd_cuda", "flash_bwd_cuda", "flash_fwd_hn_cuda",
            "flash_fwd_hn_resources", "FlashAttentionFunction", "tile_types",
            "INVALID_TIME", "TILE_SKIP", "TILE_FULL", "TILE_MASKED",
-           "FWD_TILE_Q", "FWD_TILE_K"]
+           "FWD_TILE_Q", "FWD_TILE_K", "FORWARD_LAUNCHES"]
 
 INVALID_TIME = 2**30
 LOG2E = 1.4426950408889634
@@ -340,6 +340,8 @@ def flash_fwd_cuda(q, k, v, time_q, time_kv, *, causal: bool,
 
 flash_fwd_cuda.launches = 0
 flash_fwd_cuda.classic_launches = 0
+# a span counter (``utils.profiling.span``): the flash forward's launches
+FORWARD_LAUNCHES = {"attn_launches": lambda: flash_fwd_cuda.launches}
 
 
 def flash_fwd_hn_cuda(q, k, v, time_q, time_kv, *, causal: bool,

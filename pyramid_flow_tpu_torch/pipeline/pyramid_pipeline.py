@@ -13,6 +13,10 @@ JAX package's exactly.
 
 Text encoding is separate: ``generate`` takes precomputed (embeddings, mask,
 pooled) for the positive and the negative prompt.
+
+``generate`` opens spans (``utils.profiling.span``, recorded only inside
+``profiling.recording()``) around the request, each unit, stage, device
+sync and the decode, under the request's number as trace id.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch
 from ..ops.blocknoise import block_noise_from_normal
 from ..ops.flash_attention import INVALID_TIME
 from ..schedulers.flow_matching import PyramidFlowMatchEulerDiscreteScheduler
+from ..utils.profiling import ALLOCATOR, span
 from .noising import (LATENT_NORMS, VIDEO_NORM, dit_model_name, down2,
                       latent_pyramid, normalize_latent, up2_nearest)
 from .packing import clip_metadata, patchify, unpatchify
@@ -186,6 +191,7 @@ class PyramidFlowPipeline:
         self.vae_video_shift_factor, self.vae_video_scale_factor = VIDEO_NORM
         self.last_dit_seconds = None
         self.last_decode_seconds = None
+        self.requests = 0  # generate's calls: the trace id of their spans
 
     @classmethod
     def from_pretrained(cls, model_path: str,
@@ -289,8 +295,9 @@ class PyramidFlowPipeline:
         return torch.cat([first, rest], dim=1)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with span("pipeline.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
 
     def _pack_cond(self, clips, *, budget: int):
         """Patchify and concat the conditioning clips, right-pad with zero
@@ -426,31 +433,35 @@ class PyramidFlowPipeline:
         c = self.latent_channels
         intermed = []
         for i_s in range(self.num_stages):
-            timesteps, sigmas = self.scheduler.inference_tables(
-                num_inference_steps[i_s], i_s)
-            h = h_lat >> (self.num_stages - 1 - i_s)
-            w = w_lat >> (self.num_stages - 1 - i_s)
-            if i_s > 0:
-                ab = self.scheduler.transition_coefficients(i_s)
-                block_z = noise.block(unit_index, i_s,
-                                      (b, fpu, h // 2, w // 2, c, 4))
-                block_z = block_z.to(self.device, torch.float32)
-            else:
-                ab, block_z = None, None
-            positions, time_ids, trainable = self._stage_metadata(
-                b, fpu, h_lat, w_lat, unit_index, i_s, budgets[i_s])
-            cond_tokens = (cond_tokens_per_stage[i_s]
-                           if cond_tokens_per_stage is not None else
-                           torch.zeros((2 * b, budgets[i_s], 4 * c),
-                                       dtype=self.dtype, device=self.device))
-            latents = self._denoise_stage_loop(
-                latents, cond_tokens,
-                torch.as_tensor(positions, device=self.device)[None],
-                torch.as_tensor(time_ids, device=self.device)[None],
-                prompt_embeds, prompt_mask, pooled, timesteps, sigmas,
-                guidance, ab, block_z, trainable_tokens=trainable, temp=fpu,
-                height=h, width=w)
-            intermed.append(latents)
+            with span("pipeline.stage", stage=i_s,
+                      steps=num_inference_steps[i_s]) as stage:
+                timesteps, sigmas = self.scheduler.inference_tables(
+                    num_inference_steps[i_s], i_s)
+                h = h_lat >> (self.num_stages - 1 - i_s)
+                w = w_lat >> (self.num_stages - 1 - i_s)
+                if i_s > 0:
+                    ab = self.scheduler.transition_coefficients(i_s)
+                    block_z = noise.block(unit_index, i_s,
+                                          (b, fpu, h // 2, w // 2, c, 4))
+                    block_z = block_z.to(self.device, torch.float32)
+                else:
+                    ab, block_z = None, None
+                positions, time_ids, trainable = self._stage_metadata(
+                    b, fpu, h_lat, w_lat, unit_index, i_s, budgets[i_s])
+                stage.set(tokens=budgets[i_s] + trainable)
+                cond_tokens = (cond_tokens_per_stage[i_s]
+                               if cond_tokens_per_stage is not None else
+                               torch.zeros((2 * b, budgets[i_s], 4 * c),
+                                           dtype=self.dtype,
+                                           device=self.device))
+                latents = self._denoise_stage_loop(
+                    latents, cond_tokens,
+                    torch.as_tensor(positions, device=self.device)[None],
+                    torch.as_tensor(time_ids, device=self.device)[None],
+                    prompt_embeds, prompt_mask, pooled, timesteps, sigmas,
+                    guidance, ab, block_z, trainable_tokens=trainable,
+                    temp=fpu, height=h, width=w)
+                intermed.append(latents)
         return intermed
 
     @torch.no_grad()
@@ -497,86 +508,105 @@ class PyramidFlowPipeline:
         if isinstance(video_num_inference_steps, int):
             video_num_inference_steps = ([video_num_inference_steps]
                                          * self.num_stages)
-        t_start = time.perf_counter()
-        dev = self.device
-        # CFG batch: [negative, positive]
-        pe = torch.cat([negative_embeds, prompt_embeds]).to(dev, self.dtype)
-        pm = torch.cat([negative_mask, prompt_mask]).to(dev)
-        pp = torch.cat([negative_pooled, pooled_embeds]).to(dev, self.dtype)
+        self.requests += 1
+        with span("pipeline.request", trace_id=self.requests,
+                  temp=temp) as request:
+            t_start = time.perf_counter()
+            dev = self.device
+            # CFG batch: [negative, positive]
+            pe = torch.cat([negative_embeds, prompt_embeds]).to(dev,
+                                                                self.dtype)
+            pm = torch.cat([negative_mask, prompt_mask]).to(dev)
+            pp = torch.cat([negative_pooled, pooled_embeds]).to(dev,
+                                                                self.dtype)
 
-        b = prompt_embeds.shape[0]
-        h_lat, w_lat = height // self.downsample, width // self.downsample
-        min_div = self.downsample * 2 * (2 ** (self.num_stages - 1))
-        if height % min_div or width % min_div:
-            raise ValueError(
-                f"height/width must be divisible by {min_div} (8x VAE x 2 "
-                f"patch x {2 ** (self.num_stages - 1)} pyramid)")
-        latents = noise.initial((b, temp, h_lat, w_lat, self.latent_channels))
-        latents = latents.to(dev, torch.float32)
-        # start from the lowest stage: bilinear down with the x2 noise scale
-        for _ in range(self.num_stages - 1):
-            latents = down2(latents) * 2
+            b = prompt_embeds.shape[0]
+            h_lat = height // self.downsample
+            w_lat = width // self.downsample
+            min_div = self.downsample * 2 * (2 ** (self.num_stages - 1))
+            if height % min_div or width % min_div:
+                raise ValueError(
+                    f"height/width must be divisible by {min_div} (8x VAE x "
+                    f"2 patch x {2 ** (self.num_stages - 1)} pyramid)")
+            latents = noise.initial(
+                (b, temp, h_lat, w_lat, self.latent_channels))
+            latents = latents.to(dev, torch.float32)
+            # start from the lowest stage: bilinear down with the x2 noise
+            # scale
+            for _ in range(self.num_stages - 1):
+                latents = down2(latents) * 2
 
-        fpu = self.frame_per_unit
-        generated: List[torch.Tensor] = []
-        if input_image_latent is not None:
-            # unit 0 is the image; unit u > 0 denoises the initial draw's
-            # frames [(u - 1) fpu, u fpu)
-            generated.append(input_image_latent.to(dev, torch.float32))
-            unit_range = range(1, temp // fpu)
-        else:
-            # unit 0 is the first frame; unit u > 0 takes frames
-            # [1 + (u - 1) fpu, 1 + u fpu)
-            unit_range = range(1 + (temp - 1) // fpu)
-        if use_linear_guidance:
-            g_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
-                      for t_ in range(temp)]
-        for done, unit_index in enumerate(unit_range, start=1):
-            budgets = self._cond_token_budget(unit_index, h_lat, w_lat)
-            if unit_index == 0:
-                g = g_list[0] if use_linear_guidance else guidance_scale
-                intermed = self.generate_one_unit(
-                    latents[:, :1], None, pe, pm, pp, num_inference_steps, g,
-                    0, budgets, h_lat, w_lat, noise)
+            fpu = self.frame_per_unit
+            generated: List[torch.Tensor] = []
+            if input_image_latent is not None:
+                # unit 0 is the image; unit u > 0 denoises the initial draw's
+                # frames [(u - 1) fpu, u fpu)
+                generated.append(input_image_latent.to(dev, torch.float32))
+                unit_range = range(1, temp // fpu)
             else:
-                vg = (g_list[unit_index] if use_linear_guidance
-                      else video_guidance_scale)
-                history = torch.cat(generated, dim=1)
-                cond = [self._prep_cond_from_history(
-                    history, unit_index=unit_index, stage=i_s,
-                    budget=budgets[i_s]) for i_s in range(self.num_stages)]
-                start = (unit_index - 1) * fpu
-                if input_image_latent is None:
-                    start += 1  # frame 0 was unit 0's
-                intermed = self.generate_one_unit(
-                    latents[:, start:start + fpu], cond, pe, pm, pp,
-                    video_num_inference_steps, vg, unit_index, budgets,
-                    h_lat, w_lat, noise)
-            generated.append(intermed[-1].float())
-            if progress_callback is not None:
-                self._sync()
-                progress_callback({"phase": "denoise", "unit": done,
-                                   "units": len(unit_range)})
+                # unit 0 is the first frame; unit u > 0 takes frames
+                # [1 + (u - 1) fpu, 1 + u fpu)
+                unit_range = range(1 + (temp - 1) // fpu)
+            request.set(units=len(unit_range))
+            if use_linear_guidance:
+                g_list = [max(guidance_scale - alpha * t_, min_guidance_scale)
+                          for t_ in range(temp)]
+            for done, unit_index in enumerate(unit_range, start=1):
+                with span("pipeline.unit", counters=ALLOCATOR,
+                          unit=unit_index):
+                    budgets = self._cond_token_budget(unit_index, h_lat,
+                                                      w_lat)
+                    if unit_index == 0:
+                        g = (g_list[0] if use_linear_guidance
+                             else guidance_scale)
+                        intermed = self.generate_one_unit(
+                            latents[:, :1], None, pe, pm, pp,
+                            num_inference_steps, g, 0, budgets, h_lat, w_lat,
+                            noise)
+                    else:
+                        vg = (g_list[unit_index] if use_linear_guidance
+                              else video_guidance_scale)
+                        history = torch.cat(generated, dim=1)
+                        cond = [self._prep_cond_from_history(
+                            history, unit_index=unit_index, stage=i_s,
+                            budget=budgets[i_s])
+                            for i_s in range(self.num_stages)]
+                        start = (unit_index - 1) * fpu
+                        if input_image_latent is None:
+                            start += 1  # frame 0 was unit 0's
+                        intermed = self.generate_one_unit(
+                            latents[:, start:start + fpu], cond, pe, pm, pp,
+                            video_num_inference_steps, vg, unit_index,
+                            budgets, h_lat, w_lat, noise)
+                    generated.append(intermed[-1].float())
+                    if progress_callback is not None:
+                        self._sync()
+                if progress_callback is not None:
+                    progress_callback({"phase": "denoise", "unit": done,
+                                       "units": len(unit_range)})
 
-        latents_full = torch.cat(generated, dim=1)
-        self._sync()
-        t_dit = time.perf_counter()
-        self.last_dit_seconds = t_dit - t_start
-        if output_type == "latent":
-            return latents_full
-        if release_dit_before_decode:
-            self.dit = None
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-        if progress_callback is not None:
-            progress_callback({"phase": "decode", "unit": len(unit_range),
-                               "units": len(unit_range)})
-        out = self.decode_latent(latents_full, save_memory=save_memory,
-                                 plan=decode_plan)
-        self._sync()
-        self.last_decode_seconds = time.perf_counter() - t_dit
-        return out
+            latents_full = torch.cat(generated, dim=1)
+            self._sync()
+            t_dit = time.perf_counter()
+            self.last_dit_seconds = t_dit - t_start
+            if output_type == "latent":
+                return latents_full
+            if release_dit_before_decode:
+                self.dit = None
+                gc.collect()
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            if progress_callback is not None:
+                progress_callback({"phase": "decode",
+                                   "unit": len(unit_range),
+                                   "units": len(unit_range)})
+            with span("pipeline.decode"):
+                out = self.decode_latent(latents_full,
+                                         save_memory=save_memory,
+                                         plan=decode_plan)
+            self._sync()
+            self.last_decode_seconds = time.perf_counter() - t_dit
+            return out
 
     def generate_i2v(self, generator: Optional[torch.Generator],
                      image_latent_raw: torch.Tensor, *args, **kwargs):

@@ -38,6 +38,8 @@ import torch
 from torch import nn
 from torch.distributed.tensor import DTensor
 
+from ..utils.profiling import span
+
 __all__ = ["TrainConfig", "TrainState", "create_train_state", "global_norm",
            "clip_by_global_norm_"]
 
@@ -71,7 +73,8 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
                          ) -> float:
     """optax's ``clip_by_global_norm``, in place: ``g * max_norm / |g|``
     when ``|g| >= max_norm``. Returns the norm before the clip."""
-    norm = global_norm(grads).item()
+    with span("train.sync", read="clip_norm"):
+        norm = global_norm(grads).item()
     if not norm < max_norm:
         torch._foreach_div_(grads, norm)
         torch._foreach_mul_(grads, max_norm)

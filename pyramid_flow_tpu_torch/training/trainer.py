@@ -14,7 +14,10 @@ The counterpart of the JAX package's ``training/trainer.py``:
 * clip, anomaly gate, AdamW and EMA in :meth:`TrainState.apply_gradients`;
 * raw-pixel batches (``"video"``): the frozen VAE encodes them, its
   posterior is sampled from the step's own draw, and the latents are
-  normalised, before all of the above.
+  normalised, before all of the above;
+* spans (``utils.profiling.span``, recorded only inside
+  ``profiling.recording()``) around the step, the encode, each backward,
+  the optimizer and each ``.item()`` read, under the step's trace id.
 
 On a (dp, fsdp, sp) mesh (``parallel.mesh``) each rank takes its slice of
 the global batch: the dp x fsdp ranks hold different rows, the ranks of one
@@ -54,6 +57,7 @@ from ..pipeline.noising import (
     normalize_latent,
 )
 from ..pipeline.packing import pack_clips, patchify
+from ..utils.profiling import ALLOCATOR, span
 from .train_state import TrainState, global_norm
 
 __all__ = ["dit_loss_fn", "make_train_step", "stage_row_split", "global_norm",
@@ -224,6 +228,12 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws,
              num_units_per_stage: Tuple[int, ...]):
+        with span("train.step", trace_id=state.step,
+                  counters=ALLOCATOR) as step_span:
+            return traced_step(step_span, state, batch, draws,
+                               num_units_per_stage)
+
+    def traced_step(step_span, state, batch, draws, num_units_per_stage):
         if isinstance(draws, torch.Generator):
             draws = GeneratorDraws(draws)
         draws_drop, draws_noise, draws_vae = draws.fold_in(state.step).split(3)
@@ -234,9 +244,12 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
             if vae is None:
                 raise ValueError("a raw-pixel batch ('video') needs "
                                  "make_train_step(vae=...)")
-            latents = encode_video(vae, x, draws_vae, model_name, rows)
+            with span("train.encode", frames=x.shape[1]):
+                latents = encode_video(vae, x, draws_vae, model_name, rows)
         else:
             latents = x
+        b_, t_, h_, w_ = latents.shape[:4]  # the batch's 2x2 patches
+        step_span.set(tokens=b_ * t_ * (h_ // 2) * (w_ // 2))
         # CFG text drop
         drop = draws_drop.uniform((rows[1],))[rows[0]:rows[0] + b]
         drop = drop.to(latents.device) <= cfg_rate
@@ -269,16 +282,21 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
             # the micro-batch's share of this rank's mean: the average over
             # micro-batches, and the global one once FSDP2 averages ranks
             mb_loss = mb_loss * ((hi - lo) / b)
-            mb_loss.backward()  # sums into .grad
+            with span("train.backward", micro_batch=i):
+                mb_loss.backward()  # sums into .grad
             loss = loss + mb_loss.detach()
         if mesh is not None:  # the global mean on every rank
             dist.all_reduce(loss)
             loss = loss / mesh.size()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
-        gnorm = global_norm(grads).item()
-        loss = loss.item()
-        applied = state.apply_gradients(grads, loss)
+        with span("train.sync", read="grad_norm"):
+            gnorm = global_norm(grads).item()
+        with span("train.sync", read="loss"):
+            loss = loss.item()
+        with span("train.optimizer") as opt_span:  # clip, AdamW, EMA
+            applied = state.apply_gradients(grads, loss)
+            opt_span.set(applied=applied)
         for p in params:
             p.grad = None
         return state, {"train/loss": loss, "train/grad_norm": gnorm,

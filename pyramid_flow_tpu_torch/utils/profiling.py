@@ -4,11 +4,14 @@
   with a card, CUDA activities), written to ``log_dir`` in TensorBoard's
   format (one ``*.pt.trace.json`` per trace).
 * :func:`annotate`: a named span in that trace (``record_function``).
-* :class:`PhaseTimer`: host seconds per named phase, with the device of the
-  tensors named in ``block_on`` synchronised at the end of each phase.
-* :func:`device_memory_stats`: bytes in use, their peak and the memory
-  size of each visible CUDA device (``torch.cuda.memory_stats``); empty with
-  no card.
+* :func:`span` and :func:`recording`: the program's own spans. The pipeline,
+  the DiTs and the trainer open a span at each of their layer boundaries;
+  inside a ``recording()`` block each span appends a :class:`Span` to the
+  block's :class:`Recorder`, and outside one it costs one module-level
+  check. Times are ``time.time_ns()``, the Unix nanoseconds that the torch
+  profiler stamps its events with, so spans and a device trace share one
+  axis; while a profiler runs, each span is also a ``record_function``
+  range of the same name.
 """
 
 from __future__ import annotations
@@ -16,12 +19,12 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from collections import defaultdict
-from typing import Dict
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["trace", "annotate", "PhaseTimer", "device_memory_stats"]
+__all__ = ["trace", "annotate", "span", "recording", "Recorder", "Span",
+           "allocator_calls", "ALLOCATOR"]
 
 
 @contextlib.contextmanager
@@ -45,55 +48,131 @@ def annotate(name: str):
     return torch.profiler.record_function(name)
 
 
-def _synchronize(tensors) -> None:
-    """Wait for the CUDA devices that hold any of ``tensors`` (a tensor, or
-    a list, tuple or dict of them); CPU tensors need no wait."""
-    if isinstance(tensors, torch.Tensor):
-        tensors = [tensors]
-    elif isinstance(tensors, dict):
-        tensors = list(tensors.values())
-    devices = {t.device for t in tensors
-               if isinstance(t, torch.Tensor) and t.is_cuda}
-    for dev in devices:
-        torch.cuda.synchronize(dev)
+class Span(NamedTuple):
+    """One recorded span: ``parent`` is the index of the enclosing span in
+    the recorder's list (None at the top); ``trace_id`` is given to a span
+    or taken from its parent (the request number in the pipeline, the train
+    state's ``step`` in training); ``attrs`` holds the span's attributes
+    and each counter's change between its ends."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]  # None while the span is open
+    parent: Optional[int]
+    trace_id: Optional[int]
+    attrs: dict
 
 
-class PhaseTimer:
-    """Host seconds and calls per phase; ``phase(name, block_on=x)``
-    synchronises ``x``'s CUDA device before it reads the clock."""
+class Recorder:
+    """The spans of one ``recording()`` block, in the order they opened.
+    The open spans are one stack, so spans nest on one thread, as the
+    pipeline's and the trainer's do."""
 
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self._records: List[list] = []
+        self._open: List[int] = []  # indices of the spans not yet closed
 
-    @contextlib.contextmanager
-    def phase(self, name: str, block_on=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if block_on is not None:
-                _synchronize(block_on)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-
-    def summary(self) -> str:
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        return "  ".join(f"{k}: {v:.2f}s/{self.counts[k]}x" for k, v in rows)
+    def spans(self) -> List[Span]:
+        """The closed spans and the open ones (whose ``end_ns`` is None)."""
+        return [Span(*r) for r in self._records]
 
 
-def device_memory_stats() -> Dict[str, Dict[str, int]]:
-    """``{"cuda:i": {"bytes_in_use", "peak_bytes_in_use", "bytes_limit"}}``
-    for each visible CUDA device (the caching allocator's bytes, its peak,
-    and the device's total memory); ``{}`` without a card."""
-    out = {}
-    if not torch.cuda.is_available():
-        return out
-    for i in range(torch.cuda.device_count()):
-        stats = torch.cuda.memory_stats(i)
-        out[f"cuda:{i}"] = {
-            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
-            "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
-        }
-    return out
+_recorder: Optional[Recorder] = None
+
+
+class _NullSpan:
+    """What :func:`span` returns while nothing records: one shared
+    object."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("rec", "name", "trace_id", "counters", "attrs", "index",
+                 "base", "ranged")
+
+    def __init__(self, rec: Recorder, name: str, trace_id, counters, attrs):
+        self.rec, self.name, self.trace_id = rec, name, trace_id
+        self.counters, self.attrs = counters, attrs
+        self.ranged = None
+
+    def __enter__(self):
+        rec = self.rec
+        parent = rec._open[-1] if rec._open else None
+        tid = self.trace_id
+        if tid is None and parent is not None:
+            tid = rec._records[parent][4]
+        if self.counters:
+            self.base = {k: read() for k, read in self.counters.items()}
+        if torch._C._autograd._profiler_enabled():
+            self.ranged = torch.profiler.record_function(self.name)
+            self.ranged.__enter__()
+        self.index = len(rec._records)
+        rec._open.append(self.index)
+        rec._records.append([self.name, time.time_ns(), None, parent, tid,
+                             self.attrs])
+        return self
+
+    def set(self, **attrs) -> None:
+        """Attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        rec._records[self.index][2] = time.time_ns()
+        rec._open.pop()
+        if self.ranged is not None:
+            self.ranged.__exit__(*exc)
+        if self.counters:
+            for k, read in self.counters.items():
+                self.attrs[k] = read() - self.base[k]
+        return False
+
+
+def span(name: str, trace_id: Optional[int] = None,
+         counters: Optional[Dict[str, Callable[[], int]]] = None, **attrs):
+    """A context manager around one piece of the program's work, recorded
+    while a ``recording()`` block is open. ``counters`` maps attribute
+    names to functions read at both ends (only while recording); the
+    difference lands in ``attrs``. The yielded span's ``set(**attrs)`` adds
+    attributes from inside it."""
+    rec = _recorder
+    if rec is None:
+        return _NULL
+    return _Span(rec, name, trace_id, counters, attrs)
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Recorder]:
+    """Record every span opened inside the block; yields the recorder.
+    Nothing is written anywhere."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("spans are already being recorded")
+    _recorder = rec = Recorder()
+    try:
+        yield rec
+    finally:
+        _recorder = None
+
+
+def allocator_calls() -> int:
+    """The caching allocator's ``cudaMalloc`` and ``cudaFree`` calls so far
+    on the current CUDA device (``num_device_alloc`` + ``num_device_free``);
+    0 before CUDA is initialised."""
+    if not torch.cuda.is_initialized():
+        return 0
+    stats = torch.cuda.memory_stats()
+    return stats.get("num_device_alloc", 0) + stats.get("num_device_free", 0)
+
+
+ALLOCATOR = {"allocator_calls": allocator_calls}

@@ -234,22 +234,33 @@ def test_downsample_pyramid_matches_jax(noise_scale):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    timer = profiling.PhaseTimer()
-    x = torch.ones(4)
-    for _ in range(2):
-        with timer.phase("denoise", block_on=x):
-            y = x * 2
-        with timer.phase("decode", block_on={"y": y}):
-            pass
-    assert timer.counts == {"denoise": 2, "decode": 2}
-    assert all(v >= 0 for v in timer.totals.values())
-    assert "denoise:" in timer.summary() and "/2x" in timer.summary()
+    calls = iter(range(0, 100, 5))
+    counters = {"ticks": lambda: next(calls)}
+    with profiling.recording() as rec:
+        for _ in range(2):
+            with profiling.span("outer", trace_id=7, counters=counters,
+                                phase="denoise") as outer:
+                with profiling.span("inner"):
+                    torch.ones(4) * 2
+                outer.set(done=True)
+        with pytest.raises(RuntimeError, match="already"):
+            with profiling.recording():
+                pass
+    spans = rec.spans()
+    assert [(s.name, s.parent, s.trace_id) for s in spans] == [
+        ("outer", None, 7), ("inner", 0, 7), ("outer", None, 7),
+        ("inner", 2, 7)]
+    assert spans[0].attrs == {"phase": "denoise", "done": True, "ticks": 5}
+    assert all(s.start_ns <= s.end_ns for s in spans)
+    assert spans[0].start_ns <= spans[1].start_ns <= spans[1].end_ns \
+        <= spans[0].end_ns <= spans[2].start_ns
+    assert profiling.span("outer") is profiling.span("inner")  # off again
     with profiling.trace(str(tmp_path / "trace")):
         with profiling.annotate("matmul_span"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     files = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(files) == 1 and "matmul_span" in files[0].read_text()
-    assert profiling.device_memory_stats() == {}
+    assert profiling.allocator_calls() == 0
 
 
 def test_tools_exit_without_a_card(capsys):
