@@ -12,6 +12,10 @@ counterpart of the JAX blocks' ``sow("telemetry", ...)``: set its
 every block) and each forward appends ``(q[:1], k[:1])``. ``capture`` is
 None otherwise, and then costs one attribute test.
 
+While the DiT captures its forward in CUDA graphs (``models.dit_graphs``),
+each attention module's ``seam`` is the capture, which the module calls in
+place of :func:`_attention`; ``seam`` is None otherwise.
+
 Under sequence parallelism each attention module's ``sp_group`` is the sp
 process group (the DiT sets it from its mesh): the module then holds this
 rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
@@ -183,6 +187,7 @@ class JointAttention(nn.Module):
         for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
         self.capture = None
+        self.seam = None
         self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
@@ -200,8 +205,9 @@ class JointAttention(nn.Module):
         v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
             _capture(self, q, k)
-        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
-                                self.sp_group, bounded))
+        attend = _attention if self.seam is None else self.seam
+        o = _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
+                            self.sp_group, bounded))
         return self.to_out[0](o[:, lt:]), self.to_add_out(o[:, :lt])
 
 
@@ -219,6 +225,7 @@ class SingleAttention(nn.Module):
         self.norm_q = RMSNorm(head_dim, **kw)
         self.norm_k = RMSNorm(head_dim, **kw)
         self.capture = None
+        self.seam = None
         self.sp_group = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids, bounded=True):
@@ -230,8 +237,9 @@ class SingleAttention(nn.Module):
         v = _heads(self.to_v(x), n)
         if self.capture is not None:
             _capture(self, q, k)
-        return _unheads(_attention(q, k, v, time_ids, self.causal,
-                                   self.head_dim, self.sp_group, bounded))
+        attend = _attention if self.seam is None else self.seam
+        return _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
+                               self.sp_group, bounded))
 
 
 class FluxTransformerBlock(nn.Module):

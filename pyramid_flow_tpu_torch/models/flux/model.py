@@ -38,13 +38,17 @@ after a load or after ``set_mesh`` switches every attention, under sequence
 parallelism too; it is saved in no state dict, config or train state.
 
 Each forward is a ``dit.forward`` span (``utils.profiling.span``) with its
-rows, tokens and flash-forward launches; the MMDiT's forward is one too.
+rows, tokens, flash-forward launches and ``graph``, how it ran; the MMDiT's
+forward is one too. A serving forward (autograd off, on the card) replays
+CUDA graphs captured for its layout, cut at every attention
+(``models.dit_graphs``); every other forward runs eagerly.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -59,6 +63,8 @@ from ...parallel.mesh import SP_AXIS, mesh_dim
 from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
 from ...utils.profiling import span
+from ..dit_graphs import ForwardGraphs
+from . import blocks
 from .blocks import (
     AdaLayerNormContinuous,
     FluxSingleTransformerBlock,
@@ -92,12 +98,18 @@ class FluxConfig:
         return self.num_attention_heads * self.attention_head_dim
 
 
+@functools.lru_cache(maxsize=None)
+def _sinusoid_freqs(half: int, device: torch.device) -> torch.Tensor:
+    """The sinusoid's [half] frequencies on ``device``, computed once in
+    numpy (a forward then uploads nothing and can be captured)."""
+    exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
+    return torch.as_tensor(np.exp(exponent), device=device)
+
+
 def timestep_sinusoidal(t: torch.Tensor, dim: int = 256) -> torch.Tensor:
     """[cos, sin] sinusoidal embedding of [B] timesteps, fp32
     (flip_sin_to_cos=True, downscale_freq_shift=0)."""
-    half = dim // 2
-    exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
-    freqs = torch.as_tensor(np.exp(exponent), device=t.device)
+    freqs = _sinusoid_freqs(dim // 2, t.device)
     arg = t.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(arg), torch.sin(arg)], dim=-1)
 
@@ -187,13 +199,18 @@ class PyramidFluxTransformer(nn.Module):
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
         self.set_mesh(mesh)
+        self.graphs = ForwardGraphs(blocks)
 
     def set_mesh(self, mesh) -> None:
         """Run on ``mesh`` (None: one device); with an sp dim above 1 every
         attention is Ulysses' over the mesh's sp group."""
-        set_dit_mesh(self, [blk.attn for blk in (
-            *self.transformer_blocks, *self.single_transformer_blocks)],
-            mesh)
+        set_dit_mesh(self, self.attention_modules, mesh)
+
+    @property
+    def attention_modules(self) -> List[nn.Module]:
+        """Every block's attention, dual blocks first."""
+        return [blk.attn for blk in (*self.transformer_blocks,
+                                     *self.single_transformer_blocks)]
 
     @property
     def num_attention_calls(self) -> int:
@@ -217,8 +234,7 @@ class PyramidFluxTransformer(nn.Module):
         ``(q, k)`` ``[1, H, L, D]`` to the yielded list, dual blocks first.
         Capture without autograd: under ``remat`` a block's recompute in the
         backward would append again."""
-        attns = [blk.attn for blk in (*self.transformer_blocks,
-                                      *self.single_transformer_blocks)]
+        attns = self.attention_modules
         captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for attn in attns:
             attn.capture = captured
@@ -236,39 +252,44 @@ class PyramidFluxTransformer(nn.Module):
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, guidance=None):
         with span("dit.forward", counters=FORWARD_LAUNCHES,
-                  rows=latent_tokens.shape[0], tokens=latent_tokens.shape[1]):
-            b, lt = text_emb.shape[:2]
-            temb = self.time_text_embed(timestep, pooled, guidance)
-            ctx = self.context_embedder(text_emb)
-            x = self.x_embedder(latent_tokens)
+                  rows=latent_tokens.shape[0],
+                  tokens=latent_tokens.shape[1]) as record:
+            return self.graphs(self, self._forward, (
+                latent_tokens, latent_pos, latent_time, text_emb, text_mask,
+                pooled, timestep, guidance), record)
 
-            # RoPE over [text; latent]: text at position 0 on every axis
-            text_pos = torch.zeros((b, lt, 3), dtype=torch.float32,
-                                   device=latent_pos.device)
-            cos, sin = rope_freqs(
-                torch.cat([text_pos, latent_pos.float()], dim=1),
-                self.config.axes_dims_rope)
-            # attention time ids: text t=0, masked-out text INVALID
-            text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-            time_ids = torch.cat([text_time, latent_time.to(torch.int32)],
-                                 dim=1)
+    def _forward(self, latent_tokens, latent_pos, latent_time, text_emb,
+                 text_mask, pooled, timestep, guidance=None):
+        b, lt = text_emb.shape[:2]
+        temb = self.time_text_embed(timestep, pooled, guidance)
+        ctx = self.context_embedder(text_emb)
+        x = self.x_embedder(latent_tokens)
 
-            shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-            if shard is not None:
-                ctx, x = shard.split(ctx, x)
-                cos, sin = shard.local(cos, 1), shard.local(sin)
-                time_ids = shard.pad(time_ids, INVALID_TIME)
-            bounded = self.bounded_softmax
-            for block in self.transformer_blocks:
-                x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
-                                   bounded)
-            h = torch.cat([ctx, x], dim=1)  # text first
-            for block in self.single_transformer_blocks:
-                h = self._run(block, h, temb, cos, sin, time_ids, bounded)
-            if shard is not None:  # every local token's output, gathered
-                return gather_seq(self.proj_out(self.norm_out(h, temb)),
-                                  shard)
-            return self.proj_out(self.norm_out(h[:, lt:], temb))
+        # RoPE over [text; latent]: text at position 0 on every axis
+        text_pos = torch.zeros((b, lt, 3), dtype=torch.float32,
+                               device=latent_pos.device)
+        cos, sin = rope_freqs(
+            torch.cat([text_pos, latent_pos.float()], dim=1),
+            self.config.axes_dims_rope)
+        # attention time ids: text t=0, masked-out text INVALID
+        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
+        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
+
+        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+        if shard is not None:
+            ctx, x = shard.split(ctx, x)
+            cos, sin = shard.local(cos, 1), shard.local(sin)
+            time_ids = shard.pad(time_ids, INVALID_TIME)
+        bounded = self.bounded_softmax
+        for block in self.transformer_blocks:
+            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                               bounded)
+        h = torch.cat([ctx, x], dim=1)  # text first
+        for block in self.single_transformer_blocks:
+            h = self._run(block, h, temb, cos, sin, time_ids, bounded)
+        if shard is not None:  # every local token's output, gathered
+            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
+        return self.proj_out(self.norm_out(h[:, lt:], temb))
 
 
 def set_dit_mesh(dit: nn.Module, attns, mesh) -> None:

@@ -33,7 +33,7 @@ __all__ = ["MMDiTJointAttention", "JointTransformerBlock"]
 class MMDiTJointAttention(nn.Module):
     """Joint text+image attention: separate projections, one softmax over
     [text; image]; no context output when ``context_pre_only``. ``capture``
-    works as in the flux blocks."""
+    and ``seam`` work as in the flux blocks."""
 
     def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
                  context_pre_only: bool = False, **kw):
@@ -51,6 +51,7 @@ class MMDiTJointAttention(nn.Module):
         for name in ("norm_q", "norm_k", "norm_add_q", "norm_add_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
         self.capture = None
+        self.seam = None
         self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
@@ -67,8 +68,9 @@ class MMDiTJointAttention(nn.Module):
         v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
             _capture(self, q, k)
-        o = _unheads(_attention(q, k, v, time_ids, self.causal, self.head_dim,
-                                self.sp_group, bounded))
+        attend = _attention if self.seam is None else self.seam
+        o = _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
+                            self.sp_group, bounded))
         x_o = self.to_out[0](o[:, lt:])
         if self.context_pre_only:
             return x_o, None

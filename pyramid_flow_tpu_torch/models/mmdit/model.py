@@ -52,8 +52,10 @@ from ...ops.rope import rope_freqs
 from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
 from ...utils.profiling import span
+from ..dit_graphs import ForwardGraphs
 from ..flux.blocks import AdaLayerNormContinuous
 from ..flux.model import TimestepTextEmbed, set_dit_mesh
+from . import blocks
 from .blocks import JointTransformerBlock
 
 __all__ = ["MMDiTConfig", "PyramidDiffusionMMDiT", "PatchEmbed",
@@ -200,11 +202,16 @@ class PyramidDiffusionMMDiT(nn.Module):
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
         self.set_mesh(mesh)
+        self.graphs = ForwardGraphs(blocks)
 
     def set_mesh(self, mesh) -> None:
         """As ``PyramidFluxTransformer.set_mesh``."""
-        set_dit_mesh(self, [blk.attn for blk in self.transformer_blocks],
-                     mesh)
+        set_dit_mesh(self, self.attention_modules, mesh)
+
+    @property
+    def attention_modules(self) -> List[nn.Module]:
+        """Every block's attention."""
+        return [blk.attn for blk in self.transformer_blocks]
 
     @property
     def num_attention_calls(self) -> int:
@@ -238,7 +245,7 @@ class PyramidDiffusionMMDiT(nn.Module):
     def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
         """As ``PyramidFluxTransformer.capture_qk``: every attention appends
         batch row 0's post-RoPE ``(q, k)`` to the yielded list."""
-        attns = [blk.attn for blk in self.transformer_blocks]
+        attns = self.attention_modules
         captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for attn in attns:
             attn.capture = captured
@@ -256,30 +263,36 @@ class PyramidDiffusionMMDiT(nn.Module):
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, pos_offset):
         with span("dit.forward", counters=FORWARD_LAUNCHES,
-                  rows=latent_tokens.shape[0], tokens=latent_tokens.shape[1]):
-            b, lt = text_emb.shape[:2]
-            temb = self.time_text_embed(timestep, pooled)
-            ctx = self.context_embedder(text_emb)
-            x = self.pos_embed(latent_tokens, latent_pos, pos_offset)
+                  rows=latent_tokens.shape[0],
+                  tokens=latent_tokens.shape[1]) as record:
+            return self.graphs(self, self._forward, (
+                latent_tokens, latent_pos, latent_time, text_emb, text_mask,
+                pooled, timestep, pos_offset), record)
 
-            # temporal RoPE over the whole head dim, text at t=0
-            t_pos = torch.cat([torch.zeros((b, lt, 1), dtype=torch.float32,
-                                           device=latent_pos.device),
-                               latent_pos[..., :1].float()], dim=1)
-            cos, sin = rope_freqs(t_pos, (self.config.attention_head_dim,))
-            text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-            time_ids = torch.cat([text_time, latent_time.to(torch.int32)],
-                                 dim=1)
+    def _forward(self, latent_tokens, latent_pos, latent_time, text_emb,
+                 text_mask, pooled, timestep, pos_offset):
+        b, lt = text_emb.shape[:2]
+        temb = self.time_text_embed(timestep, pooled)
+        ctx = self.context_embedder(text_emb)
+        x = self.pos_embed(latent_tokens, latent_pos, pos_offset)
 
-            shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-            if shard is not None:
-                ctx, x = shard.split(ctx, x)
-                cos, sin = shard.local(cos, 1), shard.local(sin)
-                time_ids = shard.pad(time_ids, INVALID_TIME)
-            for block in self.transformer_blocks:
-                x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
-                                   self.bounded_softmax)
-            if shard is not None:  # every local token's output, gathered
-                h = torch.cat([ctx, x], dim=1)
-                return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
-            return self.proj_out(self.norm_out(x, temb))
+        # temporal RoPE over the whole head dim, text at t=0
+        t_pos = torch.cat([torch.zeros((b, lt, 1), dtype=torch.float32,
+                                       device=latent_pos.device),
+                           latent_pos[..., :1].float()], dim=1)
+        cos, sin = rope_freqs(t_pos, (self.config.attention_head_dim,))
+        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
+        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
+
+        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
+        if shard is not None:
+            ctx, x = shard.split(ctx, x)
+            cos, sin = shard.local(cos, 1), shard.local(sin)
+            time_ids = shard.pad(time_ids, INVALID_TIME)
+        for block in self.transformer_blocks:
+            x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
+                               self.bounded_softmax)
+        if shard is not None:  # every local token's output, gathered
+            h = torch.cat([ctx, x], dim=1)
+            return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
+        return self.proj_out(self.norm_out(x, temb))

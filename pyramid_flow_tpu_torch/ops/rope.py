@@ -4,16 +4,29 @@ Per-axis interleaved-pair rotations with axis dims ``[16, 24, 24]`` over
 (t, h, w) positions; positions may be fractional (low-res stages interpolate
 the full-res grid). Text tokens sit at position 0 on every axis, an identity
 rotation. The rotation is carried as ``(cos, sin)`` of shape [B, L, D/2].
+
+Each axis's frequencies are computed once per device in numpy and kept
+there, so a forward uploads nothing from the host and can be captured in a
+CUDA graph.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = ["rope_freqs", "apply_rope"]
+
+
+@functools.lru_cache(maxsize=None)
+def _omega(dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The [dim // 2] fp32 frequencies of one axis on ``device``."""
+    scale = np.arange(0, dim, 2, dtype=np.float64) / dim
+    return torch.as_tensor((1.0 / (theta ** scale)).astype(np.float32),
+                           device=device)
 
 
 def rope_freqs(positions: torch.Tensor,
@@ -23,9 +36,7 @@ def rope_freqs(positions: torch.Tensor,
     fp32, axis-major (t pairs, then h pairs, then w pairs)."""
     outs_cos, outs_sin = [], []
     for i, dim in enumerate(axes_dim):
-        scale = np.arange(0, dim, 2, dtype=np.float64) / dim
-        omega = torch.as_tensor((1.0 / (theta ** scale)).astype(np.float32),
-                                device=positions.device)
+        omega = _omega(dim, float(theta), positions.device)
         ang = positions[..., i].float()[..., None] * omega
         outs_cos.append(torch.cos(ang))
         outs_sin.append(torch.sin(ang))

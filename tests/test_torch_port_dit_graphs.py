@@ -1,0 +1,452 @@
+"""The DiTs' piecewise CUDA graphs (``models.dit_graphs``).
+
+On the CPU:
+
+* the constant tables a forward reads (the timestep sinusoid's and RoPE's
+  frequencies), now made once per device, equal the numpy formulas they
+  replaced bit for bit;
+* a forward that may not be graphed (on the CPU, under autograd, with
+  ``capture_qk`` open, with an sp group) runs eagerly, says why, and leaves
+  the graph counters as they were;
+* the seam a capture sets on every attention module is called in place of
+  the attention, once per block, and gets q, k and v as the attention would;
+* a deep copy or a pickle of a DiT starts with an empty graph cache.
+
+On the card (``gpu``, skipped without one), reduced-depth miniFLUX and MMDiT
+at head dim 64, CFG rows 2, two layouts: graphed and eager forwards agree to
+1e-3 relative L2 and their attention outputs are bit-equal; the counters
+read eager, capture, replay; a layout's graphs still replay after another
+layout's; an output survives the next forward; an in-place weight update
+is replayed and a replaced weight drops the graphs; a forward hook sees
+every forward; a wrapper set on ``blocks._attention`` after capture is
+called ``num_attention_calls`` times per replay, and the flash forward is
+launched as often; at full depth 57 and 24 times per forward, from 58 and
+25 graphs. No JAX: on the card this file runs as
+
+    python -m pytest tests/test_torch_port_dit_graphs.py -m gpu --noconftest
+"""
+
+import copy
+import io
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from pyramid_flow_tpu_torch.models.dit_graphs import (
+    GRAPH_FORWARDS, bypass_reason)
+from pyramid_flow_tpu_torch.models.flux import blocks as flux_blocks
+from pyramid_flow_tpu_torch.models.flux.model import (
+    FluxConfig, PyramidFluxTransformer, timestep_sinusoidal)
+from pyramid_flow_tpu_torch.models.mmdit import blocks as mmdit_blocks
+from pyramid_flow_tpu_torch.models.mmdit.model import (
+    MMDiTConfig, PyramidDiffusionMMDiT)
+from pyramid_flow_tpu_torch.ops.flash_attention import flash_fwd_cuda
+from pyramid_flow_tpu_torch.ops.rope import rope_freqs
+from pyramid_flow_tpu_torch.utils import profiling
+
+FAMILIES = ("flux", "mmdit")
+BLOCKS = {"flux": flux_blocks, "mmdit": mmdit_blocks}
+
+
+# ------------------------------------------------------------ the tables
+def _numpy_sinusoidal(t, dim):
+    """The sinusoid as it was computed before: numpy, uploaded per call."""
+    half = dim // 2
+    exponent = -np.log(10000.0) * np.arange(half, dtype=np.float32) / half
+    freqs = torch.as_tensor(np.exp(exponent), device=t.device)
+    arg = t.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(arg), torch.sin(arg)], dim=-1)
+
+
+def _numpy_rope(positions, axes_dim, theta=10000.0):
+    outs_cos, outs_sin = [], []
+    for i, dim in enumerate(axes_dim):
+        scale = np.arange(0, dim, 2, dtype=np.float64) / dim
+        omega = torch.as_tensor((1.0 / (theta ** scale)).astype(np.float32),
+                                device=positions.device)
+        ang = positions[..., i].float()[..., None] * omega
+        outs_cos.append(torch.cos(ang))
+        outs_sin.append(torch.sin(ang))
+    return torch.cat(outs_cos, dim=-1), torch.cat(outs_sin, dim=-1)
+
+
+def _bit_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(-1).view(torch.uint8), b.view(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("dim", [256, 8])
+def test_sinusoid_table_is_the_numpy_one(dim):
+    t = torch.tensor([0.0, 1.0, 17.25, 333.0, 999.0])
+    assert _bit_equal(timestep_sinusoidal(t, dim), _numpy_sinusoidal(t, dim))
+
+
+@pytest.mark.parametrize("axes", [(16, 24, 24), (4, 2, 2), (64,)])
+def test_rope_tables_are_the_numpy_ones(axes):
+    rng = np.random.default_rng(3)
+    pos = torch.from_numpy(
+        (rng.integers(0, 40, (2, 9, len(axes))) / 4).astype(np.float32))
+    for got, want in zip(rope_freqs(pos, axes), _numpy_rope(pos, axes)):
+        assert _bit_equal(got, want)
+
+
+# ------------------------------------------------------- the bypass rules
+def _tiny(family):
+    torch.manual_seed(0)
+    if family == "flux":
+        return PyramidFluxTransformer(FluxConfig(
+            in_channels=16, num_layers=1, num_single_layers=2,
+            attention_head_dim=8, num_attention_heads=2,
+            joint_attention_dim=32, pooled_projection_dim=24,
+            axes_dims_rope=(4, 2, 2)), device="cpu")
+    return PyramidDiffusionMMDiT(MMDiTConfig(
+        sample_size=32, in_channels=4, num_layers=2, attention_head_dim=8,
+        num_attention_heads=4, caption_projection_dim=32,
+        pooled_projection_dim=24, joint_attention_dim=32,
+        pos_embed_max_size=24), device="cpu")
+
+
+def _layout_inputs(dit, frames, h, w, text=8, rows=2, seed=0, dtype=None,
+                   device="cpu"):
+    """A forward's inputs: ``frames`` latent frames of h x w patches."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cfg = dit.config
+    width = (cfg.in_channels if isinstance(dit, PyramidFluxTransformer)
+             else cfg.token_dim)
+    dtype = dtype or torch.float32
+    t, y, x = torch.meshgrid(torch.arange(frames), torch.arange(h),
+                             torch.arange(w), indexing="ij")
+    pos = torch.stack([t, y, x], -1).reshape(1, -1, 3).float()
+    n = pos.shape[1]
+    mask = torch.ones((rows, text), dtype=torch.bool)
+    mask[:, text - 2:] = False
+    args = [torch.randn((rows, n, width), generator=g).to(dtype),
+            pos.expand(rows, -1, -1),
+            t.reshape(1, -1).expand(rows, -1).to(torch.int64),
+            torch.randn((rows, text, cfg.joint_attention_dim),
+                        generator=g).to(dtype),
+            mask,
+            torch.randn((rows, cfg.pooled_projection_dim),
+                        generator=g).to(dtype),
+            torch.rand((rows,), generator=g) * 1000]
+    args = [a.to(device) for a in args]
+    if isinstance(dit, PyramidDiffusionMMDiT):
+        args += list(dit.stage_inputs(rows, 2 * h, 2 * w, device))
+    return args
+
+
+@pytest.fixture
+def sp_group(tmp_path):
+    """A one-rank gloo process group: an sp group the forward accepts on
+    the CPU."""
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        yield dist.new_group([0])
+    finally:
+        dist.destroy_process_group()
+
+
+def _forward_recorded(dit, args):
+    with profiling.recording() as rec:
+        out = dit(*args)
+    (fw,) = [s for s in rec.spans() if s.name == "dit.forward"]
+    return out, fw.attrs["graph"]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("case", ["device", "grad", "capture_qk", "sp"])
+def test_bypassed_forwards_leave_the_counters(family, case, request):
+    dit = _tiny(family)
+    args = _layout_inputs(dit, 2, 2, 2)
+    with torch.no_grad():
+        want = dit._forward(*args)
+    if case == "sp":
+        group = request.getfixturevalue("sp_group")
+        dit.sp_group = group
+        for attn in dit.attention_modules:
+            attn.sp_group = group
+    before = dict(GRAPH_FORWARDS)
+    for _ in range(3):  # a layout's second forward would be captured
+        if case == "grad":
+            assert bypass_reason(dit, args[0]) == "grad"
+            out, how = _forward_recorded(dit, args)
+            out = out.detach()
+        elif case == "capture_qk":
+            with torch.no_grad(), dit.capture_qk() as captured:
+                assert bypass_reason(dit, args[0]) == "capture_qk"
+                out, how = _forward_recorded(dit, args)
+            assert len(captured) == dit.num_attention_calls
+        else:
+            with torch.no_grad():
+                assert bypass_reason(dit, args[0]) == case
+                out, how = _forward_recorded(dit, args)
+        assert how == "eager"
+        assert torch.equal(out, want)
+    assert GRAPH_FORWARDS == before
+    assert dit.graphs.layouts == {}
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_seam_takes_each_attention(family):
+    """The seam stands in for the attention once per block, with the
+    arguments the attention takes; returning the attention's output gives
+    the eager forward's output."""
+    dit = _tiny(family)
+    args = _layout_inputs(dit, 2, 2, 3)
+    blocks = dit.graphs.blocks
+    assert blocks is BLOCKS[family]
+    calls = []
+
+    def seam(q, k, v, time_ids, causal, head_dim, sp_group, bounded):
+        calls.append((q.shape, k.shape, v.shape, time_ids.shape, bounded))
+        return blocks._attention(q, k, v, time_ids, causal, head_dim,
+                                 sp_group, bounded)
+
+    with torch.no_grad():
+        want = dit._forward(*args)
+        for attn in dit.attention_modules:
+            attn.seam = seam
+        try:
+            got = dit._forward(*args)
+        finally:
+            for attn in dit.attention_modules:
+                attn.seam = None
+    assert torch.equal(got, want)
+    n_joint = args[3].shape[1] + args[0].shape[1]
+    heads = dit.config.num_attention_heads
+    qkv = torch.Size((2, heads, n_joint, dit.config.attention_head_dim))
+    assert calls == [(qkv, qkv, qkv, torch.Size((2, n_joint)), True)
+                     ] * dit.num_attention_calls
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_copies_start_without_graphs(family):
+    """A deep copy or a pickle of a DiT has its own empty graph cache over
+    the same blocks module, and runs as the original does."""
+    dit = _tiny(family)
+    dit.graphs.layouts[("a layout",)] = None  # stands for a captured one
+    buf = io.BytesIO()
+    torch.save(dit, buf)
+    buf.seek(0)
+    args = _layout_inputs(dit, 2, 2, 2)
+    for twin in (copy.deepcopy(dit), torch.load(buf, weights_only=False)):
+        assert twin.graphs is not dit.graphs
+        assert twin.graphs.blocks is BLOCKS[family]
+        assert twin.graphs.layouts == {}
+        with torch.no_grad():
+            assert torch.equal(twin(*args), dit._forward(*args))
+
+
+# ------------------------------------------------------------- the card
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _seeded_(dit, seed=1):
+    """N(0, 0.05) weights, 1 + N(0, 0.05) norm gains: a DiT whose output is
+    not the zero of its zero-initialised projection."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in dit.named_parameters():
+            z = torch.randn(p.shape, generator=g, device=p.device) * 0.05
+            gain = p.dim() == 1 and name.split(".")[-2].startswith("norm")
+            p.copy_(z + 1 if gain else z)
+    return dit
+
+
+def _card_dit(family, full=False):
+    kw = dict(dtype=torch.bfloat16, device="cuda")
+    if family == "flux":
+        cfg = FluxConfig() if full else FluxConfig(
+            num_layers=2, num_single_layers=3, num_attention_heads=4,
+            joint_attention_dim=128, pooled_projection_dim=64)
+        return _seeded_(PyramidFluxTransformer(cfg, **kw))
+    cfg = MMDiTConfig() if full else MMDiTConfig(
+        num_layers=3, num_attention_heads=4, caption_projection_dim=256,
+        pooled_projection_dim=64, joint_attention_dim=128,
+        pos_embed_max_size=48)
+    return _seeded_(PyramidDiffusionMMDiT(cfg, **kw))
+
+
+# two layouts: 2 frames of 6x8 patches, then 3 of 8x8, after 16 text tokens
+LAYOUTS = ((2, 6, 8), (3, 8, 8))
+
+
+def _card_inputs(dit, layout, seed=0):
+    return _layout_inputs(dit, *layout, text=16, seed=seed,
+                          dtype=torch.bfloat16, device="cuda")
+
+
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+class _AttentionSpy:
+    """Wraps ``blocks._attention`` and keeps a clone of each output."""
+
+    def __init__(self, monkeypatch, blocks):
+        self.outputs = []
+        fn = blocks._attention
+
+        def spy(*a, **k):
+            o = fn(*a, **k)
+            self.outputs.append(o.clone())
+            return o
+
+        monkeypatch.setattr(blocks, "_attention", spy)
+
+    def take(self):
+        out, self.outputs = self.outputs, []
+        return out
+
+
+def _counts():
+    return dict(GRAPH_FORWARDS)
+
+
+def _delta(before):
+    return {k: GRAPH_FORWARDS[k] - before[k] for k in GRAPH_FORWARDS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_graphed_forward_matches_eager(family, cuda, monkeypatch):
+    dit = _card_dit(family)
+    args = _card_inputs(dit, LAYOUTS[0])
+    spy = _AttentionSpy(monkeypatch, BLOCKS[family])
+    n = dit.num_attention_calls
+    with torch.no_grad():
+        want = dit._forward(*args)
+        want_attn = spy.take()
+        for how in ("eager", "capture", "replay", "replay"):
+            before, launches = _counts(), flash_fwd_cuda.launches
+            out, recorded = _forward_recorded(dit, args)
+            assert recorded == how
+            assert _delta(before) == {k: int(k == how) for k in before}
+            assert flash_fwd_cuda.launches - launches == n
+            assert _rel_l2(out, want) <= 1e-3
+            got_attn = spy.take()
+            assert len(got_attn) == n
+            assert all(torch.equal(g, w) for g, w in zip(got_attn, want_attn))
+    (layout,) = [v for v in dit.graphs.layouts.values() if v.graphs]
+    assert len(layout.graphs) == n + 1 and len(layout.seams) == n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_layouts_replay_after_each_other(family, cuda):
+    dit = _card_dit(family)
+    a, b = (_card_inputs(dit, lay, seed=i) for i, lay in enumerate(LAYOUTS))
+    with torch.inference_mode():
+        want_a, want_b = dit._forward(*a), dit._forward(*b)
+        for args in (a, a, b, b):  # each layout eager, then captured
+            dit(*args)
+        before = _counts()
+        got = [dit(*args) for args in (a, b, a, b)]
+    assert _delta(before) == {"replay": 4, "capture": 0, "eager": 0}
+    for out, want in zip(got, (want_a, want_b, want_a, want_b)):
+        assert _rel_l2(out, want) <= 1e-3
+    assert len([v for v in dit.graphs.layouts.values() if v.graphs]) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_output_survives_the_next_forward(family, cuda):
+    dit = _card_dit(family)
+    one, two = (_card_inputs(dit, LAYOUTS[0], seed=s) for s in (0, 1))
+    with torch.no_grad():
+        for _ in range(2):
+            dit(*one)
+        first = dit(*one)
+        kept = first.clone()
+        second = dit(*two)
+        torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+    assert not torch.equal(second, first)
+    assert _rel_l2(second, dit._forward(*two)) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_weight_updates_reach_the_replay(family, cuda):
+    dit = _card_dit(family)
+    args = _card_inputs(dit, LAYOUTS[0])
+    with torch.no_grad():
+        for _ in range(3):
+            dit(*args)
+        # in place: the graphs read the same storage
+        dit.proj_out.weight.mul_(-2)
+        before = _counts()
+        got = dit(*args)
+        assert _delta(before)["replay"] == 1
+        assert _rel_l2(got, dit._forward(*args)) <= 1e-3
+        # a new tensor in the parameter's place, then new storage under
+        # the same parameter: each drops the graphs, which the layout's
+        # next two forwards capture again
+        for replace in (
+                lambda: setattr(dit.proj_out, "weight", torch.nn.Parameter(
+                    dit.proj_out.weight * 0.5)),
+                lambda: setattr(dit.proj_out.weight, "data",
+                                dit.proj_out.weight.data * 3)):
+            replace()
+            for how in ("eager", "capture", "replay"):
+                before = _counts()
+                got = dit(*args)
+                assert _delta(before) == {k: int(k == how) for k in before}
+                assert _rel_l2(got, dit._forward(*args)) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_hooks_and_attention_wrapper_see_every_replay(family, cuda,
+                                                       monkeypatch):
+    dit = _card_dit(family)
+    args = _card_inputs(dit, LAYOUTS[1])
+    seen = []
+    dit.register_forward_hook(lambda m, a, out: seen.append((a[0], out)))
+    with torch.no_grad():
+        outs = [dit(*args) for _ in range(2)]  # eager, captured
+        blocks = BLOCKS[family]
+        fn, calls = blocks._attention, []
+
+        def wrapper(*a, **k):
+            calls.append(1)
+            return fn(*a, **k)
+
+        monkeypatch.setattr(blocks, "_attention", wrapper)
+        before = _counts()
+        outs += [dit(*args) for _ in range(3)]
+    assert _delta(before)["replay"] == 3
+    assert len(calls) == 3 * dit.num_attention_calls
+    assert len(seen) == 5
+    assert all(a is args[0] and out is o for (a, out), o in zip(seen, outs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES)
+def test_full_depth_launches_per_forward(family, cuda):
+    dit = _card_dit(family, full=True)
+    n = {"flux": 57, "mmdit": 24}[family]
+    assert dit.num_attention_calls == n
+    args = _layout_inputs(dit, 2, 8, 8, text=128, dtype=torch.bfloat16,
+                          device="cuda")
+    with torch.no_grad():
+        want = dit._forward(*args)
+        for _ in range(3):
+            launches = flash_fwd_cuda.launches
+            got = dit(*args)
+            assert flash_fwd_cuda.launches - launches == n
+        assert _rel_l2(got, want) <= 1e-3
+    (layout,) = [v for v in dit.graphs.layouts.values() if v.graphs]
+    assert len(layout.graphs) == n + 1
+    del dit, layout
+    torch.cuda.empty_cache()
