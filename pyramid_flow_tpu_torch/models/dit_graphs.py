@@ -6,12 +6,15 @@ to run them. :class:`ForwardGraphs` captures a forward once per layout as
 one CUDA graph per stretch between two attentions: the embedders and the
 first block up to its attention's q, k and v, then each stretch from one
 attention's output to the next attention's q, k and v, and the last one to
-``proj_out`` (58 graphs for miniFLUX, 25 for the MMDiT). A replay copies the
-inputs into the layout's static buffers, replays each graph in turn, and
-between two graphs calls the attention eagerly as its family's
-``blocks._attention``, looked up at each call. So the hand-written flash
-forward is launched, counted (``flash_fwd_cuda.launches``) and wrapped as in
-an eager forward, ``num_attention_calls`` times per forward.
+the output (58 graphs for miniFLUX, 25 for the MMDiT, 81 for Wan). A replay
+copies the inputs into the layout's static buffers, replays each graph in
+turn, and between two graphs calls the attention eagerly as its family's
+``blocks._attention``, looked up at each call; a cross seam (Wan's
+cross-attention, whose keys and values come from the text and carry their
+own time ids) calls ``blocks._cross_attention`` instead. So the
+hand-written flash forward is launched, counted
+(``flash_fwd_cuda.launches``) and wrapped as in an eager forward,
+``num_attention_calls`` times per forward.
 
 When: a forward is graphed only on CUDA tensors, with autograd off (no_grad
 or inference mode), outside autocast, without an sp group, with no
@@ -71,7 +74,8 @@ def bypass_reason(dit, tokens: torch.Tensor) -> Optional[str]:
 @dataclasses.dataclass
 class _Seam:
     """One attention between two graphs: its static inputs and output and
-    the arguments it is called with."""
+    the arguments it is called with; ``time_kv`` is set for a cross seam
+    only."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
@@ -80,6 +84,7 @@ class _Seam:
     causal: bool
     head_dim: int
     bounded: bool
+    time_kv: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -119,15 +124,26 @@ class _Capture:
 
     def __call__(self, q, k, v, time_ids, causal, head_dim, sp_group,
                  bounded):
+        return self._seam(("q", "k", "v"), q, k, v, time_ids, causal,
+                          head_dim, bounded)
+
+    def cross(self, q, k, v, time_q, time_kv, head_dim, bounded):
+        """The seam of ``blocks._cross_attention``: its keys and values
+        take buffers of their own."""
+        return self._seam(("q", "k_cross", "v_cross"), q, k, v, time_q,
+                          False, head_dim, bounded, time_kv)
+
+    def _seam(self, roles, q, k, v, time_ids, causal, head_dim, bounded,
+              time_kv=None):
         buffer = self.owner.buffer
         qkv = [buffer(role, t.shape, t.dtype, t.device)
-               for role, t in (("q", q), ("k", k), ("v", v))]
+               for role, t in zip(roles, (q, k, v))]
         o = buffer("o", (*q.shape[:-1], v.shape[-1]), q.dtype, q.device)
         for static, t in zip(qkv, (q, k, v)):
             static.copy_(t)
         self.end()
         self.seams.append(_Seam(*qkv, o, time_ids, causal, head_dim,
-                                bounded))
+                                bounded, time_kv))
         self.begin()
         return o
 
@@ -238,9 +254,15 @@ class ForwardGraphs:
                 static.copy_(a)
         for graph, s in zip(layout.graphs, layout.seams):
             graph.replay()
-            s.o.copy_(self.blocks._attention(s.q, s.k, s.v, s.time_ids,
-                                             s.causal, s.head_dim, None,
-                                             s.bounded))
+            if s.time_kv is None:
+                o = self.blocks._attention(s.q, s.k, s.v, s.time_ids,
+                                           s.causal, s.head_dim, None,
+                                           s.bounded)
+            else:
+                o = self.blocks._cross_attention(s.q, s.k, s.v, s.time_ids,
+                                                 s.time_kv, s.head_dim,
+                                                 s.bounded)
+            s.o.copy_(o)
         layout.graphs[-1].replay()
         return layout.out.clone()
 

@@ -1,0 +1,157 @@
+"""Wan2.1 attention blocks over the pyramid's packed latent tokens.
+
+The counterpart of Wan2.1's ``WanAttentionBlock`` (``wan/modules/model.py``,
+T2V cross-attention): the sequence holds the latent tokens only, and text
+enters through a cross-attention in every block. Per block, with the
+model's ``e0 [B, 6, D]`` plus the block's own ``modulation``:
+
+* ``x += self_attn(LN(x) * (1 + e1) + e0) * e2``;
+* ``x += cross_attn(LN_affine(x), ctx)`` (``norm3``);
+* ``x += ffn(LN(x) * (1 + e4) + e3) * e5``, a GELU-tanh MLP.
+
+q and k are RMS-normalised over all heads' features at once (the full model
+width), then split into heads; self-attention rotates them by RoPE and
+masks by the pyramid's temporal-causal time ids, cross-attention sees every
+text key. The residual stream and the modulation stay fp32, the products
+run in the weights' dtype: the casts Wan's bf16 autocast makes, made here
+explicitly, because a serving forward runs outside autocast to be graphed
+(``models.dit_graphs``).
+
+Two attention calls per block, each a module-level function looked up at
+every call, so that a CUDA-graph replay calls them between its graphs and
+a wrapper set on the module sees them: :func:`_attention` (the flux
+blocks', self-attention) and :func:`_cross_attention`. A full-width RMS
+norm bounds one head's ``|q|`` only by ``sqrt(D) * max g``, so the bounded
+softmax's exactness argument (per-head norms) does not hold here: the DiT
+passes ``bounded=False`` unless told otherwise.
+
+Module names follow Wan's checkpoint (``self_attn.q``, ``norm_q``,
+``cross_attn.o``, ``norm3``, ``ffn.0``, ``ffn.2``, ``modulation``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...ops.flash_attention import flash_attention, flash_fwd_cuda
+from ...ops.rope import apply_rope
+from ...utils.profiling import span
+from ..flux.blocks import RMSNorm, _attention, _heads, _unheads, layer_norm
+
+__all__ = ["WanSelfAttention", "WanCrossAttention", "WanAttentionBlock",
+           "CROSS_ATTN_LAUNCHES", "linear_fp32"]
+
+
+def _cross_attention(q, k, v, time_q, time_kv, head_dim, bounded=False):
+    """Latent queries ``[B, H, Lq, D]`` against text keys and values ``[B,
+    H, Lk, D]``, non-causal: every key whose time id is valid is visible to
+    every query. A ``wan.cross_attn`` span; its flash-forward launches are
+    counted in ``_cross_attention_launches``."""
+    with span("wan.cross_attn"):
+        launched = flash_fwd_cuda.launches
+        o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                            time_q, time_kv, causal=False,
+                            sm_scale=head_dim ** -0.5, bounded=bounded)
+        _cross_attention_launches[0] += flash_fwd_cuda.launches - launched
+        return o
+
+
+_cross_attention_launches = [0]
+# a span counter (``utils.profiling.span``): cross-attention's flash launches
+CROSS_ATTN_LAUNCHES = {
+    "cross_attn_launches": lambda: _cross_attention_launches[0]}
+
+
+def linear_fp32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer`` applied in fp32 whatever its dtype: Wan's conditioning
+    path and head run under ``autocast(dtype=float32)``."""
+    bias = None if layer.bias is None else layer.bias.float()
+    return F.linear(x.float(), layer.weight.float(), bias)
+
+
+def _modulate(x, shift, scale):
+    return layer_norm(x) * (1 + scale) + shift
+
+
+class WanSelfAttention(nn.Module):
+    """Self-attention over the latent tokens: full-width qk RMS norms,
+    3-axis RoPE, time-id masking. ``seam`` works as in the flux blocks;
+    ``capture`` stays None (no telemetry reads this family)."""
+
+    def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, **kw):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, nn.Linear(dim, dim, **kw))
+        self.norm_q = RMSNorm(dim, eps, **kw)
+        self.norm_k = RMSNorm(dim, eps, **kw)
+        self.capture = None
+        self.seam = None
+
+    def forward(self, x, rope_cos, rope_sin, time_ids, bounded=False):
+        n = self.num_heads
+        q = apply_rope(_heads(self.norm_q(self.q(x)), n), rope_cos, rope_sin)
+        k = apply_rope(_heads(self.norm_k(self.k(x)), n), rope_cos, rope_sin)
+        v = _heads(self.v(x), n)
+        attend = _attention if self.seam is None else self.seam
+        return self.o(_unheads(attend(q, k, v, time_ids, True,
+                                      self.head_dim, None, bounded)))
+
+
+class WanCrossAttention(nn.Module):
+    """Latent queries against the embedded text: full-width qk RMS norms, no
+    RoPE, no mask. While the DiT captures its graphs, ``seam.cross`` stands
+    in for :func:`_cross_attention`."""
+
+    def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, **kw):
+        super().__init__()
+        self.num_heads, self.head_dim = num_heads, dim // num_heads
+        for name in ("q", "k", "v", "o"):
+            setattr(self, name, nn.Linear(dim, dim, **kw))
+        self.norm_q = RMSNorm(dim, eps, **kw)
+        self.norm_k = RMSNorm(dim, eps, **kw)
+        self.capture = None
+        self.seam = None
+
+    def forward(self, x, ctx, time_q, time_kv, bounded=False):
+        n = self.num_heads
+        q = _heads(self.norm_q(self.q(x)), n)
+        k = _heads(self.norm_k(self.k(ctx)), n)
+        v = _heads(self.v(ctx), n)
+        attend = _cross_attention if self.seam is None else self.seam.cross
+        return self.o(_unheads(attend(q, k, v, time_q, time_kv,
+                                      self.head_dim, bounded)))
+
+
+class WanAttentionBlock(nn.Module):
+    """One Wan2.1 T2V block. ``x`` is the fp32 residual stream ``[B, L, D]``
+    and ``e0`` the model's fp32 ``[B, 6, D]`` time modulation."""
+
+    def __init__(self, dim: int, ffn_dim: int, num_heads: int,
+                 eps: float = 1e-6, **kw):
+        super().__init__()
+        self.eps = eps
+        self.self_attn = WanSelfAttention(dim, num_heads, eps, **kw)
+        self.norm3 = nn.LayerNorm(dim, eps=eps, **kw)
+        self.cross_attn = WanCrossAttention(dim, num_heads, eps, **kw)
+        self.ffn = nn.Sequential(nn.Linear(dim, ffn_dim, **kw),
+                                 nn.GELU(approximate="tanh"),
+                                 nn.Linear(ffn_dim, dim, **kw))
+        self.modulation = nn.Parameter(
+            torch.randn(1, 6, dim, **kw) / dim ** 0.5)
+
+    def forward(self, x, e0, ctx, rope_cos, rope_sin, time_ids, time_kv,
+                bounded=False):
+        dtype = self.modulation.dtype
+        e = (self.modulation.float() + e0).chunk(6, dim=1)
+        y = self.self_attn(_modulate(x, e[0], e[1]).to(dtype), rope_cos,
+                           rope_sin, time_ids, bounded)
+        x = x + y.float() * e[2]
+        n3 = F.layer_norm(x, x.shape[-1:], self.norm3.weight.float(),
+                          self.norm3.bias.float(), self.eps)
+        x = x + self.cross_attn(n3.to(dtype), ctx, time_ids, time_kv,
+                                bounded).float()
+        y = self.ffn(_modulate(x, e[3], e[4]).to(dtype))
+        return x + y.float() * e[5]

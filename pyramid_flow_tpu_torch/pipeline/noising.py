@@ -31,6 +31,7 @@ from ..ops.resample import avg_pool_2x, nearest_up_2x
 
 __all__ = [
     "LATENT_NORMS",
+    "FAMILY_LATENT_NORMS",
     "VIDEO_NORM",
     "GeneratorDraws",
     "StageBatch",
@@ -49,6 +50,10 @@ LATENT_NORMS = {
     "pyramid_flux": (-0.04, 1 / 1.8726),
     "pyramid_mmdit": (0.1490, 1 / 1.8415),
 }
+# every family of the port: the JAX package's two, and the Wan DiT, which
+# runs on this repo's VAE and takes its latents with miniFLUX's norms
+FAMILY_LATENT_NORMS = {**LATENT_NORMS,
+                       "pyramid_wan": LATENT_NORMS["pyramid_flux"]}
 VIDEO_NORM = (-0.2343, 1 / 3.0986)
 
 
@@ -87,9 +92,9 @@ class GeneratorDraws:
 def dit_model_name(dit, model_name: Optional[str] = None) -> str:
     """The DiT's family, its class's ``model_name`` (``"pyramid_flux"``
     without a DiT). A ``model_name`` given as well must name that family."""
-    if model_name is not None and model_name not in LATENT_NORMS:
+    if model_name is not None and model_name not in FAMILY_LATENT_NORMS:
         raise ValueError(f"unknown model_name {model_name!r}; one of "
-                         f"{sorted(LATENT_NORMS)}")
+                         f"{sorted(FAMILY_LATENT_NORMS)}")
     if dit is None:
         return model_name or "pyramid_flux"
     if model_name not in (None, dit.model_name):
@@ -103,7 +108,7 @@ def normalize_latent(x: torch.Tensor, model_name: str = "pyramid_flux"
                      ) -> torch.Tensor:
     """Raw VAE latent ``[B, T, H, W, C]`` -> model space; frame 0 uses the
     image statistics."""
-    shift, scale = LATENT_NORMS[model_name]
+    shift, scale = FAMILY_LATENT_NORMS[model_name]
     vshift, vscale = VIDEO_NORM
     first = (x[:, :1] - shift) * scale
     if x.shape[1] == 1:

@@ -33,8 +33,8 @@ from ..ops.blocknoise import block_noise_from_normal
 from ..ops.flash_attention import INVALID_TIME
 from ..schedulers.flow_matching import PyramidFlowMatchEulerDiscreteScheduler
 from ..utils.profiling import ALLOCATOR, span
-from .noising import (LATENT_NORMS, VIDEO_NORM, dit_model_name, down2,
-                      latent_pyramid, normalize_latent, up2_nearest)
+from .noising import (FAMILY_LATENT_NORMS, VIDEO_NORM, dit_model_name,
+                      down2, latent_pyramid, normalize_latent, up2_nearest)
 from .packing import clip_metadata, patchify, unpatchify
 
 __all__ = ["PyramidFlowPipeline", "DecodePlan", "GeneratorNoise",
@@ -143,10 +143,11 @@ class PyramidFlowPipeline:
     frame after the first decodes to 8 pixel frames.
 
     Args:
-      dit: a ``PyramidFluxTransformer`` or ``PyramidDiffusionMMDiT``
-        (packed-token API) with its weights. Its family (``dit.model_name``)
-        selects the latent normalisation, and its ``stage_inputs`` give the
-        forward's extra inputs per stage (the MMDiT's table crop origin).
+      dit: a ``PyramidFluxTransformer``, ``PyramidDiffusionMMDiT`` or
+        ``WanDiT`` (packed-token API) with its weights. Its family
+        (``dit.model_name``) selects the latent normalisation, and its
+        ``stage_inputs`` give the forward's extra inputs per stage (the
+        MMDiT's table crop origin).
       vae: a ``CausalVideoVAE``, or None for latent output only.
       scheduler: a ``PyramidFlowMatchEulerDiscreteScheduler``, whose
         ``stages`` is the pipeline's stage count (each stage doubles the
@@ -156,8 +157,9 @@ class PyramidFlowPipeline:
       dtype: the DiT's compute dtype; tokens are cast to it at patchify,
         latents stay fp32.
       device: where the loop runs; defaults to the DiT's device.
-      model_name: ``"pyramid_flux"`` or ``"pyramid_mmdit"``, optional; when
-        given it must name the DiT's family.
+      model_name: ``"pyramid_flux"``, ``"pyramid_mmdit"`` or
+        ``"pyramid_wan"``, optional; when given it must name the DiT's
+        family.
     """
 
     downsample = 8
@@ -186,7 +188,7 @@ class PyramidFlowPipeline:
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None else next(dit.parameters()).device)
-        self.vae_shift_factor, self.vae_scale_factor = LATENT_NORMS[
+        self.vae_shift_factor, self.vae_scale_factor = FAMILY_LATENT_NORMS[
             self.model_name]
         self.vae_video_shift_factor, self.vae_video_scale_factor = VIDEO_NORM
         self.last_dit_seconds = None

@@ -144,6 +144,10 @@ def build_dit(model_path: str, model_variant: str, model_name: str,
     from ..models.flux.model import PyramidFluxTransformer
     from ..models.mmdit.model import PyramidDiffusionMMDiT
 
+    if model_name not in ("pyramid_flux", "pyramid_mmdit"):
+        raise ValueError(f"no release-layout checkpoint to load for "
+                         f"{model_name!r}: build its DiT and load its "
+                         f"weights yourself")
     flux = model_name == "pyramid_flux"
     cls = PyramidFluxTransformer if flux else PyramidDiffusionMMDiT
     cfg = load_model_config(os.path.join(model_path, model_variant),
