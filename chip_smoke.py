@@ -17,9 +17,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 1. the card: its name and power limit as nvidia-smi reports them, the
    torch and CUDA versions, and whether ``transformers``, ``safetensors``
    and ``PIL`` import;
-2. build: the four kernel libraries from ``pyramid_flow_tpu_torch/csrc``
-   (the flash-attention forward, the heads-per-block forward, the backward
-   and the causal conv), one nvcc each, started together; ptxas's register,
+2. build: the five kernel libraries from ``pyramid_flow_tpu_torch/csrc``
+   (the flash-attention forward, the heads-per-block forward, the backward,
+   the causal conv and the fused q/k/v pass), one nvcc each, started
+   together; ptxas's register,
    spill and wgmma-serialisation (C7518) lines, and per library the count
    of kernels and of C7518 warnings;
 3. kernel vs plain: the forward kernel against the plain PyTorch version on the
@@ -51,7 +52,15 @@ Phases, each of which raises on failure (the script then exits non-zero):
    timed as the training path calls it (``torch.autograd.grad`` through
    ``flash_attention`` less its forward), each of its three kernels' own
    device time from a profiler trace, and SDPA's backward timed the same
-   way (its forward plus backward less its forward);
+   way (its forward plus backward less its forward); then K7, the fused
+   q/k/v pass (``ops/qk_norm_rope.py``), at each family's attention sites
+   (miniFLUX's dual site, 128 text + 3072 latent tokens, and its single
+   one, 24 x 64 heads; SD3's; Wan's self-attention, 40 x 128 heads
+   normalised over 5120, and its cross-attention over 512 text tokens):
+   q and k within ``QK_ULPS`` ulps of each rotated pair of the plain
+   version (fp32, one rounding) and one more of the modules' composition,
+   v bit-equal, one launch a site; timed beside the plain version and the
+   composition it replaced, with its bytes bound;
 5. the experiment: ``pyramid_flow_tpu_torch.tools.exp_flash_h2.main`` in
    this process with ``--full`` (its checks, K1 and K6 at each hs timed at
    the 768p stage-2 layout, L=11008, then K1 and K6 at hs=2 again with
@@ -295,7 +304,9 @@ time, the plain version's, the least time the card could take (bytes or
 operations at the H100's published peaks) and one PyTorch call's time for
 the same function, its rate (``tflops``) and ``bound_share`` (the least
 time over its time), at the 384x640 unit 15 stage 2 attention layout and
-at the 128->128 384x640 decode conv. Each time is that of the wrapper call
+at the 128->128 384x640 decode conv; K7 at miniFLUX's dual site, with its
+largest distance in ulps (``max_pair_ulps``), the composed chain's time
+(``composed_ms``) and no rate (its bound is bytes). Each time is that of the wrapper call
 the paths make; the forwards also give ``kernel_ms``, the kernel's own
 device time. K3 and K4 share one ``ms``, the whole backward as the path
 calls it, with their own ``kernel_ms`` and the delta kernel's
@@ -309,6 +320,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -332,6 +344,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from pyramid_flow_tpu_torch.models.flux.blocks import RMSNorm
 from pyramid_flow_tpu_torch.models.flux.model import (
     FluxConfig, PyramidFluxTransformer)
 from pyramid_flow_tpu_torch.models.mmdit.model import (
@@ -351,6 +364,8 @@ from pyramid_flow_tpu_torch.models.vae.model import (
     CausalVideoVAE, VAEConfig, kernel_conv_count)
 from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
 from pyramid_flow_tpu_torch.ops import flash_attention as fa
+from pyramid_flow_tpu_torch.ops import qk_norm_rope as qkr
+from pyramid_flow_tpu_torch.ops.rope import rope_freqs
 from pyramid_flow_tpu_torch.pipeline.noising import (
     GeneratorDraws, add_ar_noise_stage, add_pyramid_noise_stage,
     latent_pyramid, sample_stage_length)
@@ -389,6 +404,7 @@ SEED = 0
 B, H, D = 2, 24, 64
 TEXT_LEN, TEXT_VALID = 128, 100   # the prompt's last 28 tokens are masked
 O_ATOL, LSE_ATOL, DIT_REL_L2 = 1e-2, 2e-3, 2e-2
+QK_ULPS = 1  # K7 against its plain version, in ulps of each rotated pair
 GRAD_REL, DIT_GRAD_REL_L2 = 2e-2, 5e-2
 BWD_D128 = ("384x640 u15 s2", 12, 128)  # (layout, heads, head dim)
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 4, 16, 3
@@ -750,6 +766,122 @@ def fwd_host_cost(meta_pipe, dev, gen):
          for bounded in (True, False)}
     log("flash_fwd host cost per launch " + json.dumps(r))
     return r
+
+
+# K7's sites at the 384x640 request's unit 15 stage 2 (B = 2, the CFG
+# rows): heads, head dim, norm group, text tokens, latent tokens, RoPE axes
+# (None: no rotation; then k and v come from QK_TEXT_LEN text tokens)
+QK_SITES = dict(
+    flux_dual=(24, 64, "head", 128, 3072, (16, 24, 24)),
+    flux_single=(24, 64, "head", 0, 3200, (16, 24, 24)),
+    sd3=(24, 64, "head", 128, 3072, (64,)),
+    wan_self=(40, 128, "token", 0, 2944, (44, 42, 42)),
+    wan_cross=(40, 128, "token", 0, 2944, None))
+QK_TEXT_LEN = 512
+QK_TIMED_SITE = "flux_dual"
+
+
+def qk_site(name, dev, seed):
+    """``(slots, num_heads, cos, sin)`` of K7's site ``name`` in bf16: q and
+    k normalised (and rotated), v copied; sources 3 N(0, 1), gains
+    1 + N(0, 0.2), latent positions on a half-pixel grid; drawn from a CPU
+    generator of their own."""
+    g = torch.Generator().manual_seed(seed)
+    heads, dh, group, lt, lx, axes = QK_SITES[name]
+    width = heads * dh
+
+    def src(n):
+        return (3 * torch.randn((B, n, width), generator=g)).to(
+            dev, torch.bfloat16)
+
+    def norm():
+        n = dh if group == "head" else width
+        m = RMSNorm(n, dtype=torch.bfloat16, device=dev)
+        with torch.no_grad():
+            m.weight.copy_(1 + 0.2 * torch.randn(n, generator=g))
+        return m
+
+    if axes is None:
+        return ((qkr.Slot((src(lx),), (norm(),)),
+                 qkr.Slot((src(QK_TEXT_LEN),), (norm(),)),
+                 qkr.Slot((src(QK_TEXT_LEN),))), heads, None, None)
+    lens = (lt, lx) if lt else (lx,)
+    slots = tuple(qkr.Slot(tuple(src(n) for n in lens),
+                           tuple(norm() for _ in lens), True)
+                  for _ in range(2))
+    slots += (qkr.Slot(tuple(src(n) for n in lens)),)
+    lat = torch.randint(0, 96, (B, lx, len(axes)), generator=g) / 2
+    pos = torch.cat([torch.zeros(B, lt, len(axes)), lat], dim=1)
+    cos, sin = rope_freqs(pos.to(dev), axes)
+    return slots, heads, cos, sin
+
+
+def pair_ulps(got, want) -> float:
+    """The largest distance between two bf16 ``[..., D]`` tensors in ulps of
+    each rotated pair's magnitude (a rotation spreads one rounding of its
+    input over both of its outputs)."""
+    a, w = got.float(), want.float()
+    mag = w.unflatten(-1, (-1, 2)).norm(dim=-1).repeat_interleave(2, dim=-1)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return ((a - w).abs() / ulp).max().item()
+
+
+@torch.no_grad()
+def qk_vs_plain(dev, reps=20):
+    """K7 at each family's sites: q and k within ``QK_ULPS`` of the plain
+    version (``qk_norm_rope_reference``, fp32 rounded once) and within
+    ``QK_ULPS + 1`` of the modules' composition (``qk_norm_rope_composed``,
+    which rounds once more), v bit-equal; one launch per site. Timed with
+    CUDA events around wrapper calls back to back, as the paths make them
+    (``ms``), the kernel's own device time from a profiler trace
+    (``kernel_ms``), the plain version's and the composition's (with the
+    ``.contiguous()`` copies the attention made of it) the same way; the
+    bytes bound: each source read once, each output written once, cos/sin
+    once, at 3.35 TB/s."""
+    rows = []
+    for i, name in enumerate(QK_SITES):
+        slots, heads, cos, sin = qk_site(name, dev, SEED + i)
+        before = qkr.qk_norm_rope_cuda.launches
+        got = qkr.qkv_heads(slots, heads, cos, sin)
+        torch.cuda.synchronize()
+        launched = qkr.qk_norm_rope_cuda.launches - before
+        plain = qkr.qk_norm_rope_reference(slots, heads, cos, sin)
+        composed = [t.contiguous() for t in qkr.qk_norm_rope_composed(
+            slots, heads, cos, sin)]
+        nbytes = sum(2 * t.numel() * t.element_size() for slot in slots
+                     for t in slot.sources)
+        if cos is not None:
+            nbytes += 2 * cos.numel() * cos.element_size()
+
+        def kernel():
+            return qkr.qk_norm_rope_cuda(slots, heads, cos, sin)
+
+        r = dict(site=name, tokens=[[t.shape[1] for t in slot.sources]
+                                    for slot in slots],
+                 heads=heads, head_dim=got[0].shape[-1],
+                 norm_group=slots[0].norms[0].weight.shape[0],
+                 launches=launched,
+                 max_pair_ulps=max(pair_ulps(a, b)
+                                   for a, b in zip(got[:2], plain[:2])),
+                 max_pair_ulps_composed=max(
+                     pair_ulps(a, b) for a, b in zip(got[:2], composed[:2])),
+                 v_bit_equal=torch.equal(got[2], plain[2]),
+                 ms=cuda_ms(kernel, reps),
+                 kernel_ms=kernel_device_ms(kernel, reps, "qk_norm_rope"),
+                 plain_ms=cuda_ms(lambda: qkr.qk_norm_rope_reference(
+                     slots, heads, cos, sin), reps),
+                 composed_ms=cuda_ms(lambda: [t.contiguous() for t in (
+                     qkr.qk_norm_rope_composed(slots, heads, cos, sin))],
+                     reps),
+                 bytes=nbytes)
+        r["bound_ms"], r["bound_by"] = bound(0.0, nbytes)
+        log("qk_norm_rope vs plain " + json.dumps(r))
+        if not (launched == 1 and r["max_pair_ulps"] <= QK_ULPS
+                and r["max_pair_ulps_composed"] <= QK_ULPS + 1
+                and r["v_bit_equal"]):
+            raise AssertionError(f"qk_norm_rope off its plain version: {r}")
+        rows.append(r)
+    return rows
 
 
 def hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref, name, reps, plain_ms,
@@ -1286,6 +1418,16 @@ def plain_attention_route(q, k, v, time_ids, *, causal, sm_scale, bounded):
                                   sm_scale=sm_scale)
 
 
+@contextlib.contextmanager
+def plain_route():
+    """The DiTs on their plain version: the attention's
+    (``plain_attention_route``) and the q/k chain composed from the
+    modules (``qk_norm_rope.composition``) in place of K7."""
+    with mock.patch.object(par_sp, "flash_attention",
+                           plain_attention_route), qkr.composition():
+        yield
+
+
 @torch.no_grad()
 def fp32_forward(dit, inputs, **forward_kw):
     """The same DiT and inputs in fp32 on the plain route, sp=1: a float
@@ -1293,7 +1435,7 @@ def fp32_forward(dit, inputs, **forward_kw):
     dit32 = type(dit)(dit.config, dtype=torch.float32, device=inputs[0].device)
     dit32.load_state_dict(dit.state_dict())
     inputs32 = [t.float() if t.dtype == torch.bfloat16 else t for t in inputs]
-    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
+    with plain_route():
         out = dit32(*inputs32, **forward_kw)
     torch.cuda.synchronize()
     del dit32
@@ -1306,10 +1448,13 @@ def fp32_forward(dit, inputs, **forward_kw):
 ROUTES = (("bounded", True), ("classic", False))
 
 
-def route_launches(bounded: bool, n: int) -> dict:
-    """``expected``'s keywords for ``n`` forward launches on a DiT's route:
-    K1's on the bounded softmax, K2's on the classic one."""
-    return dict(fwd=n) if bounded else dict(classic=n)
+def route_launches(bounded: bool, n: int, serving: bool = True) -> dict:
+    """``expected``'s keywords for ``n`` attentions on a DiT's route: K1's
+    launches on the bounded softmax, K2's on the classic one, and in a
+    serving forward (no autograd) K7's, one per attention; training
+    composes the q/k chain (K7 has no backward)."""
+    return dict(fwd=n if bounded else 0, classic=0 if bounded else n,
+                qk=n if serving else 0)
 
 
 @torch.no_grad()
@@ -1342,7 +1487,7 @@ def dit_routes(dit, inputs, lat_time, **forward_kw):
             outs[name] = out[:, valid].float()
     finally:
         dit.bounded_softmax = route
-    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
+    with plain_route():
         b = dit(*inputs, **forward_kw)[:, valid].float()
     torch.cuda.synchronize()
     out_32 = fp32_forward(dit, inputs, **forward_kw)[:, valid]
@@ -1452,14 +1597,16 @@ def launch_counts() -> dict:
     """Launches by kernel; ``flash_fwd`` is the bounded forward (K1),
     ``flash_fwd_classic`` the classic one (K2, the DiTs' classic-softmax
     route), ``flash_fwd_hn`` the heads-per-block forward (K6), which only
-    the ``exp_flash_h2`` tool runs."""
+    the ``exp_flash_h2`` tool runs, ``qk_norm_rope`` the fused q/k/v pass
+    (K7; a graph replay adds the launches its graphs hold)."""
     classic = fa.flash_fwd_cuda.classic_launches
     return {"flash_fwd": fa.flash_fwd_cuda.launches - classic,
             "flash_fwd_classic": classic,
             "flash_bwd_dkv": fa.flash_bwd_cuda.dkv_launches,
             "flash_bwd_dq": fa.flash_bwd_cuda.dq_launches,
             "causal_conv3d": cc.causal_conv3d_cuda.launches,
-            "flash_fwd_hn": fa.flash_fwd_hn_cuda.launches}
+            "flash_fwd_hn": fa.flash_fwd_hn_cuda.launches,
+            "qk_norm_rope": qkr.qk_norm_rope_cuda.launches}
 
 
 def reset_launch_counts():
@@ -1469,14 +1616,15 @@ def reset_launch_counts():
     fa.flash_bwd_cuda.dq_launches = 0
     cc.causal_conv3d_cuda.launches = 0
     fa.flash_fwd_hn_cuda.launches = 0
+    qkr.qk_norm_rope_cuda.launches = 0
 
 
-def expected(fwd=0, bwd=0, conv=0, hn=0, classic=0) -> dict:
+def expected(fwd=0, bwd=0, conv=0, hn=0, classic=0, qk=0) -> dict:
     """Launch counts of a path: ``fwd`` of K1, ``classic`` of K2, ``bwd`` of
-    each backward kernel."""
+    each backward kernel, ``qk`` of K7."""
     return {"flash_fwd": fwd, "flash_fwd_classic": classic,
             "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd, "causal_conv3d": conv,
-            "flash_fwd_hn": hn}
+            "flash_fwd_hn": hn, "qk_norm_rope": qk}
 
 
 def counted(before: dict) -> dict:
@@ -1519,20 +1667,22 @@ def dit_grad_check(dit, dev, gen, stage=2, noise_stage=ar_noise_stage):
     extra = dit.stage_inputs(1, *pyramid[stage].shape[2:4], dev)
 
     def backward():
+        # K7 has no backward: the q/k chain composed, as the train step has
         dit.zero_grad(set_to_none=True)
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            pred = dit(tokens, pos, times, batch["text_emb"],
-                       batch["text_mask"], batch["pooled"], sb.timesteps,
-                       *extra)
-            loss = (pred[:, -trainable:].float() - target.float()).square(
-                ).mean()
-        loss.backward()
+        with qkr.composition():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                pred = dit(tokens, pos, times, batch["text_emb"],
+                           batch["text_mask"], batch["pooled"],
+                           sb.timesteps, *extra)
+                loss = (pred[:, -trainable:].float()
+                        - target.float()).square().mean()
+            loss.backward()
         torch.cuda.synchronize()
         grads = {n: p.grad for n, p in dit.named_parameters()}
         dit.zero_grad(set_to_none=True)
         return loss.item(), grads
 
-    with mock.patch.object(par_sp, "flash_attention", plain_attention_route):
+    with plain_route():
         t0 = time.perf_counter()
         loss_p, gp = backward()
         plain_s = time.perf_counter() - t0
@@ -1549,7 +1699,8 @@ def dit_grad_check(dit, dev, gen, stage=2, noise_stage=ar_noise_stage):
             loss_k, gk = backward()
             kernel_s = time.perf_counter() - t0
             launched = counted(before)
-            want = expected(bwd=n, **route_launches(bounded, 2 * n))
+            want = expected(bwd=n, **route_launches(bounded, 2 * n,
+                                                    serving=False))
             if launched != want:
                 raise AssertionError(f"{name} route: launches {launched} in "
                                      f"one remat forward+backward, expected "
@@ -2028,7 +2179,8 @@ def serve_i2v(pipe, dev, image, temp=I2V_TEMP, name="i2v"):
         wall = time.perf_counter() - t0
     launched = counted(before)
     windows = len(vae_model._window_starts(n_latent, DECODE_WINDOW, 1))
-    want = expected(pipe.dit.num_attention_calls * forwards, conv=(
+    want = expected(**route_launches(
+        True, pipe.dit.num_attention_calls * forwards), conv=(
         kernel_conv_count(pipe.vae.encoder)
         + kernel_conv_count(pipe.vae.decoder) * windows))
     check_request(frames, seen, launched, want, n_latent)
@@ -2590,9 +2742,9 @@ def checkpoint_path(pipe, dev, paths):
         paths["flux from checkpoint, string prompt"] = launched = \
             launch_counts()
         windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
-        want = expected(runner.pipeline.dit.num_attention_calls * sum(STEPS),
-                        conv=kernel_conv_count(runner.pipeline.vae.decoder)
-                        * windows)
+        want = expected(**route_launches(
+            True, runner.pipeline.dit.num_attention_calls * sum(STEPS)),
+            conv=kernel_conv_count(runner.pipeline.vae.decoder) * windows)
         check_request(frames, seen, launched, want, 1)
         r = dict(request="checkpoint", prompt=TEXT_PROMPT, temp=1,
                  bytes=nbytes, write_s=write_s, load_s=load_s,
@@ -2703,8 +2855,9 @@ def http_serving(dev, paths):
         forwards = 3 * 20  # the app's default steps, temp 1
         windows = len(vae_model._window_starts(HTTP_T2V_TEMP,
                                                DECODE_WINDOW, 1))
-        want = expected(pipe.dit.num_attention_calls * forwards,
-                        conv=kernel_conv_count(pipe.vae.decoder) * windows)
+        want = expected(**route_launches(
+            True, pipe.dit.num_attention_calls * forwards),
+            conv=kernel_conv_count(pipe.vae.decoder) * windows)
         t2v = dict(request="HTTP T2V", status=status, content_type=ctype,
                    frames=list(frames.shape), wall_s=t2v_wall,
                    bit_equal_to_generate=bool(np.array_equal(frames, ref)),
@@ -2740,7 +2893,8 @@ def http_serving(dev, paths):
         forwards = (HTTP_I2V_TEMP - 1) * 3 * 10
         windows = len(vae_model._window_starts(HTTP_I2V_TEMP,
                                                DECODE_WINDOW, 1))
-        want = expected(pipe.dit.num_attention_calls * forwards, conv=(
+        want = expected(**route_launches(
+            True, pipe.dit.num_attention_calls * forwards), conv=(
             kernel_conv_count(pipe.vae.encoder)
             + kernel_conv_count(pipe.vae.decoder) * windows))
         i2v = dict(request="HTTP I2V", status=status, content_type=ctype,
@@ -2954,8 +3108,9 @@ def mmdit_text_request(pipe, dev, paths):
         wall = time.perf_counter() - t1
     paths["MMDiT from text, string prompt"] = launched = launch_counts()
     windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
-    want = expected(pipe.dit.num_attention_calls * sum(STEPS),
-                    conv=kernel_conv_count(pipe.vae.decoder) * windows)
+    want = expected(**route_launches(
+        True, pipe.dit.num_attention_calls * sum(STEPS)),
+        conv=kernel_conv_count(pipe.vae.decoder) * windows)
     check_request(frames, seen, launched, want, 1)
     r = dict(request="mmdit text", prompt=TEXT_PROMPT, temp=1,
              pooled_width=pooled.shape[-1], launches=launched, wall_s=wall,
@@ -3183,8 +3338,7 @@ def sp_serving_phase(dev, mesh) -> dict:
         anchor = {}
         if torch.distributed.get_rank() == 0:
             # the fp32 anchor (one rank: every rank's output is the whole)
-            with mock.patch.object(par_sp, "flash_attention",
-                                   plain_attention_route):
+            with plain_route():
                 out_p = dit(*inputs)[:, valid]
             out_32 = fp32_forward(dit, inputs)[:, valid]
             anchor = dict(sp_vs_fp32=rel_l2(out_sp[:, valid], out_32),
@@ -3224,7 +3378,8 @@ def sp_serving_phase(dev, mesh) -> dict:
     diff = (frames_sp.float() - frames_1.float()).abs()
     forwards = sum(SP_SERVE_STEPS)
     windows = len(vae_model._window_starts(SP_SERVE_TEMP, DECODE_WINDOW, 1))
-    want = expected(dit.num_attention_calls * forwards,
+    want = expected(**route_launches(True, dit.num_attention_calls
+                                     * forwards),
                     conv=kernel_conv_count(vae.decoder) * windows)
     res = dict(card=card_line(), sp=group_size(mesh, "sp"),
                steps=SP_SERVE_STEPS, temp=SP_SERVE_TEMP,
@@ -3848,7 +4003,8 @@ def request_768p(dit, vae, dev, gen) -> dict:
     hl, wl = height // 8, width // 8
     strip_w = P768_PLAN.px_window_budget // (2 * hl)
     tile_w, wpos = vae_model.plan_axis(wl, strip_w)
-    want = expected(dit.num_attention_calls * forwards,
+    want = expected(**route_launches(True, dit.num_attention_calls
+                                     * forwards),
                     conv=decode_launches(vae, P768_TEMP, 2, len(wpos)))
     expect = (1, 1 + 8 * (P768_TEMP - 1), height, width, 3)
     if tuple(frames.shape) != expect or frames.dtype != torch.uint8:
@@ -4106,7 +4262,8 @@ def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
         want = expected(
             calls * (dit.num_attention_calls + 1), classic=calls,
             conv=2 * decode_launches(vae, profile_768p.FRAMES,
-                                     plan.untiled_window))
+                                     plan.untiled_window),
+            qk=calls * dit.num_attention_calls)
         if launched != want:
             raise AssertionError(f"profile_768p launches {launched}, "
                                  f"expected {want}")
@@ -4164,13 +4321,14 @@ def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
 
 
 def build_libraries():
-    """The four kernel libraries, one nvcc each, started together."""
+    """The five kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         libs = {"flash_fwd": pool.submit(fa.kernel_library),
                 "flash_bwd": pool.submit(fa.bwd_kernel_library),
                 "causal_conv3d": pool.submit(cc.kernel_library),
-                "flash_fwd_hn": pool.submit(fa.hn_kernel_library)}
+                "flash_fwd_hn": pool.submit(fa.hn_kernel_library),
+                "qk_norm_rope": pool.submit(qkr.kernel_library)}
         libs = {name: f.result() for name, f in libs.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
@@ -4216,6 +4374,7 @@ def main() -> int:
     hn_checks += hn_tool_layout(dev)
     hn_empty_rows(dev, kgen)
     bwd_checks = bwd_vs_plain(meta_pipe, dev, kgen)
+    qk_checks = qk_vs_plain(dev)
     paths = {"exp_flash_h2 tool": tool_path()}
 
     t0 = time.perf_counter()
@@ -4324,6 +4483,7 @@ def main() -> int:
                   and r["d"] == D and r["causal"])
     ctimed = next(r for r in conv_checks if "plain_ms" in r)
     hn_timed = next(r for r in hn_checks if "ms" in r and r["causal"])
+    qk_timed = next(r for r in qk_checks if r["site"] == QK_TIMED_SITE)
     # operations of each timed call, for the rate
     conv_flops = conv_bound(*TIMED_CONV)[0]
     flops = {"flash_fwd": timed["flops"], "flash_fwd_classic": classic["flops"],
@@ -4332,11 +4492,14 @@ def main() -> int:
              "flash_fwd_hn": timed["flops"]}
     def own_ms(e):
         # K3 and K4 share one ``ms``, the whole backward as the path calls
-        # it; their rate and share of the bound are of their own time
-        return e["kernel_ms"] if e["name"].startswith("flash_bwd") else e["ms"]
+        # it; their rate and share of the bound are of their own time, and
+        # so is K7's, whose wrapper calls back to back the host paces
+        own = e["name"].startswith("flash_bwd") or e["name"] == "qk_norm_rope"
+        return e["kernel_ms"] if own and e["kernel_ms"] else e["ms"]
 
     log(json.dumps({"kernels": [dict(
-        e, tflops=flops[e["name"]] / own_ms(e) / 1e9,
+        e, tflops=(flops[e["name"]] / own_ms(e) / 1e9 if e["name"] in flops
+                   else None),
         bound_share=e["bound_ms"] / own_ms(e),
         launches_by_path={path: p[e["name"]] for path, p in paths.items()
                           if p[e["name"]]}) for e in [{
@@ -4428,6 +4591,23 @@ def main() -> int:
         "bound_ms": hn_timed["bound_ms"],
         "bound_by": hn_timed["bound_by"],
         "library_ms": hn_timed["library_ms"],
+    }, {
+        # no TPU kernel: XLA fuses the JAX blocks' qk norm, concatenation
+        # and RoPE; ``composed_ms`` is the chain it replaced
+        "name": "qk_norm_rope",
+        "route": "cuda",
+        "source": "pyramid_flow_tpu_torch/csrc/qk_norm_rope.cu",
+        "replaces": "pyramid_flow_tpu/models/flux/blocks.py:181",
+        "launches": total["qk_norm_rope"],
+        "max_pair_ulps": max(r["max_pair_ulps"] for r in qk_checks),
+        "site": qk_timed["site"],
+        "ms": qk_timed["ms"],
+        "kernel_ms": qk_timed["kernel_ms"],
+        "plain_ms": qk_timed["plain_ms"],
+        "composed_ms": qk_timed["composed_ms"],
+        "bound_ms": qk_timed["bound_ms"],
+        "bound_by": qk_timed["bound_by"],
+        "library_ms": None,
     }]]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

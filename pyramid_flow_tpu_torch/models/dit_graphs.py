@@ -14,13 +14,17 @@ cross-attention, whose keys and values come from the text and carry their
 own time ids) calls ``blocks._cross_attention`` instead. So the
 hand-written flash forward is launched, counted
 (``flash_fwd_cuda.launches``) and wrapped as in an eager forward,
-``num_attention_calls`` times per forward.
+``num_attention_calls`` times per forward. Each attention's q, k and v come
+from the fused kernel of ``ops.qk_norm_rope``, recorded in the graph before
+its seam; a replay adds the launches its graphs hold to
+``qk_norm_rope_cuda.launches``, so the count is the kernels that ran.
 
 When: a forward is graphed only on CUDA tensors, with autograd off (no_grad
 or inference mode), outside autocast, without an sp group, with no
-``capture_qk`` open, and on a stream that is not capturing already
-(:func:`bypass_reason`). Every other forward (training, telemetry, Ulysses
-SP, the CPU) runs the eager body as it is. Of the forwards that may be
+``capture_qk`` and no ``qk_norm_rope.composition()`` open, and on a stream
+that is not capturing already (:func:`bypass_reason`). Every other forward
+(training, telemetry, Ulysses SP, reference forwards, the CPU) runs the
+eager body as it is. Of the forwards that may be
 graphed, a layout's first runs eagerly, its second is captured (then
 replayed for its result) and the later ones replay. The layout is the
 inputs' shapes, dtypes and device and the DiT's ``bounded_softmax``.
@@ -46,6 +50,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from ..ops.qk_norm_rope import composing, qk_norm_rope_cuda
+
 __all__ = ["ForwardGraphs", "GRAPH_FORWARDS", "bypass_reason"]
 
 # forwards that could be graphed, by how they ran: replayed (graphs that
@@ -64,6 +70,8 @@ def bypass_reason(dit, tokens: torch.Tensor) -> Optional[str]:
         return "sp"
     if any(a.capture is not None for a in dit.attention_modules):
         return "capture_qk"
+    if composing():
+        return "composition"  # a graph would keep the composed q/k chain
     if not tokens.is_cuda:
         return "device"
     if torch.cuda.is_current_stream_capturing():
@@ -93,6 +101,7 @@ class _Layout:
     graphs: List = dataclasses.field(default_factory=list)
     seams: List[_Seam] = dataclasses.field(default_factory=list)
     out: Optional[torch.Tensor] = None
+    qk_launches: int = 0  # fused q/k/v kernels the graphs hold
 
 
 class _Capture:
@@ -230,6 +239,7 @@ class ForwardGraphs:
                        self.buffer(("input", i), a.shape, a.dtype, device)
                        for i, a in enumerate(args))
         capture = _Capture(self)
+        captured = qk_norm_rope_cuda.captured
         attns = dit.attention_modules
         for attn in attns:
             attn.seam = capture
@@ -247,6 +257,7 @@ class ForwardGraphs:
                 attn.seam = None
         layout.inputs, layout.out = inputs, out
         layout.graphs, layout.seams = capture.graphs, capture.seams
+        layout.qk_launches = qk_norm_rope_cuda.captured - captured
 
     def _replay(self, layout: _Layout, args) -> torch.Tensor:
         for static, a in zip(layout.inputs, args):
@@ -264,6 +275,7 @@ class ForwardGraphs:
                                                  s.bounded)
             s.o.copy_(o)
         layout.graphs[-1].replay()
+        qk_norm_rope_cuda.launches += layout.qk_launches
         return layout.out.clone()
 
 

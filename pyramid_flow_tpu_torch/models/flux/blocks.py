@@ -22,6 +22,13 @@ rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
 :func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention`; a capture
 then appends the whole sequence's q and k, gathered from the ranks.
 
+Each attention module hands its q, k and v projections to
+:func:`~pyramid_flow_tpu_torch.ops.qk_norm_rope.qkv_heads`, which returns
+them normalised, rotated and joined ``[B, H, L, D]``: one launch of the
+fused kernel on the card, the ``RMSNorm``, ``torch.cat`` and ``apply_rope``
+composition on the CPU and inside ``qk_norm_rope.composition()`` (the train
+step, ``capture_qk``).
+
 Every block and attention module takes ``bounded`` as its last forward
 argument, the softmax form of its attention: the bounded forward (True, the
 default) or the classic online softmax. The DiT passes its
@@ -35,7 +42,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.rope import apply_rope
+from ...ops.qk_norm_rope import Slot, qkv_heads
 from ...parallel.comm import all_gather
 from ...parallel.sp import sp_flash_attention
 
@@ -138,11 +145,6 @@ class FeedForward(nn.Module):
         return x
 
 
-def _heads(x, num_heads):
-    b, l, d = x.shape
-    return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2)
-
-
 def _unheads(x):
     b, h, l, d = x.shape
     return x.transpose(1, 2).reshape(b, l, h * d)
@@ -191,18 +193,15 @@ class JointAttention(nn.Module):
         self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
-        n = self.num_heads
-        q = self.norm_q(_heads(self.to_q(x), n))
-        k = self.norm_k(_heads(self.to_k(x), n))
-        v = _heads(self.to_v(x), n)
-        cq = self.norm_added_q(_heads(self.add_q_proj(ctx), n))
-        ck = self.norm_added_k(_heads(self.add_k_proj(ctx), n))
-        cv = _heads(self.add_v_proj(ctx), n)
         # text first, matching the RoPE and time-id layout
+        q, k, v = qkv_heads((
+            Slot((self.add_q_proj(ctx), self.to_q(x)),
+                 (self.norm_added_q, self.norm_q), rope=True),
+            Slot((self.add_k_proj(ctx), self.to_k(x)),
+                 (self.norm_added_k, self.norm_k), rope=True),
+            Slot((self.add_v_proj(ctx), self.to_v(x)))),
+            self.num_heads, rope_cos, rope_sin)
         lt = ctx.shape[1]
-        q = apply_rope(torch.cat([cq, q], dim=2), rope_cos, rope_sin)
-        k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
-        v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
             _capture(self, q, k)
         attend = _attention if self.seam is None else self.seam
@@ -229,12 +228,10 @@ class SingleAttention(nn.Module):
         self.sp_group = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids, bounded=True):
-        n = self.num_heads
-        q = apply_rope(self.norm_q(_heads(self.to_q(x), n)), rope_cos,
-                       rope_sin)
-        k = apply_rope(self.norm_k(_heads(self.to_k(x), n)), rope_cos,
-                       rope_sin)
-        v = _heads(self.to_v(x), n)
+        q, k, v = qkv_heads((
+            Slot((self.to_q(x),), (self.norm_q,), rope=True),
+            Slot((self.to_k(x),), (self.norm_k,), rope=True),
+            Slot((self.to_v(x),))), self.num_heads, rope_cos, rope_sin)
         if self.capture is not None:
             _capture(self, q, k)
         attend = _attention if self.seam is None else self.seam

@@ -38,10 +38,12 @@ after a load or after ``set_mesh`` switches every attention, under sequence
 parallelism too; it is saved in no state dict, config or train state.
 
 Each forward is a ``dit.forward`` span (``utils.profiling.span``) with its
-rows, tokens, flash-forward launches and ``graph``, how it ran; the MMDiT's
-forward is one too. A serving forward (autograd off, on the card) replays
-CUDA graphs captured for its layout, cut at every attention
-(``models.dit_graphs``); every other forward runs eagerly.
+rows, tokens, flash-forward launches, fused q/k/v launches (``qk_launches``:
+one per attention in a serving forward, ``ops.qk_norm_rope``) and
+``graph``, how it ran; the MMDiT's forward is one too. A serving forward
+(autograd off, on the card) replays CUDA graphs captured for its layout,
+cut at every attention (``models.dit_graphs``); every other forward runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
+from ...ops.qk_norm_rope import QK_LAUNCHES, composition
 from ...ops.rope import rope_freqs
 from ...parallel.mesh import SP_AXIS, mesh_dim
 from ...parallel.sp import SeqShard, gather_seq
@@ -72,7 +75,10 @@ from .blocks import (
 )
 
 __all__ = ["FluxConfig", "PyramidFluxTransformer", "TimestepTextEmbed",
-           "timestep_sinusoidal", "set_dit_mesh"]
+           "timestep_sinusoidal", "set_dit_mesh", "DIT_COUNTERS"]
+
+# a ``dit.forward`` span's counters: flash-forward and fused q/k/v launches
+DIT_COUNTERS = {**FORWARD_LAUNCHES, **QK_LAUNCHES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -233,13 +239,16 @@ class PyramidFluxTransformer(nn.Module):
         """Within the block, every attention appends batch row 0's post-RoPE
         ``(q, k)`` ``[1, H, L, D]`` to the yielded list, dual blocks first.
         Capture without autograd: under ``remat`` a block's recompute in the
-        backward would append again."""
+        backward would append again. The attentions run the composed q/k
+        chain (``ops.qk_norm_rope.composition``), whatever the DiT's dtype
+        (the telemetry probe also reads a training DiT's fp32 masters)."""
         attns = self.attention_modules
         captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
         for attn in attns:
             attn.capture = captured
         try:
-            yield captured
+            with composition():
+                yield captured
         finally:
             for attn in attns:
                 attn.capture = None
@@ -251,7 +260,7 @@ class PyramidFluxTransformer(nn.Module):
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, guidance=None):
-        with span("dit.forward", counters=FORWARD_LAUNCHES,
+        with span("dit.forward", counters=DIT_COUNTERS,
                   rows=latent_tokens.shape[0],
                   tokens=latent_tokens.shape[1]) as record:
             return self.graphs(self, self._forward, (

@@ -11,10 +11,9 @@ argument, is the softmax form, as in the flux blocks.
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
-from ...ops.rope import apply_rope
+from ...ops.qk_norm_rope import Slot, qkv_heads
 from ..flux.blocks import (
     AdaLayerNormContinuous,
     AdaLayerNormZero,
@@ -22,7 +21,6 @@ from ..flux.blocks import (
     RMSNorm,
     _attention,
     _capture,
-    _heads,
     _unheads,
     layer_norm,
 )
@@ -55,17 +53,14 @@ class MMDiTJointAttention(nn.Module):
         self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
-        n = self.num_heads
-        q = self.norm_q(_heads(self.to_q(x), n))
-        k = self.norm_k(_heads(self.to_k(x), n))
-        v = _heads(self.to_v(x), n)
-        cq = self.norm_add_q(_heads(self.add_q_proj(ctx), n))
-        ck = self.norm_add_k(_heads(self.add_k_proj(ctx), n))
-        cv = _heads(self.add_v_proj(ctx), n)
+        q, k, v = qkv_heads((
+            Slot((self.add_q_proj(ctx), self.to_q(x)),
+                 (self.norm_add_q, self.norm_q), rope=True),
+            Slot((self.add_k_proj(ctx), self.to_k(x)),
+                 (self.norm_add_k, self.norm_k), rope=True),
+            Slot((self.add_v_proj(ctx), self.to_v(x)))),
+            self.num_heads, rope_cos, rope_sin)
         lt = ctx.shape[1]
-        q = apply_rope(torch.cat([cq, q], dim=2), rope_cos, rope_sin)
-        k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
-        v = torch.cat([cv, v], dim=2)
         if self.capture is not None:
             _capture(self, q, k)
         attend = _attention if self.seam is None else self.seam

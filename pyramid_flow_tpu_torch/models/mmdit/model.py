@@ -47,14 +47,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
+from ...ops.flash_attention import INVALID_TIME
+from ...ops.qk_norm_rope import composition
 from ...ops.rope import rope_freqs
 from ...parallel.sp import SeqShard, gather_seq
 from ...utils.devices import model_device
 from ...utils.profiling import span
 from ..dit_graphs import ForwardGraphs
 from ..flux.blocks import AdaLayerNormContinuous
-from ..flux.model import TimestepTextEmbed, set_dit_mesh
+from ..flux.model import DIT_COUNTERS, TimestepTextEmbed, set_dit_mesh
 from . import blocks
 from .blocks import JointTransformerBlock
 
@@ -250,7 +251,8 @@ class PyramidDiffusionMMDiT(nn.Module):
         for attn in attns:
             attn.capture = captured
         try:
-            yield captured
+            with composition():
+                yield captured
         finally:
             for attn in attns:
                 attn.capture = None
@@ -262,7 +264,7 @@ class PyramidDiffusionMMDiT(nn.Module):
 
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, pos_offset):
-        with span("dit.forward", counters=FORWARD_LAUNCHES,
+        with span("dit.forward", counters=DIT_COUNTERS,
                   rows=latent_tokens.shape[0],
                   tokens=latent_tokens.shape[1]) as record:
             return self.graphs(self, self._forward, (

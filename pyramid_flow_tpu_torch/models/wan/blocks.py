@@ -36,9 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.flash_attention import flash_attention, flash_fwd_cuda
-from ...ops.rope import apply_rope
+from ...ops.qk_norm_rope import Slot, qkv_heads
 from ...utils.profiling import span
-from ..flux.blocks import RMSNorm, _attention, _heads, _unheads, layer_norm
+from ..flux.blocks import RMSNorm, _attention, _unheads, layer_norm
 
 __all__ = ["WanSelfAttention", "WanCrossAttention", "WanAttentionBlock",
            "CROSS_ATTN_LAUNCHES", "linear_fp32"]
@@ -91,10 +91,10 @@ class WanSelfAttention(nn.Module):
         self.seam = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids, bounded=False):
-        n = self.num_heads
-        q = apply_rope(_heads(self.norm_q(self.q(x)), n), rope_cos, rope_sin)
-        k = apply_rope(_heads(self.norm_k(self.k(x)), n), rope_cos, rope_sin)
-        v = _heads(self.v(x), n)
+        q, k, v = qkv_heads((
+            Slot((self.q(x),), (self.norm_q,), rope=True),
+            Slot((self.k(x),), (self.norm_k,), rope=True),
+            Slot((self.v(x),))), self.num_heads, rope_cos, rope_sin)
         attend = _attention if self.seam is None else self.seam
         return self.o(_unheads(attend(q, k, v, time_ids, True,
                                       self.head_dim, None, bounded)))
@@ -116,10 +116,10 @@ class WanCrossAttention(nn.Module):
         self.seam = None
 
     def forward(self, x, ctx, time_q, time_kv, bounded=False):
-        n = self.num_heads
-        q = _heads(self.norm_q(self.q(x)), n)
-        k = _heads(self.norm_k(self.k(ctx)), n)
-        v = _heads(self.v(ctx), n)
+        q, k, v = qkv_heads((
+            Slot((self.q(x),), (self.norm_q,)),
+            Slot((self.k(ctx),), (self.norm_k,)),
+            Slot((self.v(ctx),))), self.num_heads)
         attend = _cross_attention if self.seam is None else self.seam.cross
         return self.o(_unheads(attend(q, k, v, time_q, time_kv,
                                       self.head_dim, bounded)))

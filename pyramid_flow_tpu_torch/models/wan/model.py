@@ -36,7 +36,8 @@ scale. It returns fp32 velocity tokens ``[B, L, 64]`` in the same layout.
 bounded form's exactness argument does not hold (``blocks``). Each forward
 is a ``dit.forward`` span with ``rows``, ``tokens``, ``text_tokens``,
 ``graph`` and the counters ``attn_launches`` (both attentions, 80 per
-forward at full depth on the card) and ``cross_attn_launches`` (40). A
+forward at full depth on the card), ``cross_attn_launches`` (40) and
+``qk_launches`` (the fused q/k/v kernel, one per attention: 80). A
 serving forward replays CUDA graphs captured per layout, cut at each of its
 two attentions per block (``models.dit_graphs``); every other forward runs
 eagerly. One device only: a mesh with an sp or fsdp dim above 1 is refused.
@@ -51,20 +52,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.flash_attention import FORWARD_LAUNCHES
 from ...ops.rope import rope_freqs
 from ...parallel.mesh import SP_AXIS, mesh_dim
 from ...utils.devices import model_device
 from ...utils.profiling import span
 from ..dit_graphs import ForwardGraphs
 from ..flux.blocks import layer_norm
-from ..flux.model import timestep_sinusoidal
+from ..flux.model import DIT_COUNTERS, timestep_sinusoidal
 from . import blocks
 from .blocks import CROSS_ATTN_LAUNCHES, WanAttentionBlock, linear_fp32
 
 __all__ = ["WanConfig", "WanDiT"]
 
-_COUNTERS = {**FORWARD_LAUNCHES, **CROSS_ATTN_LAUNCHES}
+_COUNTERS = {**DIT_COUNTERS, **CROSS_ATTN_LAUNCHES}
 
 
 @dataclasses.dataclass(frozen=True)

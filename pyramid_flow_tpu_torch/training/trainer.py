@@ -46,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.vae.model import chunk_encode, gaussian_sample
+from ..ops.qk_norm_rope import composition
 from ..parallel.mesh import data_rank
 from ..pipeline.noising import (
     GeneratorDraws,
@@ -228,8 +229,10 @@ def make_train_step(dit, scheduler, sample_ratios: Sequence[int] = (1, 2, 1),
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor], draws,
              num_units_per_stage: Tuple[int, ...]):
+        # the attentions' q/k chain composed, since the fused kernel has no
+        # backward: forwards, backward and a remat block's recompute
         with span("train.step", trace_id=state.step,
-                  counters=ALLOCATOR) as step_span:
+                  counters=ALLOCATOR) as step_span, composition():
             return traced_step(step_span, state, batch, draws,
                                num_units_per_stage)
 

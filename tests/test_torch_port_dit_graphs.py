@@ -6,8 +6,9 @@ On the CPU:
   frequencies), now made once per device, equal the numpy formulas they
   replaced bit for bit;
 * a forward that may not be graphed (on the CPU, under autograd, with
-  ``capture_qk`` open, with an sp group) runs eagerly, says why, and leaves
-  the graph counters as they were;
+  ``capture_qk`` open, with an sp group, inside
+  ``qk_norm_rope.composition()``) runs eagerly, says why, and leaves the
+  graph counters as they were;
 * the seam a capture sets on every attention module is called in place of
   the attention, once per block, and gets q, k and v as the attention would;
 * a deep copy or a pickle of a DiT starts with an empty graph cache.
@@ -20,8 +21,12 @@ layout's; an output survives the next forward; an in-place weight update
 is replayed and a replaced weight drops the graphs; a forward hook sees
 every forward; a wrapper set on ``blocks._attention`` after capture is
 called ``num_attention_calls`` times per replay, and the flash forward is
-launched as often; at full depth 57 and 24 times per forward, from 58 and
-25 graphs. No JAX: on the card this file runs as
+launched as often; at full depth 57, 24 and 80 times per forward (miniFLUX,
+the MMDiT, Wan), from 58, 25 and 81 graphs, and the fused q/k/v kernel
+(``ops.qk_norm_rope``) as often. With that kernel engaged, each family's
+eager, captured and replayed forwards are bit-equal, and at the release
+widths within 1e-2 of the forward on the composed q/k chain. No JAX: on the
+card this file runs as
 
     python -m pytest tests/test_torch_port_dit_graphs.py -m gpu --noconftest
 """
@@ -42,7 +47,10 @@ from pyramid_flow_tpu_torch.models.flux.model import (
 from pyramid_flow_tpu_torch.models.mmdit import blocks as mmdit_blocks
 from pyramid_flow_tpu_torch.models.mmdit.model import (
     MMDiTConfig, PyramidDiffusionMMDiT)
+from pyramid_flow_tpu_torch.models.wan.model import WanConfig, WanDiT
 from pyramid_flow_tpu_torch.ops.flash_attention import flash_fwd_cuda
+from pyramid_flow_tpu_torch.ops.qk_norm_rope import (
+    composition, qk_norm_rope_cuda)
 from pyramid_flow_tpu_torch.ops.rope import rope_freqs
 from pyramid_flow_tpu_torch.utils import profiling
 
@@ -115,6 +123,8 @@ def _layout_inputs(dit, frames, h, w, text=8, rows=2, seed=0, dtype=None,
     cfg = dit.config
     width = (cfg.in_channels if isinstance(dit, PyramidFluxTransformer)
              else cfg.token_dim)
+    text_dim = getattr(cfg, "joint_attention_dim", None) or cfg.text_dim
+    pooled_dim = getattr(cfg, "pooled_projection_dim", 0)  # Wan takes none
     dtype = dtype or torch.float32
     t, y, x = torch.meshgrid(torch.arange(frames), torch.arange(h),
                              torch.arange(w), indexing="ij")
@@ -125,11 +135,9 @@ def _layout_inputs(dit, frames, h, w, text=8, rows=2, seed=0, dtype=None,
     args = [torch.randn((rows, n, width), generator=g).to(dtype),
             pos.expand(rows, -1, -1),
             t.reshape(1, -1).expand(rows, -1).to(torch.int64),
-            torch.randn((rows, text, cfg.joint_attention_dim),
-                        generator=g).to(dtype),
+            torch.randn((rows, text, text_dim), generator=g).to(dtype),
             mask,
-            torch.randn((rows, cfg.pooled_projection_dim),
-                        generator=g).to(dtype),
+            torch.randn((rows, pooled_dim), generator=g).to(dtype),
             torch.rand((rows,), generator=g) * 1000]
     args = [a.to(device) for a in args]
     if isinstance(dit, PyramidDiffusionMMDiT):
@@ -157,7 +165,8 @@ def _forward_recorded(dit, args):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-@pytest.mark.parametrize("case", ["device", "grad", "capture_qk", "sp"])
+@pytest.mark.parametrize("case", ["device", "grad", "capture_qk", "sp",
+                                  "composition"])
 def test_bypassed_forwards_leave_the_counters(family, case, request):
     dit = _tiny(family)
     args = _layout_inputs(dit, 2, 2, 2)
@@ -179,6 +188,10 @@ def test_bypassed_forwards_leave_the_counters(family, case, request):
                 assert bypass_reason(dit, args[0]) == "capture_qk"
                 out, how = _forward_recorded(dit, args)
             assert len(captured) == dit.num_attention_calls
+        elif case == "composition":
+            with torch.no_grad(), composition():
+                assert bypass_reason(dit, args[0]) == case
+                out, how = _forward_recorded(dit, args)
         else:
             with torch.no_grad():
                 assert bypass_reason(dit, args[0]) == case
@@ -262,14 +275,24 @@ def _seeded_(dit, seed=1):
     return dit
 
 
-def _card_dit(family, full=False):
+def _card_dit(family, full=False, layers=None):
+    """A small DiT, or with ``full`` the release widths, at the release
+    depth or ``layers`` blocks of each kind."""
     kw = dict(dtype=torch.bfloat16, device="cuda")
+    depth = {} if layers is None else dict(num_layers=layers)
     if family == "flux":
-        cfg = FluxConfig() if full else FluxConfig(
+        if layers is not None:
+            depth["num_single_layers"] = layers
+        cfg = FluxConfig(**depth) if full else FluxConfig(
             num_layers=2, num_single_layers=3, num_attention_heads=4,
             joint_attention_dim=128, pooled_projection_dim=64)
         return _seeded_(PyramidFluxTransformer(cfg, **kw))
-    cfg = MMDiTConfig() if full else MMDiTConfig(
+    if family == "wan":
+        cfg = WanConfig(**depth) if full else WanConfig(
+            dim=512, ffn_dim=1024, num_heads=4, num_layers=3, text_len=64,
+            text_dim=256)
+        return _seeded_(WanDiT(cfg, **kw))
+    cfg = MMDiTConfig(**depth) if full else MMDiTConfig(
         num_layers=3, num_attention_heads=4, caption_projection_dim=256,
         pooled_projection_dim=64, joint_attention_dim=128,
         pos_embed_max_size=48)
@@ -369,10 +392,11 @@ def test_output_survives_the_next_forward(family, cuda):
         first = dit(*one)
         kept = first.clone()
         second = dit(*two)
+        want = dit._forward(*two)  # eager, autograd off as in serving
         torch.cuda.synchronize()
     assert torch.equal(first, kept)
     assert not torch.equal(second, first)
-    assert _rel_l2(second, dit._forward(*two)) <= 1e-3
+    assert _rel_l2(second, want) <= 1e-3
 
 
 @pytest.mark.gpu
@@ -432,10 +456,65 @@ def test_hooks_and_attention_wrapper_see_every_replay(family, cuda,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("family", FAMILIES + ("wan",))
+def test_replay_is_the_eager_forward_bit_for_bit(family, cuda):
+    """With the fused q/k/v kernel engaged (one launch per attention, also
+    in the span's ``qk_launches``), the layout's eager, captured and
+    replayed forwards and ``_forward`` give the same bits."""
+    dit = _card_dit(family)
+    n = dit.num_attention_calls
+    args = _card_inputs(dit, LAYOUTS[1])
+    outs = []
+    with torch.no_grad():
+        for how in ("eager", "capture", "replay", "replay"):
+            launches = qk_norm_rope_cuda.launches
+            out, recorded = _forward_recorded(dit, args)
+            assert recorded == how
+            assert qk_norm_rope_cuda.launches - launches == n
+            outs.append(out)
+        with profiling.recording() as rec:
+            dit(*args)
+        (fw,) = [s for s in rec.spans() if s.name == "dit.forward"]
+        assert fw.attrs["qk_launches"] == n
+        want = dit._forward(*args)
+    assert all(_bit_equal(out, want) for out in outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES + ("wan",))
+def test_serving_forward_is_near_the_composed_forward(family, cuda):
+    """At the release widths (two blocks of each kind), a serving forward,
+    whose q, k and v come from the fused kernel, stays within 1e-2 relative
+    L2 of the same forward on the composed chain (``composition()``, which
+    launches no fused kernel and rounds q and k once more). A forward
+    inside ``composition()`` runs eagerly, so the layout's next forward,
+    not it, is captured, with the kernel."""
+    dit = _card_dit(family, full=True, layers=2)
+    n = dit.num_attention_calls
+    args = _layout_inputs(dit, 2, 8, 8, text=128, dtype=torch.bfloat16,
+                          device="cuda")
+    with torch.no_grad():
+        launches = qk_norm_rope_cuda.launches
+        fused = [dit(*args)]  # the layout's first forward: eager
+        with composition():
+            want, how = _forward_recorded(dit, args)
+        assert how == "eager"
+        assert qk_norm_rope_cuda.launches - launches == n
+        for expect in ("capture", "replay"):
+            out, how = _forward_recorded(dit, args)
+            assert how == expect
+            fused.append(out)
+        assert qk_norm_rope_cuda.launches - launches == 3 * n
+    assert all(_bit_equal(out, fused[0]) for out in fused)
+    assert torch.isfinite(want.float()).all()
+    assert _rel_l2(fused[0], want) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", FAMILIES + ("wan",))
 def test_full_depth_launches_per_forward(family, cuda):
     dit = _card_dit(family, full=True)
-    n = {"flux": 57, "mmdit": 24}[family]
+    n = {"flux": 57, "mmdit": 24, "wan": 80}[family]
     assert dit.num_attention_calls == n
     args = _layout_inputs(dit, 2, 8, 8, text=128, dtype=torch.bfloat16,
                           device="cuda")
@@ -443,8 +522,10 @@ def test_full_depth_launches_per_forward(family, cuda):
         want = dit._forward(*args)
         for _ in range(3):
             launches = flash_fwd_cuda.launches
+            fused = qk_norm_rope_cuda.launches
             got = dit(*args)
             assert flash_fwd_cuda.launches - launches == n
+            assert qk_norm_rope_cuda.launches - fused == n
         assert _rel_l2(got, want) <= 1e-3
     (layout,) = [v for v in dit.graphs.layouts.values() if v.graphs]
     assert len(layout.graphs) == n + 1

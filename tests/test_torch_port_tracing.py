@@ -155,6 +155,7 @@ def test_generate_spans(family):
             fw = _children(spans, st, "dit.forward")
             assert len(fw) == steps
             assert all(f.attrs["rows"] == 2 and f.attrs["attn_launches"] == 0
+                       and f.attrs["qk_launches"] == 0
                        and f.attrs["tokens"] == spans[st].attrs["tokens"]
                        for f in fw)
             forwards += steps

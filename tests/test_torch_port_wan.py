@@ -285,6 +285,7 @@ def test_span_tree_of_a_request():
         assert attrs["text_tokens"] == 16 and attrs["rows"] == 2
         assert attrs["graph"] == "eager"
         assert attrs["attn_launches"] == attrs["cross_attn_launches"] == 0
+        assert attrs["qk_launches"] == 0  # the CPU keeps the composition
 
 
 def test_seams_take_both_attentions():
@@ -398,6 +399,7 @@ def test_replay_is_the_eager_forward_bit_for_bit(cuda):
                 assert flash_fwd_cuda.launches - launches == n
                 assert fw.attrs["attn_launches"] == n
                 assert fw.attrs["cross_attn_launches"] == n // 2
+                assert fw.attrs["qk_launches"] == n
                 assert [s.name for s in rec.spans()].count(
                     "wan.cross_attn") == n // 2
             for out in outs[1:]:
