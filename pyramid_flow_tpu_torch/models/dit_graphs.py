@@ -6,18 +6,20 @@ to run them. :class:`ForwardGraphs` captures a forward once per layout as
 one CUDA graph per stretch between two attentions: the embedders and the
 first block up to its attention's q, k and v, then each stretch from one
 attention's output to the next attention's q, k and v, and the last one to
-the output (58 graphs for miniFLUX, 25 for the MMDiT, 81 for Wan). A replay
-copies the inputs into the layout's static buffers, replays each graph in
-turn, and between two graphs calls the attention eagerly as its family's
-``blocks._attention``, looked up at each call; a cross seam (Wan's
-cross-attention, whose keys and values come from the text and carry their
-own time ids) calls ``blocks._cross_attention`` instead. So the
-hand-written flash forward is launched, counted
+the output (58 graphs for miniFLUX, 25 for the MMDiT, 81 for Wan). While it
+captures, the DiT's attention sites (``models.attention_site``) call the
+capture in place of their attention; each such seam records the site's
+static q, k, v and output, the attention function's module and name, and
+its other arguments as the site passed them. A replay copies the inputs
+into the layout's static buffers, replays each graph in turn, and between
+two graphs calls ``getattr(module, name)(q, k, v, *rest)`` eagerly, looked
+up at each call. So the hand-written flash forward is launched, counted
 (``flash_fwd_cuda.launches``) and wrapped as in an eager forward,
-``num_attention_calls`` times per forward. Each attention's q, k and v come
-from the fused kernel of ``ops.qk_norm_rope``, recorded in the graph before
-its seam; a replay adds the launches its graphs hold to
-``qk_norm_rope_cuda.launches``, so the count is the kernels that ran.
+``num_attention_calls`` times per forward, whatever the family. Each
+attention's q, k and v come from the fused kernel of ``ops.qk_norm_rope``,
+recorded in the graph before its seam; a replay adds the launches its
+graphs hold to ``qk_norm_rope_cuda.launches``, so the count is the kernels
+that ran.
 
 When: a forward is graphed only on CUDA tensors, with autograd off (no_grad
 or inference mode), outside autocast, without an sp group, with no
@@ -44,7 +46,7 @@ by the next replay.
 from __future__ import annotations
 
 import dataclasses
-import importlib
+import types
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -66,9 +68,9 @@ def bypass_reason(dit, tokens: torch.Tensor) -> Optional[str]:
         return "grad"
     if torch.is_autocast_enabled("cuda"):
         return "autocast"  # its cast cache would outlive the capture
-    if dit.sp_group is not None:
+    if dit.sites.sp_group is not None:
         return "sp"
-    if any(a.capture is not None for a in dit.attention_modules):
+    if dit.sites.capture is not None:
         return "capture_qk"
     if composing():
         return "composition"  # a graph would keep the composed q/k chain
@@ -81,18 +83,16 @@ def bypass_reason(dit, tokens: torch.Tensor) -> Optional[str]:
 
 @dataclasses.dataclass
 class _Seam:
-    """One attention between two graphs: its static inputs and output and
-    the arguments it is called with; ``time_kv`` is set for a cross seam
-    only."""
+    """One attention between two graphs: its static inputs and output, and
+    the call that fills the output, ``getattr(module, name)(q, k, v,
+    *rest)``."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
     o: torch.Tensor
-    time_ids: torch.Tensor
-    causal: bool
-    head_dim: int
-    bounded: bool
-    time_kv: Optional[torch.Tensor] = None
+    module: types.ModuleType
+    name: str
+    rest: tuple
 
 
 @dataclasses.dataclass
@@ -105,9 +105,8 @@ class _Layout:
 
 
 class _Capture:
-    """Captures one forward's graphs: the attention modules call it in
-    place of the attention, which ends the running graph and starts the
-    next."""
+    """Captures one forward's graphs: the attention sites call it in place
+    of their attention, which ends the running graph and starts the next."""
 
     def __init__(self, owner: "ForwardGraphs"):
         self.owner = owner
@@ -131,46 +130,29 @@ class _Capture:
             except RuntimeError:
                 pass  # the capture was invalidated; the stream is free
 
-    def __call__(self, q, k, v, time_ids, causal, head_dim, sp_group,
-                 bounded):
-        return self._seam(("q", "k", "v"), q, k, v, time_ids, causal,
-                          head_dim, bounded)
-
-    def cross(self, q, k, v, time_q, time_kv, head_dim, bounded):
-        """The seam of ``blocks._cross_attention``: its keys and values
-        take buffers of their own."""
-        return self._seam(("q", "k_cross", "v_cross"), q, k, v, time_q,
-                          False, head_dim, bounded, time_kv)
-
-    def _seam(self, roles, q, k, v, time_ids, causal, head_dim, bounded,
-              time_kv=None):
+    def __call__(self, module, name, q, k, v, rest):
         buffer = self.owner.buffer
         qkv = [buffer(role, t.shape, t.dtype, t.device)
-               for role, t in zip(roles, (q, k, v))]
+               for role, t in zip("qkv", (q, k, v))]
         o = buffer("o", (*q.shape[:-1], v.shape[-1]), q.dtype, q.device)
         for static, t in zip(qkv, (q, k, v)):
             static.copy_(t)
         self.end()
-        self.seams.append(_Seam(*qkv, o, time_ids, causal, head_dim,
-                                bounded, time_kv))
+        self.seams.append(_Seam(*qkv, o, module, name, rest))
         self.begin()
         return o
 
 
 class ForwardGraphs:
-    """A DiT's graphs, one set per layout; see the module docstring.
+    """A DiT's graphs, one set per layout; see the module docstring."""
 
-    ``blocks`` is the family's blocks module, whose ``_attention`` each
-    replay calls."""
-
-    def __init__(self, blocks):
-        self.blocks = blocks
+    def __init__(self):
         self.clear()
 
     def __reduce__(self):
         # a copy of the DiT (deepcopy, pickle) starts with no graphs: they
         # read the original's weights
-        return _empty, (self.blocks.__name__,)
+        return ForwardGraphs, ()
 
     def clear(self) -> None:
         """Drop every graph and buffer."""
@@ -240,21 +222,14 @@ class ForwardGraphs:
                        for i, a in enumerate(args))
         capture = _Capture(self)
         captured = qk_norm_rope_cuda.captured
-        attns = dit.attention_modules
-        for attn in attns:
-            attn.seam = capture
-        try:
-            with torch.cuda.stream(self.stream):
-                try:
-                    capture.begin()
-                    out = body(*inputs)
-                    capture.end()
-                except BaseException:
-                    capture.abort()
-                    raise
-        finally:
-            for attn in attns:
-                attn.seam = None
+        with dit.sites.seamed(capture), torch.cuda.stream(self.stream):
+            try:
+                capture.begin()
+                out = body(*inputs)
+                capture.end()
+            except BaseException:
+                capture.abort()
+                raise
         layout.inputs, layout.out = inputs, out
         layout.graphs, layout.seams = capture.graphs, capture.seams
         layout.qk_launches = qk_norm_rope_cuda.captured - captured
@@ -265,19 +240,7 @@ class ForwardGraphs:
                 static.copy_(a)
         for graph, s in zip(layout.graphs, layout.seams):
             graph.replay()
-            if s.time_kv is None:
-                o = self.blocks._attention(s.q, s.k, s.v, s.time_ids,
-                                           s.causal, s.head_dim, None,
-                                           s.bounded)
-            else:
-                o = self.blocks._cross_attention(s.q, s.k, s.v, s.time_ids,
-                                                 s.time_kv, s.head_dim,
-                                                 s.bounded)
-            s.o.copy_(o)
+            s.o.copy_(getattr(s.module, s.name)(s.q, s.k, s.v, *s.rest))
         layout.graphs[-1].replay()
         qk_norm_rope_cuda.launches += layout.qk_launches
         return layout.out.clone()
-
-
-def _empty(blocks_name: str) -> ForwardGraphs:
-    return ForwardGraphs(importlib.import_module(blocks_name))

@@ -6,28 +6,15 @@ with time-id masking. Module names follow the released torch checkpoint
 (``attn.to_q``, ``attn.to_out.0``, ``ff.net.0.proj``, ...), so its state dict
 loads as it is.
 
-Each attention module can capture batch row 0's post-RoPE q and k, the
-counterpart of the JAX blocks' ``sow("telemetry", ...)``: set its
-``capture`` to a list (``PyramidFluxTransformer.capture_qk`` does so for
-every block) and each forward appends ``(q[:1], k[:1])``. ``capture`` is
-None otherwise, and then costs one attribute test.
-
-While the DiT captures its forward in CUDA graphs (``models.dit_graphs``),
-each attention module's ``seam`` is the capture, which the module calls in
-place of :func:`_attention`; ``seam`` is None otherwise.
-
-Under sequence parallelism each attention module's ``sp_group`` is the sp
-process group (the DiT sets it from its mesh): the module then holds this
-rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
-:func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention`; a capture
-then appends the whole sequence's q and k, gathered from the ranks.
-
-Each attention module hands its q, k and v projections to
-:func:`~pyramid_flow_tpu_torch.ops.qk_norm_rope.qkv_heads`, which returns
-them normalised, rotated and joined ``[B, H, L, D]``: one launch of the
-fused kernel on the card, the ``RMSNorm``, ``torch.cat`` and ``apply_rope``
-composition on the CPU and inside ``qk_norm_rope.composition()`` (the train
-step, ``capture_qk``).
+Each attention module is an attention site (``models.attention_site``): it
+keeps its projections and norms and says how its q, k and v are made
+(``Slot`` s of :func:`~pyramid_flow_tpu_torch.ops.qk_norm_rope.qkv_heads`,
+one launch of the fused kernel on the card), and the site runs the rest:
+``capture_qk``'s telemetry, :func:`_attention` or the graph seam in its
+place, and the join of the heads. Under sequence parallelism the site holds
+this rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
+:func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention` over the
+DiT's sp group.
 
 Every block and attention module takes ``bounded`` as its last forward
 argument, the softmax form of its attention: the bounded forward (True, the
@@ -38,13 +25,12 @@ default) or the classic online softmax. The DiT passes its
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ...ops.qk_norm_rope import Slot, qkv_heads
-from ...parallel.comm import all_gather
+from ...ops.qk_norm_rope import Slot
 from ...parallel.sp import sp_flash_attention
+from ..attention_site import AttentionSite
 
 __all__ = [
     "RMSNorm",
@@ -145,11 +131,6 @@ class FeedForward(nn.Module):
         return x
 
 
-def _unheads(x):
-    b, h, l, d = x.shape
-    return x.transpose(1, 2).reshape(b, l, h * d)
-
-
 def _attention(q, k, v, time_ids, causal, head_dim, sp_group=None,
                bounded=True):
     """q, k are RMS-normalised, which keeps the bounded-softmax form exact
@@ -162,20 +143,11 @@ def _attention(q, k, v, time_ids, causal, head_dim, sp_group=None,
                               sm_scale=head_dim ** -0.5, bounded=bounded)
 
 
-def _capture(attn, q, k):
-    """Append batch row 0's ``(q, k)`` to ``attn.capture``, the whole
-    sequence's under sp (gathered from the ranks)."""
-    q, k = q[:1].detach(), k[:1].detach()
-    group = attn.sp_group
-    if group is not None and dist.get_world_size(group) > 1:
-        q, k = (torch.cat(all_gather(t, group).unbind(0), dim=2)
-                for t in (q, k))
-    attn.capture.append((q, k))
-
-
-class JointAttention(nn.Module):
+class JointAttention(AttentionSite):
     """Dual-stream attention: separate image/text projections, one softmax
     over [text; image], separate output projections."""
+
+    attention = (__name__, "_attention")
 
     def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
                  **kw):
@@ -188,30 +160,25 @@ class JointAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(d, d, **kw)])
         for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
-        self.capture = None
-        self.seam = None
-        self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
         # text first, matching the RoPE and time-id layout
-        q, k, v = qkv_heads((
+        o = self.attend((
             Slot((self.add_q_proj(ctx), self.to_q(x)),
                  (self.norm_added_q, self.norm_q), rope=True),
             Slot((self.add_k_proj(ctx), self.to_k(x)),
                  (self.norm_added_k, self.norm_k), rope=True),
             Slot((self.add_v_proj(ctx), self.to_v(x)))),
-            self.num_heads, rope_cos, rope_sin)
+            time_ids, self.causal, self.head_dim, self.state.sp_group,
+            bounded, cos=rope_cos, sin=rope_sin)
         lt = ctx.shape[1]
-        if self.capture is not None:
-            _capture(self, q, k)
-        attend = _attention if self.seam is None else self.seam
-        o = _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
-                            self.sp_group, bounded))
         return self.to_out[0](o[:, lt:]), self.to_add_out(o[:, :lt])
 
 
-class SingleAttention(nn.Module):
+class SingleAttention(AttentionSite):
     """Single-stream attention without an output projection."""
+
+    attention = (__name__, "_attention")
 
     def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
                  **kw):
@@ -223,20 +190,14 @@ class SingleAttention(nn.Module):
         self.to_v = nn.Linear(d, d, **kw)
         self.norm_q = RMSNorm(head_dim, **kw)
         self.norm_k = RMSNorm(head_dim, **kw)
-        self.capture = None
-        self.seam = None
-        self.sp_group = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids, bounded=True):
-        q, k, v = qkv_heads((
+        return self.attend((
             Slot((self.to_q(x),), (self.norm_q,), rope=True),
             Slot((self.to_k(x),), (self.norm_k,), rope=True),
-            Slot((self.to_v(x),))), self.num_heads, rope_cos, rope_sin)
-        if self.capture is not None:
-            _capture(self, q, k)
-        attend = _attention if self.seam is None else self.seam
-        return _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
-                               self.sp_group, bounded))
+            Slot((self.to_v(x),))),
+            time_ids, self.causal, self.head_dim, self.state.sp_group,
+            bounded, cos=rope_cos, sin=rope_sin)
 
 
 class FluxTransformerBlock(nn.Module):

@@ -37,37 +37,31 @@ qk-norm gain. It is one attribute that every forward reads, so setting it
 after a load or after ``set_mesh`` switches every attention, under sequence
 parallelism too; it is saved in no state dict, config or train state.
 
-Each forward is a ``dit.forward`` span (``utils.profiling.span``) with its
-rows, tokens, flash-forward launches, fused q/k/v launches (``qk_launches``:
-one per attention in a serving forward, ``ops.qk_norm_rope``) and
-``graph``, how it ran; the MMDiT's forward is one too. A serving forward
-(autograd off, on the card) replays CUDA graphs captured for its layout,
-cut at every attention (``models.dit_graphs``); every other forward runs
-eagerly.
+The forward, ``set_mesh``, ``capture_qk``, ``remat`` and the attention
+sites are the DiT shell's (``models.dit_base``): each forward is a
+``dit.forward`` span (``utils.profiling.span``) with its rows, tokens,
+flash-forward launches, fused q/k/v launches (``qk_launches``: one per
+attention in a serving forward, ``ops.qk_norm_rope``) and ``graph``, how it
+ran. A serving forward (autograd off, on the card) replays CUDA graphs
+captured for its layout, cut at every attention (``models.dit_graphs``);
+every other forward runs eagerly.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-from typing import Iterator, List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from ...ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
-from ...ops.qk_norm_rope import QK_LAUNCHES, composition
 from ...ops.rope import rope_freqs
-from ...parallel.mesh import SP_AXIS, mesh_dim
-from ...parallel.sp import SeqShard, gather_seq
+from ...parallel.sp import gather_seq
 from ...utils.devices import model_device
-from ...utils.profiling import span
-from ..dit_graphs import ForwardGraphs
-from . import blocks
+from ..dit_base import DiTBase
 from .blocks import (
     AdaLayerNormContinuous,
     FluxSingleTransformerBlock,
@@ -75,10 +69,7 @@ from .blocks import (
 )
 
 __all__ = ["FluxConfig", "PyramidFluxTransformer", "TimestepTextEmbed",
-           "timestep_sinusoidal", "set_dit_mesh", "DIT_COUNTERS"]
-
-# a ``dit.forward`` span's counters: flash-forward and fused q/k/v launches
-DIT_COUNTERS = {**FORWARD_LAUNCHES, **QK_LAUNCHES}
+           "timestep_sinusoidal"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +144,7 @@ class TimestepTextEmbed(nn.Module):
         return t_emb + self.text_embedder(pooled)
 
 
-class PyramidFluxTransformer(nn.Module):
+class PyramidFluxTransformer(DiTBase):
     """miniFLUX over packed tokens.
 
     forward inputs:
@@ -180,10 +171,9 @@ class PyramidFluxTransformer(nn.Module):
                  dtype: torch.dtype = torch.float32, device="cuda",
                  remat: bool = False, mesh=None,
                  bounded_softmax: bool = True):
-        super().__init__()
+        super().__init__(remat=remat, bounded_softmax=bounded_softmax,
+                         mesh=mesh)
         cfg = self.config = config
-        self.remat = remat
-        self.bounded_softmax = bounded_softmax
         kw = dict(dtype=dtype,
                   device=model_device(device, "PyramidFluxTransformer"))
         d = cfg.inner_dim
@@ -204,24 +194,7 @@ class PyramidFluxTransformer(nn.Module):
         # zero-initialised output, as the JAX model: a fresh DiT predicts 0
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
-        self.set_mesh(mesh)
-        self.graphs = ForwardGraphs(blocks)
-
-    def set_mesh(self, mesh) -> None:
-        """Run on ``mesh`` (None: one device); with an sp dim above 1 every
-        attention is Ulysses' over the mesh's sp group."""
-        set_dit_mesh(self, self.attention_modules, mesh)
-
-    @property
-    def attention_modules(self) -> List[nn.Module]:
-        """Every block's attention, dual blocks first."""
-        return [blk.attn for blk in (*self.transformer_blocks,
-                                     *self.single_transformer_blocks)]
-
-    @property
-    def num_attention_calls(self) -> int:
-        """Attentions in one forward: one per block."""
-        return self.config.num_layers + self.config.num_single_layers
+        self._share_sites()
 
     @property
     def latent_channels(self) -> int:
@@ -234,38 +207,10 @@ class PyramidFluxTransformer(nn.Module):
         size height x width: none."""
         return ()
 
-    @contextlib.contextmanager
-    def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
-        """Within the block, every attention appends batch row 0's post-RoPE
-        ``(q, k)`` ``[1, H, L, D]`` to the yielded list, dual blocks first.
-        Capture without autograd: under ``remat`` a block's recompute in the
-        backward would append again. The attentions run the composed q/k
-        chain (``ops.qk_norm_rope.composition``), whatever the DiT's dtype
-        (the telemetry probe also reads a training DiT's fp32 masters)."""
-        attns = self.attention_modules
-        captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        for attn in attns:
-            attn.capture = captured
-        try:
-            with composition():
-                yield captured
-        finally:
-            for attn in attns:
-                attn.capture = None
-
-    def _run(self, block, *args):
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
-
     def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                 text_mask, pooled, timestep, guidance=None):
-        with span("dit.forward", counters=DIT_COUNTERS,
-                  rows=latent_tokens.shape[0],
-                  tokens=latent_tokens.shape[1]) as record:
-            return self.graphs(self, self._forward, (
-                latent_tokens, latent_pos, latent_time, text_emb, text_mask,
-                pooled, timestep, guidance), record)
+        return super().forward(latent_tokens, latent_pos, latent_time,
+                               text_emb, text_mask, pooled, timestep, guidance)
 
     def _forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                  text_mask, pooled, timestep, guidance=None):
@@ -280,15 +225,8 @@ class PyramidFluxTransformer(nn.Module):
         cos, sin = rope_freqs(
             torch.cat([text_pos, latent_pos.float()], dim=1),
             self.config.axes_dims_rope)
-        # attention time ids: text t=0, masked-out text INVALID
-        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
-
-        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-        if shard is not None:
-            ctx, x = shard.split(ctx, x)
-            cos, sin = shard.local(cos, 1), shard.local(sin)
-            time_ids = shard.pad(time_ids, INVALID_TIME)
+        ctx, x, cos, sin, time_ids, shard = self._joint(
+            ctx, x, cos, sin, text_mask, latent_time)
         bounded = self.bounded_softmax
         for block in self.transformer_blocks:
             x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
@@ -300,11 +238,3 @@ class PyramidFluxTransformer(nn.Module):
             return gather_seq(self.proj_out(self.norm_out(h, temb)), shard)
         return self.proj_out(self.norm_out(h[:, lt:], temb))
 
-
-def set_dit_mesh(dit: nn.Module, attns, mesh) -> None:
-    """Give ``dit`` and each of ``attns`` the sp group of ``mesh`` (None
-    below sp 2)."""
-    dit.sp_group = (mesh.get_group(SP_AXIS)
-                    if mesh_dim(mesh, SP_AXIS) > 1 else None)
-    for attn in attns:
-        attn.sp_group = dit.sp_group

@@ -6,32 +6,34 @@ stream's qk-norms are ``norm_add_q``/``norm_add_k``, and the last block is
 ``context_pre_only``: its context goes through ``AdaLayerNormContinuous``,
 has no ``to_add_out`` and no ``ff_context``, and comes back unchanged.
 Module names follow the released checkpoint. ``bounded``, the last forward
-argument, is the softmax form, as in the flux blocks.
+argument, is the softmax form, as in the flux blocks. The attention is an
+attention site (``models.attention_site``) calling this module's
+``_attention``, the flux blocks' function under this module's name.
 """
 
 from __future__ import annotations
 
 from torch import nn
 
-from ...ops.qk_norm_rope import Slot, qkv_heads
-from ..flux.blocks import (
+from ...ops.qk_norm_rope import Slot
+from ..attention_site import AttentionSite
+from ..flux.blocks import (  # noqa: F401 (_attention: the site's, by name)
     AdaLayerNormContinuous,
     AdaLayerNormZero,
     FeedForward,
     RMSNorm,
     _attention,
-    _capture,
-    _unheads,
     layer_norm,
 )
 
 __all__ = ["MMDiTJointAttention", "JointTransformerBlock"]
 
 
-class MMDiTJointAttention(nn.Module):
+class MMDiTJointAttention(AttentionSite):
     """Joint text+image attention: separate projections, one softmax over
-    [text; image]; no context output when ``context_pre_only``. ``capture``
-    and ``seam`` work as in the flux blocks."""
+    [text; image]; no context output when ``context_pre_only``."""
+
+    attention = (__name__, "_attention")
 
     def __init__(self, num_heads: int, head_dim: int, causal: bool = True,
                  context_pre_only: bool = False, **kw):
@@ -48,24 +50,17 @@ class MMDiTJointAttention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(d, d, **kw)])
         for name in ("norm_q", "norm_k", "norm_add_q", "norm_add_k"):
             setattr(self, name, RMSNorm(head_dim, **kw))
-        self.capture = None
-        self.seam = None
-        self.sp_group = None
 
     def forward(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
-        q, k, v = qkv_heads((
+        o = self.attend((
             Slot((self.add_q_proj(ctx), self.to_q(x)),
                  (self.norm_add_q, self.norm_q), rope=True),
             Slot((self.add_k_proj(ctx), self.to_k(x)),
                  (self.norm_add_k, self.norm_k), rope=True),
             Slot((self.add_v_proj(ctx), self.to_v(x)))),
-            self.num_heads, rope_cos, rope_sin)
+            time_ids, self.causal, self.head_dim, self.state.sp_group,
+            bounded, cos=rope_cos, sin=rope_sin)
         lt = ctx.shape[1]
-        if self.capture is not None:
-            _capture(self, q, k)
-        attend = _attention if self.seam is None else self.seam
-        o = _unheads(attend(q, k, v, time_ids, self.causal, self.head_dim,
-                            self.sp_group, bounded))
         x_o = self.to_out[0](o[:, lt:])
         if self.context_pre_only:
             return x_o, None

@@ -28,35 +28,31 @@ parameter's step is JAX's wherever the clip does not bind.
 
 The default config is the release architecture (24 blocks, 24 heads x 64,
 16 latent channels, patch 2, T5 dim 4096, pooled CLIP-L+G dim 2048).
-Precision, ``remat``, ``mesh`` (sequence parallelism) and
-``bounded_softmax`` (the softmax form of every attention) work as in the
-flux model; the last block is ``context_pre_only``, so under sp the local
-text tokens' outputs are junk that the gather at exit drops. Built on the
-CUDA device unless ``device=`` says otherwise.
+Precision, ``remat``, ``mesh`` (sequence parallelism),
+``bounded_softmax`` (the softmax form of every attention), the
+``dit.forward`` span and the CUDA graphs are the DiT shell's
+(``models.dit_base``), as in the flux model; the last block is
+``context_pre_only``, so under sp the local text tokens' outputs are junk
+that the gather at exit drops. Built on the CUDA device unless ``device=``
+says otherwise.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-from typing import Iterator, List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
-from ...ops.flash_attention import INVALID_TIME
-from ...ops.qk_norm_rope import composition
 from ...ops.rope import rope_freqs
-from ...parallel.sp import SeqShard, gather_seq
+from ...parallel.sp import gather_seq
 from ...utils.devices import model_device
-from ...utils.profiling import span
-from ..dit_graphs import ForwardGraphs
+from ..dit_base import DiTBase
 from ..flux.blocks import AdaLayerNormContinuous
-from ..flux.model import DIT_COUNTERS, TimestepTextEmbed, set_dit_mesh
-from . import blocks
+from ..flux.model import TimestepTextEmbed
 from .blocks import JointTransformerBlock
 
 __all__ = ["MMDiTConfig", "PyramidDiffusionMMDiT", "PatchEmbed",
@@ -161,7 +157,7 @@ class PatchEmbed(nn.Module):
         return x + bilinear_gather(table, y, xc).to(x.dtype)
 
 
-class PyramidDiffusionMMDiT(nn.Module):
+class PyramidDiffusionMMDiT(DiTBase):
     """SD3 MMDiT over packed tokens.
 
     forward inputs are ``PyramidFluxTransformer``'s (``latent_tokens`` of
@@ -177,13 +173,12 @@ class PyramidDiffusionMMDiT(nn.Module):
                  dtype: torch.dtype = torch.float32, device="cuda",
                  remat: bool = False, mesh=None,
                  bounded_softmax: bool = True):
-        super().__init__()
+        super().__init__(remat=remat, bounded_softmax=bounded_softmax,
+                         mesh=mesh)
         cfg = self.config = config
         if cfg.caption_projection_dim != cfg.inner_dim:
             raise ValueError("the joint blocks need caption_projection_dim "
                              "== num_attention_heads * attention_head_dim")
-        self.remat = remat
-        self.bounded_softmax = bounded_softmax
         kw = dict(dtype=dtype,
                   device=model_device(device, "PyramidDiffusionMMDiT"))
         d = cfg.inner_dim
@@ -202,22 +197,7 @@ class PyramidDiffusionMMDiT(nn.Module):
         # zero-initialised output, as the JAX model: a fresh DiT predicts 0
         nn.init.zeros_(self.proj_out.weight)
         nn.init.zeros_(self.proj_out.bias)
-        self.set_mesh(mesh)
-        self.graphs = ForwardGraphs(blocks)
-
-    def set_mesh(self, mesh) -> None:
-        """As ``PyramidFluxTransformer.set_mesh``."""
-        set_dit_mesh(self, self.attention_modules, mesh)
-
-    @property
-    def attention_modules(self) -> List[nn.Module]:
-        """Every block's attention."""
-        return [blk.attn for blk in self.transformer_blocks]
-
-    @property
-    def num_attention_calls(self) -> int:
-        """Attentions in one forward: one per block."""
-        return self.config.num_layers
+        self._share_sites()
 
     @property
     def latent_channels(self) -> int:
@@ -242,35 +222,6 @@ class PyramidDiffusionMMDiT(nn.Module):
         return (f"{last}.add_q_proj.weight", f"{last}.add_q_proj.bias",
                 f"{last}.norm_add_q.weight")
 
-    @contextlib.contextmanager
-    def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
-        """As ``PyramidFluxTransformer.capture_qk``: every attention appends
-        batch row 0's post-RoPE ``(q, k)`` to the yielded list."""
-        attns = self.attention_modules
-        captured: List[Tuple[torch.Tensor, torch.Tensor]] = []
-        for attn in attns:
-            attn.capture = captured
-        try:
-            with composition():
-                yield captured
-        finally:
-            for attn in attns:
-                attn.capture = None
-
-    def _run(self, block, *args):
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
-
-    def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
-                text_mask, pooled, timestep, pos_offset):
-        with span("dit.forward", counters=DIT_COUNTERS,
-                  rows=latent_tokens.shape[0],
-                  tokens=latent_tokens.shape[1]) as record:
-            return self.graphs(self, self._forward, (
-                latent_tokens, latent_pos, latent_time, text_emb, text_mask,
-                pooled, timestep, pos_offset), record)
-
     def _forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                  text_mask, pooled, timestep, pos_offset):
         b, lt = text_emb.shape[:2]
@@ -283,14 +234,8 @@ class PyramidDiffusionMMDiT(nn.Module):
                                        device=latent_pos.device),
                            latent_pos[..., :1].float()], dim=1)
         cos, sin = rope_freqs(t_pos, (self.config.attention_head_dim,))
-        text_time = torch.where(text_mask, 0, INVALID_TIME).to(torch.int32)
-        time_ids = torch.cat([text_time, latent_time.to(torch.int32)], dim=1)
-
-        shard = SeqShard.of(self.sp_group, lt, x.shape[1])
-        if shard is not None:
-            ctx, x = shard.split(ctx, x)
-            cos, sin = shard.local(cos, 1), shard.local(sin)
-            time_ids = shard.pad(time_ids, INVALID_TIME)
+        ctx, x, cos, sin, time_ids, shard = self._joint(
+            ctx, x, cos, sin, text_mask, latent_time)
         for block in self.transformer_blocks:
             x, ctx = self._run(block, x, ctx, temb, cos, sin, time_ids,
                                self.bounded_softmax)

@@ -17,9 +17,8 @@ run in the weights' dtype: the casts Wan's bf16 autocast makes, made here
 explicitly, because a serving forward runs outside autocast to be graphed
 (``models.dit_graphs``).
 
-Two attention calls per block, each a module-level function looked up at
-every call, so that a CUDA-graph replay calls them between its graphs and
-a wrapper set on the module sees them: :func:`_attention` (the flux
+Two attention sites per block (``models.attention_site``), each calling a
+module-level function of this module by name: :func:`_attention` (the flux
 blocks', self-attention) and :func:`_cross_attention`. A full-width RMS
 norm bounds one head's ``|q|`` only by ``sqrt(D) * max g``, so the bounded
 softmax's exactness argument (per-head norms) does not hold here: the DiT
@@ -36,9 +35,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.flash_attention import flash_attention, flash_fwd_cuda
-from ...ops.qk_norm_rope import Slot, qkv_heads
+from ...ops.qk_norm_rope import Slot
 from ...utils.profiling import span
-from ..flux.blocks import RMSNorm, _attention, _unheads, layer_norm
+from ..attention_site import AttentionSite
+from ..flux.blocks import (  # noqa: F401 (_attention: the site's, by name)
+    RMSNorm, _attention, layer_norm)
 
 __all__ = ["WanSelfAttention", "WanCrossAttention", "WanAttentionBlock",
            "CROSS_ATTN_LAUNCHES", "linear_fp32"]
@@ -75,10 +76,11 @@ def _modulate(x, shift, scale):
     return layer_norm(x) * (1 + scale) + shift
 
 
-class WanSelfAttention(nn.Module):
+class WanSelfAttention(AttentionSite):
     """Self-attention over the latent tokens: full-width qk RMS norms,
-    3-axis RoPE, time-id masking. ``seam`` works as in the flux blocks;
-    ``capture`` stays None (no telemetry reads this family)."""
+    3-axis RoPE, time-id masking."""
+
+    attention = (__name__, "_attention")
 
     def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, **kw):
         super().__init__()
@@ -87,23 +89,21 @@ class WanSelfAttention(nn.Module):
             setattr(self, name, nn.Linear(dim, dim, **kw))
         self.norm_q = RMSNorm(dim, eps, **kw)
         self.norm_k = RMSNorm(dim, eps, **kw)
-        self.capture = None
-        self.seam = None
 
     def forward(self, x, rope_cos, rope_sin, time_ids, bounded=False):
-        q, k, v = qkv_heads((
+        return self.o(self.attend((
             Slot((self.q(x),), (self.norm_q,), rope=True),
             Slot((self.k(x),), (self.norm_k,), rope=True),
-            Slot((self.v(x),))), self.num_heads, rope_cos, rope_sin)
-        attend = _attention if self.seam is None else self.seam
-        return self.o(_unheads(attend(q, k, v, time_ids, True,
-                                      self.head_dim, None, bounded)))
+            Slot((self.v(x),))),
+            time_ids, True, self.head_dim, None, bounded, cos=rope_cos,
+            sin=rope_sin))
 
 
-class WanCrossAttention(nn.Module):
+class WanCrossAttention(AttentionSite):
     """Latent queries against the embedded text: full-width qk RMS norms, no
-    RoPE, no mask. While the DiT captures its graphs, ``seam.cross`` stands
-    in for :func:`_cross_attention`."""
+    RoPE, no mask."""
+
+    attention = (__name__, "_cross_attention")
 
     def __init__(self, dim: int, num_heads: int, eps: float = 1e-6, **kw):
         super().__init__()
@@ -112,17 +112,13 @@ class WanCrossAttention(nn.Module):
             setattr(self, name, nn.Linear(dim, dim, **kw))
         self.norm_q = RMSNorm(dim, eps, **kw)
         self.norm_k = RMSNorm(dim, eps, **kw)
-        self.capture = None
-        self.seam = None
 
     def forward(self, x, ctx, time_q, time_kv, bounded=False):
-        q, k, v = qkv_heads((
+        return self.o(self.attend((
             Slot((self.q(x),), (self.norm_q,)),
             Slot((self.k(ctx),), (self.norm_k,)),
-            Slot((self.v(ctx),))), self.num_heads)
-        attend = _cross_attention if self.seam is None else self.seam.cross
-        return self.o(_unheads(attend(q, k, v, time_q, time_kv,
-                                      self.head_dim, bounded)))
+            Slot((self.v(ctx),))),
+            time_q, time_kv, self.head_dim, bounded))
 
 
 class WanAttentionBlock(nn.Module):

@@ -33,20 +33,21 @@ scale. It returns fp32 velocity tokens ``[B, L, 64]`` in the same layout.
   + e``.
 
 ``bounded_softmax`` defaults to False: the qk norms span all heads, so the
-bounded form's exactness argument does not hold (``blocks``). Each forward
-is a ``dit.forward`` span with ``rows``, ``tokens``, ``text_tokens``,
-``graph`` and the counters ``attn_launches`` (both attentions, 80 per
-forward at full depth on the card), ``cross_attn_launches`` (40) and
-``qk_launches`` (the fused q/k/v kernel, one per attention: 80). A
-serving forward replays CUDA graphs captured per layout, cut at each of its
-two attentions per block (``models.dit_graphs``); every other forward runs
-eagerly. One device only: a mesh with an sp or fsdp dim above 1 is refused.
+bounded form's exactness argument does not hold (``blocks``). The forward
+is the DiT shell's (``models.dit_base``): a ``dit.forward`` span with
+``rows``, ``tokens``, ``text_tokens``, ``graph`` and the counters
+``attn_launches`` (both attentions, 80 per forward at full depth on the
+card), ``cross_attn_launches`` (40) and ``qk_launches`` (the fused q/k/v
+kernel, one per attention: 80). A serving forward replays CUDA graphs
+captured per layout, cut at each of its two attentions per block
+(``models.dit_graphs``); every other forward runs eagerly. One device
+only: a mesh with an sp or fsdp dim above 1 is refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -55,16 +56,12 @@ from torch import nn
 from ...ops.rope import rope_freqs
 from ...parallel.mesh import SP_AXIS, mesh_dim
 from ...utils.devices import model_device
-from ...utils.profiling import span
-from ..dit_graphs import ForwardGraphs
+from ..dit_base import DIT_COUNTERS, DiTBase
 from ..flux.blocks import layer_norm
-from ..flux.model import DIT_COUNTERS, timestep_sinusoidal
-from . import blocks
+from ..flux.model import timestep_sinusoidal
 from .blocks import CROSS_ATTN_LAUNCHES, WanAttentionBlock, linear_fp32
 
 __all__ = ["WanConfig", "WanDiT"]
-
-_COUNTERS = {**DIT_COUNTERS, **CROSS_ATTN_LAUNCHES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,22 +107,23 @@ class _Head(nn.Module):
                            layer_norm(x, self.eps) * (1 + scale) + shift)
 
 
-class WanDiT(nn.Module):
+class WanDiT(DiTBase):
     """Wan2.1 T2V over packed tokens; see the module docstring."""
 
     model_name = "pyramid_wan"
+    span_counters = {**DIT_COUNTERS, **CROSS_ATTN_LAUNCHES}
 
     def __init__(self, config: WanConfig = WanConfig(), *,
                  dtype: torch.dtype = torch.float32, device="cuda",
                  mesh=None, bounded_softmax: bool = False):
-        super().__init__()
+        super().__init__(remat=False, bounded_softmax=bounded_softmax,
+                         mesh=mesh)
         cfg = self.config = config
         if tuple(cfg.patch_size) != (1, 2, 2):
             raise ValueError(f"the pyramid packs (1, 2, 2) patches; "
                              f"patch_size {cfg.patch_size}")
         if cfg.dim % cfg.num_heads:
             raise ValueError("dim must divide by num_heads")
-        self.bounded_softmax = bounded_softmax
         kw = dict(dtype=dtype, device=model_device(device, "WanDiT"))
         d = cfg.dim
         self.patch_embedding = nn.Conv3d(cfg.in_dim, d, cfg.patch_size,
@@ -144,8 +142,7 @@ class WanDiT(nn.Module):
         # zero-initialised output, as Wan's init_weights: a fresh DiT
         # predicts its bias
         nn.init.zeros_(self.head.head.weight)
-        self.set_mesh(mesh)
-        self.graphs = ForwardGraphs(blocks)
+        self._share_sites()
 
     def set_mesh(self, mesh) -> None:
         """One device only: refuses a mesh with an sp or fsdp dim above 1."""
@@ -154,18 +151,7 @@ class WanDiT(nn.Module):
             raise ValueError(
                 f"the Wan DiT runs on one device: it has no sequence "
                 f"parallelism or FSDP (mesh sp={sp}, fsdp={fsdp})")
-        self.sp_group = None
-
-    @property
-    def attention_modules(self) -> List[nn.Module]:
-        """Every block's self-attention, then its cross-attention."""
-        return [a for blk in self.blocks
-                for a in (blk.self_attn, blk.cross_attn)]
-
-    @property
-    def num_attention_calls(self) -> int:
-        """Attentions in one forward: two per block."""
-        return 2 * self.config.num_layers
+        super().set_mesh(mesh)
 
     @property
     def latent_channels(self) -> int:
@@ -176,14 +162,8 @@ class WanDiT(nn.Module):
         """The forward's inputs after ``timestep``: none."""
         return ()
 
-    def forward(self, latent_tokens, latent_pos, latent_time, text_emb,
-                text_mask, pooled, timestep):
-        with span("dit.forward", counters=_COUNTERS,
-                  rows=latent_tokens.shape[0], tokens=latent_tokens.shape[1],
-                  text_tokens=self.config.text_len) as record:
-            return self.graphs(self, self._forward, (
-                latent_tokens, latent_pos, latent_time, text_emb, text_mask,
-                pooled, timestep), record)
+    def _span_attrs(self) -> dict:
+        return {"text_tokens": self.config.text_len}
 
     def _forward(self, latent_tokens, latent_pos, latent_time, text_emb,
                  text_mask, pooled, timestep):

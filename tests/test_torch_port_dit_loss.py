@@ -155,5 +155,4 @@ def test_overshoot_probe_matches_jax(dits):
     assert 0 < ref < 100
     np.testing.assert_allclose(got, ref, atol=1e-3)
     # the capture is off again after the probe
-    assert all(blk.attn.capture is None for blk in
-               (*dit_t.transformer_blocks, *dit_t.single_transformer_blocks))
+    assert dit_t.sites.capture is None

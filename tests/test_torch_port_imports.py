@@ -19,8 +19,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "pyramid_flow_tpu")
 SOURCES = sorted((ROOT / "pyramid_flow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "profile_port.py",
-    ROOT / "time_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
 
 
 def forbidden_imports(source: str):

@@ -323,6 +323,11 @@ def test_train_step_and_capture_qk_ask_for_the_composition(family,
 
 # The attention modules' forwards as they were before the fused pass, to
 # hold the composition they still run to that code bit for bit.
+def _unheads(x):
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
+
+
 def _old_joint(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
     n = self.num_heads
     nq, nk = self.norm_q, self.norm_k
@@ -338,8 +343,8 @@ def _old_joint(self, x, ctx, rope_cos, rope_sin, time_ids, bounded=True):
     q = apply_rope(torch.cat([cq, q], dim=2), rope_cos, rope_sin)
     k = apply_rope(torch.cat([ck, k], dim=2), rope_cos, rope_sin)
     v = torch.cat([cv, v], dim=2)
-    o = flux_blocks._unheads(flux_blocks._attention(
-        q, k, v, time_ids, self.causal, self.head_dim, self.sp_group,
+    o = _unheads(flux_blocks._attention(
+        q, k, v, time_ids, self.causal, self.head_dim, self.state.sp_group,
         bounded))
     add_out = getattr(self, "to_add_out", None)
     return (self.to_out[0](o[:, lt:]),
@@ -353,8 +358,8 @@ def _old_single(self, x, rope_cos, rope_sin, time_ids, bounded=True):
     k = apply_rope(self.norm_k(split_heads(self.to_k(x), n)), rope_cos,
                    rope_sin)
     v = split_heads(self.to_v(x), n)
-    return flux_blocks._unheads(flux_blocks._attention(
-        q, k, v, time_ids, self.causal, self.head_dim, self.sp_group,
+    return _unheads(flux_blocks._attention(
+        q, k, v, time_ids, self.causal, self.head_dim, self.state.sp_group,
         bounded))
 
 
@@ -365,7 +370,7 @@ def _old_wan_self(self, x, rope_cos, rope_sin, time_ids, bounded=False):
     k = apply_rope(split_heads(self.norm_k(self.k(x)), n), rope_cos,
                    rope_sin)
     v = split_heads(self.v(x), n)
-    return self.o(flux_blocks._unheads(wan_blocks._attention(
+    return self.o(_unheads(wan_blocks._attention(
         q, k, v, time_ids, True, self.head_dim, None, bounded)))
 
 
@@ -374,7 +379,7 @@ def _old_wan_cross(self, x, ctx, time_q, time_kv, bounded=False):
     q = split_heads(self.norm_q(self.q(x)), n)
     k = split_heads(self.norm_k(self.k(ctx)), n)
     v = split_heads(self.v(ctx), n)
-    return self.o(flux_blocks._unheads(wan_blocks._cross_attention(
+    return self.o(_unheads(wan_blocks._cross_attention(
         q, k, v, time_q, time_kv, self.head_dim, bounded)))
 
 

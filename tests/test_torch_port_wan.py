@@ -12,9 +12,9 @@ On the CPU at tiny widths (dim 256, 2 heads of 128, 2 layers, text_len 16):
 * the published widths on the ``meta`` device: 14,288,491,584 parameters,
   and the model FLOPs the benchmark counts for them;
 * the defaults (``bounded_softmax`` False), the refusals (an sp or fsdp
-  mesh, too much text, the release-checkpoint loader), the span tree (one
-  ``wan.cross_attn`` per block in every ``dit.forward``) and the graph
-  seams (each block's self- then cross-attention, with their arguments);
+  mesh, too much text, the release-checkpoint loader) and the span tree
+  (one ``wan.cross_attn`` per block in every ``dit.forward``); the graph
+  seams are ``test_torch_port_dit_graphs.py``'s, for all three families;
 * the reference imports nothing of the program or of JAX.
 
 On the card (``gpu``, skipped without one): at reduced depth and head dim
@@ -44,8 +44,6 @@ from portbench.reference import t2v as ref_t2v  # noqa: E402
 from portbench.reference import wan as ref_wan  # noqa: E402
 from portbench.reference.dit import Precision  # noqa: E402
 from portbench.reference.pyramid import Layout  # noqa: E402
-from pyramid_flow_tpu_torch.models.dit_graphs import GRAPH_FORWARDS  # noqa
-from pyramid_flow_tpu_torch.models.wan import blocks as wan_blocks  # noqa
 from pyramid_flow_tpu_torch.models.wan.model import (  # noqa: E402
     WanConfig, WanDiT)
 from pyramid_flow_tpu_torch.ops.flash_attention import (  # noqa: E402
@@ -288,52 +286,6 @@ def test_span_tree_of_a_request():
         assert attrs["qk_launches"] == 0  # the CPU keeps the composition
 
 
-def test_seams_take_both_attentions():
-    """A capture's seam stands in for each block's self-attention, then its
-    cross-attention (``seam.cross``), with the arguments they take."""
-    d = _cfg_dict(**TINY)
-    dit = _seeded_dit(d)
-    lay = Layout(2, 1, 16, 16)
-    tokens, pos, times, emb, mask, t = _layout_inputs(
-        lay, d, torch.Generator().manual_seed(1))
-    args = (tokens, pos, times.int(), emb, mask, torch.zeros(2, 0), t)
-    calls = []
-
-    class Seam:
-        def __call__(self, q, k, v, time_ids, causal, head_dim, sp_group,
-                     bounded):
-            calls.append(("self", q.shape, k.shape, time_ids.shape, causal,
-                          bounded))
-            return wan_blocks._attention(q, k, v, time_ids, causal,
-                                         head_dim, sp_group, bounded)
-
-        def cross(self, q, k, v, time_q, time_kv, head_dim, bounded):
-            calls.append(("cross", q.shape, k.shape, time_kv.shape, False,
-                          bounded))
-            assert torch.equal(time_q, args[2])
-            assert not time_kv.any()
-            return wan_blocks._cross_attention(q, k, v, time_q, time_kv,
-                                               head_dim, bounded)
-
-    before = dict(GRAPH_FORWARDS)
-    with torch.no_grad():
-        want = dit(*args)
-        for attn in dit.attention_modules:
-            attn.seam = Seam()
-        try:
-            got = dit._forward(*args)
-        finally:
-            for attn in dit.attention_modules:
-                attn.seam = None
-    assert torch.equal(got, want)
-    assert GRAPH_FORWARDS == before  # the CPU bypasses the graphs
-    q = torch.Size((2, 2, lay.length, 128))
-    kv = torch.Size((2, 2, 16, 128))
-    assert calls == [
-        ("self", q, q, torch.Size((2, lay.length)), True, False),
-        ("cross", q, kv, torch.Size((2, 16)), False, False)] * 2
-
-
 @pytest.mark.parametrize("path", ["portbench/reference/wan.py",
                                   "portbench/traffic/t2v_closed_loop_wan.py"])
 def test_benchmark_files_import_no_jax(path):
@@ -412,5 +364,5 @@ def test_replay_is_the_eager_forward_bit_for_bit(cuda):
     assert len(captured) == 2
     for layout in captured:
         assert len(layout.graphs) == n + 1 and len(layout.seams) == n
-        assert [s.time_kv is not None for s in layout.seams] == [
-            False, True] * (n // 2)
+        assert [s.name for s in layout.seams] == [
+            "_attention", "_cross_attention"] * (n // 2)
