@@ -60,7 +60,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    q and k within ``QK_ULPS`` ulps of each rotated pair of the plain
    version (fp32, one rounding) and one more of the modules' composition,
    v bit-equal, one launch a site; timed beside the plain version and the
-   composition it replaced, with its bytes bound;
+   composition it replaced, with its bytes bound; then K8, the fused
+   residual update and LayerNorm (``ops/residual_norm.py``), at miniFLUX's
+   dual-block site (a bf16 stream of 2 x 3072 rows x 1536) and Wan's (an
+   fp32 stream of 2 x 2944 rows x 5120), each call the blocks make there
+   (``NORM_SITES``): the stream bit-equal to the plain version, h within
+   ``NORM_ULPS`` bf16 ulps (of the magnitude of its terms) of it and
+   ``NORM_COMPOSED_ULPS`` of the blocks' composition, one launch a call;
+   each site's first call (the attention's gated residual fused with the
+   MLP's modulated norm; Wan's with ``norm3``'s affine norm) timed the
+   same way, with its bytes bound;
 5. the experiment: ``pyramid_flow_tpu_torch.tools.exp_flash_h2.main`` in
    this process with ``--full`` (its checks, K1 and K6 at each hs timed at
    the 768p stage-2 layout, L=11008, then K1 and K6 at hs=2 again with
@@ -306,7 +315,8 @@ the same function, its rate (``tflops``) and ``bound_share`` (the least
 time over its time), at the 384x640 unit 15 stage 2 attention layout and
 at the 128->128 384x640 decode conv; K7 at miniFLUX's dual site, with its
 largest distance in ulps (``max_pair_ulps``), the composed chain's time
-(``composed_ms``) and no rate (its bound is bytes). Each time is that of the wrapper call
+(``composed_ms``) and no rate (its bound is bytes); K8 the same at
+miniFLUX's dual-block site (``max_term_ulps``). Each time is that of the wrapper call
 the paths make; the forwards also give ``kernel_ms``, the kernel's own
 device time. K3 and K4 share one ``ms``, the whole backward as the path
 calls it, with their own ``kernel_ms`` and the delta kernel's
@@ -365,6 +375,8 @@ from pyramid_flow_tpu_torch.models.vae.model import (
 from pyramid_flow_tpu_torch.ops import causal_conv3d as cc
 from pyramid_flow_tpu_torch.ops import flash_attention as fa
 from pyramid_flow_tpu_torch.ops import qk_norm_rope as qkr
+from pyramid_flow_tpu_torch.ops.composition import composition
+from pyramid_flow_tpu_torch.ops import residual_norm as rn
 from pyramid_flow_tpu_torch.ops.rope import rope_freqs
 from pyramid_flow_tpu_torch.pipeline.noising import (
     GeneratorDraws, add_ar_noise_stage, add_pyramid_noise_stage,
@@ -405,6 +417,8 @@ B, H, D = 2, 24, 64
 TEXT_LEN, TEXT_VALID = 128, 100   # the prompt's last 28 tokens are masked
 O_ATOL, LSE_ATOL, DIT_REL_L2 = 1e-2, 2e-3, 2e-2
 QK_ULPS = 1  # K7 against its plain version, in ulps of each rotated pair
+# K8 against its plain version and the composition, in bf16 ulps of h's terms
+NORM_ULPS, NORM_COMPOSED_ULPS = 1, 4
 GRAD_REL, DIT_GRAD_REL_L2 = 2e-2, 5e-2
 BWD_D128 = ("384x640 u15 s2", 12, 128)  # (layout, heads, head dim)
 TRAIN_BATCH, TRAIN_FRAMES, TRAIN_STEPS = 4, 16, 3
@@ -882,6 +896,133 @@ def qk_vs_plain(dev, reps=20):
             raise AssertionError(f"qk_norm_rope off its plain version: {r}")
         rows.append(r)
     return rows
+
+
+# K8's sites at the 384x640 request's unit 15 stage 2 (B = 2, the CFG
+# rows): the stream's dtype, its rows and width, and each call a block
+# makes there as (residual, norm): residual None, "gated" (x + gate * y) or
+# "plain" (x + y); norm None, "mod" (adaLN's modulation) or "affine" (a
+# LayerNorm's weight and bias). miniFLUX's dual-block stream: the
+# attention's residual with the MLP's norm, the block's first norm, the
+# MLP's residual; a Wan block: the self-attention's residual with norm3,
+# its first norm, the cross-attention's residual with the FFN's norm, the
+# FFN's residual. A site's first call is the one timed.
+NORM_SITES = dict(
+    flux_dual=(torch.bfloat16, 3072, 1536,
+               (("gated", "mod"), (None, "mod"), ("gated", None))),
+    wan=(torch.float32, 2944, 5120,
+         (("gated", "affine"), (None, "mod"), ("plain", "mod"),
+          ("gated", None))))
+NORM_TIMED_SITE = "flux_dual"
+
+
+def norm_operands(name, call, dev, seed):
+    """``(x, y, gate, norm)`` of ``call`` at K8's site ``name``: the stream
+    3 N(0, 1), the product's output y N(0, 1) in bf16, the gate and the
+    modulation 0.5 N(0, 1), chunks of one ``[B, 6, D]`` tensor in the
+    stream's dtype, as the blocks cut them; an affine norm's weight 1 + N(0,
+    0.2) and bias N(0, 0.2) in bf16, as Wan's ``norm3`` holds them; drawn
+    from a CPU generator of their own."""
+    g = torch.Generator().manual_seed(seed)
+    dtype, rows, width, _ = NORM_SITES[name]
+    residual, kind = call
+    x = (3 * torch.randn((B, rows, width), generator=g)).to(dev, dtype)
+    y = torch.randn((B, rows, width), generator=g).to(dev, torch.bfloat16)
+    mod = (0.5 * torch.randn((B, 6, width), generator=g)).to(
+        dev, dtype).chunk(6, dim=1)
+    norm = rn.Norm(mod[0], mod[1]) if kind == "mod" else None
+    if kind == "affine":
+        bias = 0.2 * torch.randn((width,), generator=g)
+        weight = 1 + 0.2 * torch.randn((width,), generator=g)
+        norm = rn.Norm(bias.to(dev, torch.bfloat16),
+                       weight.to(dev, torch.bfloat16), 1e-6, True)
+    return (x, y if residual else None, mod[2] if residual == "gated"
+            else None, norm)
+
+
+def term_ulps(got, want, x_out, norm, stream=None) -> float:
+    """The largest distance between two bf16 ``h`` in bf16 ulps of the
+    magnitude of its terms, ``|n * mul| + |add|`` (``n`` the normalised
+    stream; ``mul`` ``1 + scale``, an affine norm's weight): a sum that
+    cancels keeps its terms' rounding; with ``stream`` (``|x| + |gate *
+    y|``), normalised and scaled as the stream is, the residual's terms too
+    (the composition rounds the product before the sum and passes that on
+    to ``h``)."""
+    xf = x_out.float()
+    n = F.layer_norm(xf, xf.shape[-1:], eps=norm.eps)
+    mul = norm.scale.float() if norm.affine else 1 + norm.scale.float()
+    mag = (n * mul).abs() + norm.shift.float().abs()
+    if stream is not None:
+        rstd = torch.rsqrt(xf.var(-1, unbiased=False, keepdim=True)
+                           + norm.eps)
+        mag = mag + stream * rstd * mul.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return ((got.float() - want.float()).abs() / ulp).max().item()
+
+
+@torch.no_grad()
+def norm_vs_plain(dev, reps=20):
+    """K8 at miniFLUX's dual-block site and Wan's, every call the blocks
+    make there: ``x'`` bit-equal to the plain version
+    (``residual_norm_reference``), ``h`` within ``NORM_ULPS`` of it and
+    within ``NORM_COMPOSED_ULPS`` of the blocks' composition
+    (``residual_norm_composed``, which rounds more often); one launch per
+    call. A site's first call is timed as ``qk_vs_plain`` times K7, beside
+    the plain version and the composition it replaced; the bytes bound: x
+    and y read once, x' and h written once, at 3.35 TB/s."""
+    rows = []
+    for i, name in enumerate(NORM_SITES):
+        for j, call in enumerate(NORM_SITES[name][3]):
+            rows.append(norm_call_vs_plain(
+                dev, name, call, SEED + 10 + 10 * i + j, reps if j == 0
+                else 0))
+    return rows
+
+
+def norm_call_vs_plain(dev, name, call, seed, reps) -> dict:
+    """One call of ``norm_vs_plain``, timed where ``reps``."""
+    x, y, gate, norm = norm_operands(name, call, dev, seed)
+    before = rn.residual_norm_cuda.launches
+    got = rn.residual_norm(x, y, gate, norm, torch.bfloat16)
+    torch.cuda.synchronize()
+    launched = rn.residual_norm_cuda.launches - before
+    plain = rn.residual_norm_reference(x, y, gate, norm, torch.bfloat16)
+    r = dict(site=name, call="+".join(c or "none" for c in call),
+             rows=list(x.shape[:2]), width=x.shape[2], stream=str(x.dtype),
+             launches=launched, stream_bit_equal=torch.equal(got[0],
+                                                             plain[0]),
+             max_term_ulps=None, max_term_ulps_composed=None)
+    if norm is not None:
+        composed = rn.residual_norm_composed(x, y, gate, norm,
+                                             torch.bfloat16)
+        terms = x.float().abs()
+        if y is not None:
+            terms = terms + (y.float() if gate is None
+                             else gate.float() * y.float()).abs()
+        r.update(max_term_ulps=term_ulps(got[1], plain[1], plain[0], norm),
+                 max_term_ulps_composed=term_ulps(got[1], composed[1],
+                                                  plain[0], norm, terms))
+    if reps:
+        def kernel():
+            return rn.residual_norm_cuda(x, y, gate, norm, torch.bfloat16)
+
+        nbytes = x.numel() * (x.element_size() + (
+            x.element_size() + 2 if y is not None else 0)
+            + (2 if norm is not None else 0))
+        r.update(ms=cuda_ms(kernel, reps),
+                 kernel_ms=kernel_device_ms(kernel, reps, "residual_norm"),
+                 plain_ms=cuda_ms(lambda: rn.residual_norm_reference(
+                     x, y, gate, norm, torch.bfloat16), reps),
+                 composed_ms=cuda_ms(lambda: rn.residual_norm_composed(
+                     x, y, gate, norm, torch.bfloat16), reps),
+                 bytes=nbytes)
+        r["bound_ms"], r["bound_by"] = bound(0.0, nbytes)
+    log("residual_norm vs plain " + json.dumps(r))
+    if not (launched == 1 and r["stream_bit_equal"] and (norm is None or (
+            r["max_term_ulps"] <= NORM_ULPS
+            and r["max_term_ulps_composed"] <= NORM_COMPOSED_ULPS))):
+        raise AssertionError(f"residual_norm off its plain version: {r}")
+    return r
 
 
 def hn_vs_plain(q, k, v, t, causal, o_ref, lse_ref, name, reps, plain_ms,
@@ -1421,10 +1562,11 @@ def plain_attention_route(q, k, v, time_ids, *, causal, sm_scale, bounded):
 @contextlib.contextmanager
 def plain_route():
     """The DiTs on their plain version: the attention's
-    (``plain_attention_route``) and the q/k chain composed from the
-    modules (``qk_norm_rope.composition``) in place of K7."""
+    (``plain_attention_route``), and the q/k chain and the blocks' norms
+    and residuals composed (``ops.composition.composition``) in place of K7
+    and K8."""
     with mock.patch.object(par_sp, "flash_attention",
-                           plain_attention_route), qkr.composition():
+                           plain_attention_route), composition():
         yield
 
 
@@ -1448,13 +1590,15 @@ def fp32_forward(dit, inputs, **forward_kw):
 ROUTES = (("bounded", True), ("classic", False))
 
 
-def route_launches(bounded: bool, n: int, serving: bool = True) -> dict:
+def route_launches(bounded: bool, n: int, serving: bool = True,
+                   norms: int = 0) -> dict:
     """``expected``'s keywords for ``n`` attentions on a DiT's route: K1's
     launches on the bounded softmax, K2's on the classic one, and in a
-    serving forward (no autograd) K7's, one per attention; training
-    composes the q/k chain (K7 has no backward)."""
+    serving forward (no autograd) K7's, one per attention, and K8's,
+    ``norms`` (``num_norm_calls`` per forward); training composes the q/k
+    chain and the norms (neither kernel has a backward)."""
     return dict(fwd=n if bounded else 0, classic=0 if bounded else n,
-                qk=n if serving else 0)
+                qk=n if serving else 0, norm=norms if serving else 0)
 
 
 @torch.no_grad()
@@ -1480,7 +1624,8 @@ def dit_routes(dit, inputs, lat_time, **forward_kw):
             before = launch_counts()
             out = dit(*inputs, **forward_kw)
             torch.cuda.synchronize()
-            want = expected(**route_launches(bounded, n))
+            want = expected(**route_launches(bounded, n,
+                                             norms=dit.num_norm_calls))
             if counted(before) != want:
                 raise AssertionError(f"{name} forward launches "
                                      f"{counted(before)}, expected {want}")
@@ -1598,7 +1743,8 @@ def launch_counts() -> dict:
     ``flash_fwd_classic`` the classic one (K2, the DiTs' classic-softmax
     route), ``flash_fwd_hn`` the heads-per-block forward (K6), which only
     the ``exp_flash_h2`` tool runs, ``qk_norm_rope`` the fused q/k/v pass
-    (K7; a graph replay adds the launches its graphs hold)."""
+    (K7) and ``residual_norm`` the fused residual update and LayerNorm (K8;
+    a graph replay adds the launches its graphs hold of each)."""
     classic = fa.flash_fwd_cuda.classic_launches
     return {"flash_fwd": fa.flash_fwd_cuda.launches - classic,
             "flash_fwd_classic": classic,
@@ -1606,7 +1752,8 @@ def launch_counts() -> dict:
             "flash_bwd_dq": fa.flash_bwd_cuda.dq_launches,
             "causal_conv3d": cc.causal_conv3d_cuda.launches,
             "flash_fwd_hn": fa.flash_fwd_hn_cuda.launches,
-            "qk_norm_rope": qkr.qk_norm_rope_cuda.launches}
+            "qk_norm_rope": qkr.qk_norm_rope_cuda.launches,
+            "residual_norm": rn.residual_norm_cuda.launches}
 
 
 def reset_launch_counts():
@@ -1617,14 +1764,15 @@ def reset_launch_counts():
     cc.causal_conv3d_cuda.launches = 0
     fa.flash_fwd_hn_cuda.launches = 0
     qkr.qk_norm_rope_cuda.launches = 0
+    rn.residual_norm_cuda.launches = 0
 
 
-def expected(fwd=0, bwd=0, conv=0, hn=0, classic=0, qk=0) -> dict:
+def expected(fwd=0, bwd=0, conv=0, hn=0, classic=0, qk=0, norm=0) -> dict:
     """Launch counts of a path: ``fwd`` of K1, ``classic`` of K2, ``bwd`` of
-    each backward kernel, ``qk`` of K7."""
+    each backward kernel, ``qk`` of K7, ``norm`` of K8."""
     return {"flash_fwd": fwd, "flash_fwd_classic": classic,
             "flash_bwd_dkv": bwd, "flash_bwd_dq": bwd, "causal_conv3d": conv,
-            "flash_fwd_hn": hn, "qk_norm_rope": qk}
+            "flash_fwd_hn": hn, "qk_norm_rope": qk, "residual_norm": norm}
 
 
 def counted(before: dict) -> dict:
@@ -1669,7 +1817,7 @@ def dit_grad_check(dit, dev, gen, stage=2, noise_stage=ar_noise_stage):
     def backward():
         # K7 has no backward: the q/k chain composed, as the train step has
         dit.zero_grad(set_to_none=True)
-        with qkr.composition():
+        with composition():
             with torch.autocast("cuda", dtype=torch.bfloat16):
                 pred = dit(tokens, pos, times, batch["text_emb"],
                            batch["text_mask"], batch["pooled"],
@@ -2047,7 +2195,7 @@ def serve(pipe, dev, gen, name, temp, bench=False):
     makes it, the DiT released before the decode, which frees its memory
     where the pipeline is its only holder; the pipeline then has no DiT."""
     cfg, n = pipe.dit.config, pipe.dit.num_attention_calls
-    bounded = pipe.dit.bounded_softmax
+    bounded, norms = pipe.dit.bounded_softmax, pipe.dit.num_norm_calls
     emb = torch.randn((1, TEXT_LEN, cfg.joint_attention_dim), generator=gen,
                       device=dev).to(pipe.dtype)
     mask = (text_time(dev) == 0)[None]
@@ -2081,7 +2229,8 @@ def serve(pipe, dev, gen, name, temp, bench=False):
         wall = time.perf_counter() - t0
     launched = counted(before)
     windows = len(vae_model._window_starts(n_latent, DECODE_WINDOW, 1))
-    want = expected(**route_launches(bounded, n * forwards),
+    want = expected(**route_launches(bounded, n * forwards,
+                                     norms=norms * forwards),
                     conv=kernel_conv_count(pipe.vae.decoder) * windows)
     check_request(frames, seen, launched, want, n_latent)
     r = dict(request=name, temp=temp, frame_per_unit=pipe.frame_per_unit,
@@ -2180,7 +2329,8 @@ def serve_i2v(pipe, dev, image, temp=I2V_TEMP, name="i2v"):
     launched = counted(before)
     windows = len(vae_model._window_starts(n_latent, DECODE_WINDOW, 1))
     want = expected(**route_launches(
-        True, pipe.dit.num_attention_calls * forwards), conv=(
+        True, pipe.dit.num_attention_calls * forwards,
+        norms=pipe.dit.num_norm_calls * forwards), conv=(
         kernel_conv_count(pipe.vae.encoder)
         + kernel_conv_count(pipe.vae.decoder) * windows))
     check_request(frames, seen, launched, want, n_latent)
@@ -2743,7 +2893,8 @@ def checkpoint_path(pipe, dev, paths):
             launch_counts()
         windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
         want = expected(**route_launches(
-            True, runner.pipeline.dit.num_attention_calls * sum(STEPS)),
+            True, runner.pipeline.dit.num_attention_calls * sum(STEPS),
+            norms=runner.pipeline.dit.num_norm_calls * sum(STEPS)),
             conv=kernel_conv_count(runner.pipeline.vae.decoder) * windows)
         check_request(frames, seen, launched, want, 1)
         r = dict(request="checkpoint", prompt=TEXT_PROMPT, temp=1,
@@ -2856,7 +3007,8 @@ def http_serving(dev, paths):
         windows = len(vae_model._window_starts(HTTP_T2V_TEMP,
                                                DECODE_WINDOW, 1))
         want = expected(**route_launches(
-            True, pipe.dit.num_attention_calls * forwards),
+            True, pipe.dit.num_attention_calls * forwards,
+            norms=pipe.dit.num_norm_calls * forwards),
             conv=kernel_conv_count(pipe.vae.decoder) * windows)
         t2v = dict(request="HTTP T2V", status=status, content_type=ctype,
                    frames=list(frames.shape), wall_s=t2v_wall,
@@ -2894,7 +3046,8 @@ def http_serving(dev, paths):
         windows = len(vae_model._window_starts(HTTP_I2V_TEMP,
                                                DECODE_WINDOW, 1))
         want = expected(**route_launches(
-            True, pipe.dit.num_attention_calls * forwards), conv=(
+            True, pipe.dit.num_attention_calls * forwards,
+            norms=pipe.dit.num_norm_calls * forwards), conv=(
             kernel_conv_count(pipe.vae.encoder)
             + kernel_conv_count(pipe.vae.decoder) * windows))
         i2v = dict(request="HTTP I2V", status=status, content_type=ctype,
@@ -3109,7 +3262,8 @@ def mmdit_text_request(pipe, dev, paths):
     paths["MMDiT from text, string prompt"] = launched = launch_counts()
     windows = len(vae_model._window_starts(1, DECODE_WINDOW, 1))
     want = expected(**route_launches(
-        True, pipe.dit.num_attention_calls * sum(STEPS)),
+        True, pipe.dit.num_attention_calls * sum(STEPS),
+        norms=pipe.dit.num_norm_calls * sum(STEPS)),
         conv=kernel_conv_count(pipe.vae.decoder) * windows)
     check_request(frames, seen, launched, want, 1)
     r = dict(request="mmdit text", prompt=TEXT_PROMPT, temp=1,
@@ -3363,11 +3517,19 @@ def sp_serving_phase(dev, mesh) -> dict:
             video_num_inference_steps=SP_SERVE_STEPS, guidance_scale=7.0,
             video_guidance_scale=5.0, output_type="pixels")
 
+    # each forward's shard of this rank: its text and image tokens
+    shards, split = [], par_sp.SeqShard.split
+
+    def spy(shard, ctx, x):
+        shards.append((shard.text_local, shard.chunk - shard.text_local))
+        return split(shard, ctx, x)
+
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     t0 = time.perf_counter()
-    frames_sp = request()
+    with mock.patch.object(par_sp.SeqShard, "split", spy):
+        frames_sp = request()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launched = launch_counts()
@@ -3378,8 +3540,17 @@ def sp_serving_phase(dev, mesh) -> dict:
     diff = (frames_sp.float() - frames_1.float()).abs()
     forwards = sum(SP_SERVE_STEPS)
     windows = len(vae_model._window_starts(SP_SERVE_TEMP, DECODE_WINDOW, 1))
+    if len(shards) != forwards:
+        raise AssertionError(f"SP shards {shards}: {forwards} forwards")
+    # K8 launches only on rows: where this rank's text (image) shard is
+    # empty, the dual blocks' text (image) stream runs on no rows
+    text_norms, image_norms = (
+        sum(getattr(blk, name).NORM_CALLS for blk in dit.transformer_blocks)
+        for name in ("norm1_context", "norm1"))
+    norms = sum(dit.num_norm_calls - (0 if text else text_norms)
+                - (0 if image else image_norms) for text, image in shards)
     want = expected(**route_launches(True, dit.num_attention_calls
-                                     * forwards),
+                                     * forwards, norms=norms),
                     conv=kernel_conv_count(vae.decoder) * windows)
     res = dict(card=card_line(), sp=group_size(mesh, "sp"),
                steps=SP_SERVE_STEPS, temp=SP_SERVE_TEMP,
@@ -3390,7 +3561,8 @@ def sp_serving_phase(dev, mesh) -> dict:
                k1_launches=launched["flash_fwd"],
                frames=list(frames_sp.shape),
                frames_mean_abs_diff=diff.mean().item(),
-               frames_max_abs_diff=diff.max().item(), launches=launched)
+               frames_max_abs_diff=diff.max().item(),
+               shards=shards, launches=launched)
     rank_log("SP serving " + json.dumps(res))
     if fwd_rel > DIT_REL_L2:
         raise AssertionError(f"SP DiT forward off the sp=1 forward: {res}")
@@ -4004,7 +4176,8 @@ def request_768p(dit, vae, dev, gen) -> dict:
     strip_w = P768_PLAN.px_window_budget // (2 * hl)
     tile_w, wpos = vae_model.plan_axis(wl, strip_w)
     want = expected(**route_launches(True, dit.num_attention_calls
-                                     * forwards),
+                                     * forwards,
+                                     norms=dit.num_norm_calls * forwards),
                     conv=decode_launches(vae, P768_TEMP, 2, len(wpos)))
     expect = (1, 1 + 8 * (P768_TEMP - 1), height, width, 3)
     if tuple(frames.shape) != expect or frames.dtype != torch.uint8:
@@ -4263,7 +4436,8 @@ def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
             calls * (dit.num_attention_calls + 1), classic=calls,
             conv=2 * decode_launches(vae, profile_768p.FRAMES,
                                      plan.untiled_window),
-            qk=calls * dit.num_attention_calls)
+            qk=calls * dit.num_attention_calls,
+            norm=calls * dit.num_norm_calls)
         if launched != want:
             raise AssertionError(f"profile_768p launches {launched}, "
                                  f"expected {want}")
@@ -4321,14 +4495,15 @@ def phase_768p(dev, meta_pipe, paths: dict, kgen) -> dict:
 
 
 def build_libraries():
-    """The five kernel libraries, one nvcc each, started together."""
+    """The six kernel libraries, one nvcc each, started together."""
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         libs = {"flash_fwd": pool.submit(fa.kernel_library),
                 "flash_bwd": pool.submit(fa.bwd_kernel_library),
                 "causal_conv3d": pool.submit(cc.kernel_library),
                 "flash_fwd_hn": pool.submit(fa.hn_kernel_library),
-                "qk_norm_rope": pool.submit(qkr.kernel_library)}
+                "qk_norm_rope": pool.submit(qkr.kernel_library),
+                "residual_norm": pool.submit(rn.kernel_library)}
         libs = {name: f.result() for name, f in libs.items()}
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
@@ -4375,6 +4550,7 @@ def main() -> int:
     hn_empty_rows(dev, kgen)
     bwd_checks = bwd_vs_plain(meta_pipe, dev, kgen)
     qk_checks = qk_vs_plain(dev)
+    norm_checks = norm_vs_plain(dev)
     paths = {"exp_flash_h2 tool": tool_path()}
 
     t0 = time.perf_counter()
@@ -4484,6 +4660,8 @@ def main() -> int:
     ctimed = next(r for r in conv_checks if "plain_ms" in r)
     hn_timed = next(r for r in hn_checks if "ms" in r and r["causal"])
     qk_timed = next(r for r in qk_checks if r["site"] == QK_TIMED_SITE)
+    norm_timed = next(r for r in norm_checks
+                      if r["site"] == NORM_TIMED_SITE and "ms" in r)
     # operations of each timed call, for the rate
     conv_flops = conv_bound(*TIMED_CONV)[0]
     flops = {"flash_fwd": timed["flops"], "flash_fwd_classic": classic["flops"],
@@ -4493,8 +4671,10 @@ def main() -> int:
     def own_ms(e):
         # K3 and K4 share one ``ms``, the whole backward as the path calls
         # it; their rate and share of the bound are of their own time, and
-        # so is K7's, whose wrapper calls back to back the host paces
-        own = e["name"].startswith("flash_bwd") or e["name"] == "qk_norm_rope"
+        # so are K7's and K8's, whose wrapper calls back to back the host
+        # paces
+        own = (e["name"].startswith("flash_bwd")
+               or e["name"] in ("qk_norm_rope", "residual_norm"))
         return e["kernel_ms"] if own and e["kernel_ms"] else e["ms"]
 
     log(json.dumps({"kernels": [dict(
@@ -4607,6 +4787,24 @@ def main() -> int:
         "composed_ms": qk_timed["composed_ms"],
         "bound_ms": qk_timed["bound_ms"],
         "bound_by": qk_timed["bound_by"],
+        "library_ms": None,
+    }, {
+        # no TPU kernel: XLA fuses the JAX blocks' gated residual,
+        # LayerNorm and modulation; ``composed_ms`` is the chain it replaced
+        "name": "residual_norm",
+        "route": "cuda",
+        "source": "pyramid_flow_tpu_torch/csrc/residual_norm.cu",
+        "replaces": "pyramid_flow_tpu/models/flux/blocks.py:271",
+        "launches": total["residual_norm"],
+        "max_term_ulps": max(r["max_term_ulps"] for r in norm_checks
+                             if r["max_term_ulps"] is not None),
+        "site": norm_timed["site"],
+        "ms": norm_timed["ms"],
+        "kernel_ms": norm_timed["kernel_ms"],
+        "plain_ms": norm_timed["plain_ms"],
+        "composed_ms": norm_timed["composed_ms"],
+        "bound_ms": norm_timed["bound_ms"],
+        "bound_by": norm_timed["bound_by"],
         "library_ms": None,
     }]]}))
     log(json.dumps({"ok": True, "device": {

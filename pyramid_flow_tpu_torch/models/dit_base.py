@@ -21,7 +21,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import FORWARD_LAUNCHES, INVALID_TIME
-from ..ops.qk_norm_rope import QK_LAUNCHES, composition
+from ..ops.composition import composition
+from ..ops.qk_norm_rope import QK_LAUNCHES
+from ..ops.residual_norm import NORM_LAUNCHES
 from ..parallel.mesh import SP_AXIS, mesh_dim
 from ..parallel.sp import SeqShard
 from ..utils.profiling import span
@@ -30,8 +32,9 @@ from .dit_graphs import ForwardGraphs
 
 __all__ = ["DiTBase", "DIT_COUNTERS"]
 
-# a ``dit.forward`` span's counters: flash-forward and fused q/k/v launches
-DIT_COUNTERS = {**FORWARD_LAUNCHES, **QK_LAUNCHES}
+# a ``dit.forward`` span's counters: flash-forward, fused q/k/v and fused
+# residual-norm launches
+DIT_COUNTERS = {**FORWARD_LAUNCHES, **QK_LAUNCHES, **NORM_LAUNCHES}
 
 
 class DiTBase(nn.Module):
@@ -73,14 +76,20 @@ class DiTBase(nn.Module):
         """Attentions in one forward: one per site."""
         return len(self.attention_modules)
 
+    @property
+    def num_norm_calls(self) -> int:
+        """Fused residual norms (``ops.residual_norm``) in one forward: the
+        ``NORM_CALLS`` of each module whose class names them."""
+        return sum(getattr(m, "NORM_CALLS", 0) for m in self.modules())
+
     @contextlib.contextmanager
     def capture_qk(self) -> Iterator[List[Tuple[torch.Tensor, torch.Tensor]]]:
         """Within the block, every attention appends batch row 0's post-RoPE
         ``(q, k)`` ``[1, H, L, D]`` to the yielded list, in call order.
         Capture without autograd: under ``remat`` a block's recompute in the
-        backward would append again. The attentions run the composed q/k
-        chain (``ops.qk_norm_rope.composition``), whatever the DiT's dtype
-        (the telemetry probe also reads a training DiT's fp32 masters)."""
+        backward would append again. The blocks run the composed chains
+        (``ops.composition.composition``), whatever the DiT's dtype (the
+        telemetry probe also reads a training DiT's fp32 masters)."""
         self.sites.capture = captured = []
         try:
             with composition():

@@ -17,13 +17,13 @@ up at each call. So the hand-written flash forward is launched, counted
 (``flash_fwd_cuda.launches``) and wrapped as in an eager forward,
 ``num_attention_calls`` times per forward, whatever the family. Each
 attention's q, k and v come from the fused kernel of ``ops.qk_norm_rope``,
-recorded in the graph before its seam; a replay adds the launches its
-graphs hold to ``qk_norm_rope_cuda.launches``, so the count is the kernels
-that ran.
+and each block's norms and residuals from that of ``ops.residual_norm``,
+recorded in the graphs; a replay adds the launches its graphs hold to each
+kernel's ``launches``, so the counts are the kernels that ran.
 
 When: a forward is graphed only on CUDA tensors, with autograd off (no_grad
 or inference mode), outside autocast, without an sp group, with no
-``capture_qk`` and no ``qk_norm_rope.composition()`` open, and on a stream
+``capture_qk`` and no ``ops.composition.composition()`` open, and on a stream
 that is not capturing already (:func:`bypass_reason`). Every other forward
 (training, telemetry, Ulysses SP, reference forwards, the CPU) runs the
 eager body as it is. Of the forwards that may be
@@ -52,9 +52,14 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.qk_norm_rope import composing, qk_norm_rope_cuda
+from ..ops.composition import composing
+from ..ops.qk_norm_rope import qk_norm_rope_cuda
+from ..ops.residual_norm import residual_norm_cuda
 
 __all__ = ["ForwardGraphs", "GRAPH_FORWARDS", "bypass_reason"]
+
+# the hand-written kernels a graph records, whose launches a replay counts
+COUNTED = (qk_norm_rope_cuda, residual_norm_cuda)
 
 # forwards that could be graphed, by how they ran: replayed (graphs that
 # existed), captured (then replayed) and eager (a layout's first)
@@ -73,7 +78,7 @@ def bypass_reason(dit, tokens: torch.Tensor) -> Optional[str]:
     if dit.sites.capture is not None:
         return "capture_qk"
     if composing():
-        return "composition"  # a graph would keep the composed q/k chain
+        return "composition"  # a graph would keep the composed chains
     if not tokens.is_cuda:
         return "device"
     if torch.cuda.is_current_stream_capturing():
@@ -101,7 +106,7 @@ class _Layout:
     graphs: List = dataclasses.field(default_factory=list)
     seams: List[_Seam] = dataclasses.field(default_factory=list)
     out: Optional[torch.Tensor] = None
-    qk_launches: int = 0  # fused q/k/v kernels the graphs hold
+    launches: Tuple[int, ...] = ()  # of each COUNTED kernel, the graphs
 
 
 class _Capture:
@@ -221,7 +226,7 @@ class ForwardGraphs:
                        self.buffer(("input", i), a.shape, a.dtype, device)
                        for i, a in enumerate(args))
         capture = _Capture(self)
-        captured = qk_norm_rope_cuda.captured
+        captured = [kernel.captured for kernel in COUNTED]
         with dit.sites.seamed(capture), torch.cuda.stream(self.stream):
             try:
                 capture.begin()
@@ -232,7 +237,8 @@ class ForwardGraphs:
                 raise
         layout.inputs, layout.out = inputs, out
         layout.graphs, layout.seams = capture.graphs, capture.seams
-        layout.qk_launches = qk_norm_rope_cuda.captured - captured
+        layout.launches = tuple(kernel.captured - n
+                                for kernel, n in zip(COUNTED, captured))
 
     def _replay(self, layout: _Layout, args) -> torch.Tensor:
         for static, a in zip(layout.inputs, args):
@@ -242,5 +248,6 @@ class ForwardGraphs:
             graph.replay()
             s.o.copy_(getattr(s.module, s.name)(s.q, s.k, s.v, *s.rest))
         layout.graphs[-1].replay()
-        qk_norm_rope_cuda.launches += layout.qk_launches
+        for kernel, n in zip(COUNTED, layout.launches):
+            kernel.launches += n
         return layout.out.clone()

@@ -16,6 +16,11 @@ this rank's shard of the joint sequence, and :func:`_attention` is Ulysses'
 :func:`~pyramid_flow_tpu_torch.parallel.sp.sp_flash_attention` over the
 DiT's sp group.
 
+Each block's LayerNorms with their adaLN modulation, and its gated
+residual updates, go through ``ops.residual_norm.residual_norm``, one
+launch of its fused kernel per call on the card: a stream's first norm,
+then each residual fused with the norm after it.
+
 Every block and attention module takes ``bounded`` as its last forward
 argument, the softmax form of its attention: the bounded forward (True, the
 default) or the classic online softmax. The DiT passes its
@@ -29,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...ops.qk_norm_rope import Slot
+from ...ops.residual_norm import Norm, residual_norm
 from ...parallel.sp import sp_flash_attention
 from ..attention_site import AttentionSite
 
@@ -50,6 +56,12 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return F.layer_norm(x.float(), x.shape[-1:], eps=eps).to(x.dtype)
 
 
+def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor
+             ) -> torch.Tensor:
+    """``layer_norm(x) * (1 + scale) + shift``, one pass on the card."""
+    return residual_norm(x, norm=Norm(shift, scale))[1]
+
+
 class RMSNorm(nn.Module):
     """Per-head-dim RMS norm with fp32 math."""
 
@@ -69,6 +81,11 @@ class AdaLayerNormZero(nn.Module):
     shift_mlp, scale_mlp, gate_mlp); returns LN(x)*(1+scale)+shift and the
     rest, each [B, 1, D]."""
 
+    # the fused residual norms of the stream it modulates, per forward of
+    # its block (``DiTBase.num_norm_calls``): this norm, the attention's
+    # residual with the MLP's norm, the MLP's residual
+    NORM_CALLS = 3
+
     def __init__(self, dim: int, **kw):
         super().__init__()
         self.linear = nn.Linear(dim, 6 * dim, **kw)
@@ -76,12 +93,13 @@ class AdaLayerNormZero(nn.Module):
     def forward(self, x, temb):
         emb = self.linear(F.silu(temb))[:, None]
         shift, scale, gate, shift_mlp, scale_mlp, gate_mlp = emb.chunk(6, -1)
-        return (layer_norm(x) * (1 + scale) + shift, gate, shift_mlp,
-                scale_mlp, gate_mlp)
+        return modulate(x, shift, scale), gate, shift_mlp, scale_mlp, gate_mlp
 
 
 class AdaLayerNormZeroSingle(nn.Module):
     """Three-way modulation (shift, scale, gate) for single-stream blocks."""
+
+    NORM_CALLS = 2  # this norm and the block's gated residual
 
     def __init__(self, dim: int, **kw):
         super().__init__()
@@ -89,12 +107,14 @@ class AdaLayerNormZeroSingle(nn.Module):
 
     def forward(self, x, temb):
         shift, scale, gate = self.linear(F.silu(temb))[:, None].chunk(3, -1)
-        return layer_norm(x) * (1 + scale) + shift, gate
+        return modulate(x, shift, scale), gate
 
 
 class AdaLayerNormContinuous(nn.Module):
     """Final-layer AdaLN. Its chunks are (scale, shift), the opposite order
     of AdaLayerNormZero."""
+
+    NORM_CALLS = 1
 
     def __init__(self, dim: int, **kw):
         super().__init__()
@@ -102,7 +122,7 @@ class AdaLayerNormContinuous(nn.Module):
 
     def forward(self, x, temb):
         scale, shift = self.linear(F.silu(temb))[:, None].chunk(2, -1)
-        return layer_norm(x) * (1 + scale) + shift
+        return modulate(x, shift, scale)
 
 
 class _GeluProj(nn.Module):
@@ -221,13 +241,12 @@ class FluxTransformerBlock(nn.Module):
         x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids,
                                      bounded)
 
-        x = x + gate * x_attn
-        h = layer_norm(x) * (1 + scale_mlp) + shift_mlp
-        x = x + gate_mlp * self.ff(h)
+        x, h = residual_norm(x, x_attn, gate, Norm(shift_mlp, scale_mlp))
+        x, _ = residual_norm(x, self.ff(h), gate_mlp)
 
-        ctx = ctx + c_gate * ctx_attn
-        hc = layer_norm(ctx) * (1 + c_scale_mlp) + c_shift_mlp
-        ctx = ctx + c_gate_mlp * self.ff_context(hc)
+        ctx, hc = residual_norm(ctx, ctx_attn, c_gate,
+                                Norm(c_shift_mlp, c_scale_mlp))
+        ctx, _ = residual_norm(ctx, self.ff_context(hc), c_gate_mlp)
         return x, ctx
 
 
@@ -249,4 +268,5 @@ class FluxSingleTransformerBlock(nn.Module):
         nx, gate = self.norm(x, temb)
         mlp = F.gelu(self.proj_mlp(nx), approximate="tanh")
         attn = self.attn(nx, rope_cos, rope_sin, time_ids, bounded)
-        return x + gate * self.proj_out(torch.cat([attn, mlp], dim=-1))
+        return residual_norm(
+            x, self.proj_out(torch.cat([attn, mlp], dim=-1)), gate)[0]

@@ -41,8 +41,10 @@ The forward, ``set_mesh``, ``capture_qk``, ``remat`` and the attention
 sites are the DiT shell's (``models.dit_base``): each forward is a
 ``dit.forward`` span (``utils.profiling.span``) with its rows, tokens,
 flash-forward launches, fused q/k/v launches (``qk_launches``: one per
-attention in a serving forward, ``ops.qk_norm_rope``) and ``graph``, how it
-ran. A serving forward (autograd off, on the card) replays CUDA graphs
+attention in a serving forward, ``ops.qk_norm_rope``), fused residual-norm
+launches (``norm_launches``: three per stream of a dual block, two per
+single block and one for ``norm_out``, 191 at the release depth,
+``ops.residual_norm``) and ``graph``, how it ran. A serving forward (autograd off, on the card) replays CUDA graphs
 captured for its layout, cut at every attention (``models.dit_graphs``);
 every other forward runs eagerly.
 """

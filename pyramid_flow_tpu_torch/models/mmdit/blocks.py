@@ -8,7 +8,8 @@ has no ``to_add_out`` and no ``ff_context``, and comes back unchanged.
 Module names follow the released checkpoint. ``bounded``, the last forward
 argument, is the softmax form, as in the flux blocks. The attention is an
 attention site (``models.attention_site``) calling this module's
-``_attention``, the flux blocks' function under this module's name.
+``_attention``, the flux blocks' function under this module's name; the
+norms and residuals go through ``ops.residual_norm``, as the flux blocks'.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from __future__ import annotations
 from torch import nn
 
 from ...ops.qk_norm_rope import Slot
+from ...ops.residual_norm import Norm, residual_norm
 from ..attention_site import AttentionSite
 from ..flux.blocks import (  # noqa: F401 (_attention: the site's, by name)
     AdaLayerNormContinuous,
@@ -23,7 +25,6 @@ from ..flux.blocks import (  # noqa: F401 (_attention: the site's, by name)
     FeedForward,
     RMSNorm,
     _attention,
-    layer_norm,
 )
 
 __all__ = ["MMDiTJointAttention", "JointTransformerBlock"]
@@ -96,13 +97,12 @@ class JointTransformerBlock(nn.Module):
         x_attn, ctx_attn = self.attn(nx, nc, rope_cos, rope_sin, time_ids,
                                      bounded)
 
-        x = x + gate * x_attn
-        h = layer_norm(x) * (1 + scale_mlp) + shift_mlp
-        x = x + gate_mlp * self.ff(h)
+        x, h = residual_norm(x, x_attn, gate, Norm(shift_mlp, scale_mlp))
+        x, _ = residual_norm(x, self.ff(h), gate_mlp)
         if self.context_pre_only:
             return x, ctx
 
-        ctx = ctx + c_gate * ctx_attn
-        hc = layer_norm(ctx) * (1 + c_scale_mlp) + c_shift_mlp
-        ctx = ctx + c_gate_mlp * self.ff_context(hc)
+        ctx, hc = residual_norm(ctx, ctx_attn, c_gate,
+                                Norm(c_shift_mlp, c_scale_mlp))
+        ctx, _ = residual_norm(ctx, self.ff_context(hc), c_gate_mlp)
         return x, ctx

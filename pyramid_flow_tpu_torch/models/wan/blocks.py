@@ -15,7 +15,10 @@ masks by the pyramid's temporal-causal time ids, cross-attention sees every
 text key. The residual stream and the modulation stay fp32, the products
 run in the weights' dtype: the casts Wan's bf16 autocast makes, made here
 explicitly, because a serving forward runs outside autocast to be graphed
-(``models.dit_graphs``).
+(``models.dit_graphs``). The norms, the modulation, those casts and the
+residual updates go through ``ops.residual_norm.residual_norm``, four
+launches of its fused kernel per block on the card, the fp32 stream kept
+fp32.
 
 Two attention sites per block (``models.attention_site``), each calling a
 module-level function of this module by name: :func:`_attention` (the flux
@@ -36,10 +39,11 @@ from torch import nn
 
 from ...ops.flash_attention import flash_attention, flash_fwd_cuda
 from ...ops.qk_norm_rope import Slot
+from ...ops.residual_norm import Norm, residual_norm
 from ...utils.profiling import span
 from ..attention_site import AttentionSite
 from ..flux.blocks import (  # noqa: F401 (_attention: the site's, by name)
-    RMSNorm, _attention, layer_norm)
+    RMSNorm, _attention)
 
 __all__ = ["WanSelfAttention", "WanCrossAttention", "WanAttentionBlock",
            "CROSS_ATTN_LAUNCHES", "linear_fp32"]
@@ -70,10 +74,6 @@ def linear_fp32(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     path and head run under ``autocast(dtype=float32)``."""
     bias = None if layer.bias is None else layer.bias.float()
     return F.linear(x.float(), layer.weight.float(), bias)
-
-
-def _modulate(x, shift, scale):
-    return layer_norm(x) * (1 + scale) + shift
 
 
 class WanSelfAttention(AttentionSite):
@@ -125,6 +125,8 @@ class WanAttentionBlock(nn.Module):
     """One Wan2.1 T2V block. ``x`` is the fp32 residual stream ``[B, L, D]``
     and ``e0`` the model's fp32 ``[B, 6, D]`` time modulation."""
 
+    NORM_CALLS = 4  # fused residual norms per forward (DiTBase)
+
     def __init__(self, dim: int, ffn_dim: int, num_heads: int,
                  eps: float = 1e-6, **kw):
         super().__init__()
@@ -142,12 +144,10 @@ class WanAttentionBlock(nn.Module):
                 bounded=False):
         dtype = self.modulation.dtype
         e = (self.modulation.float() + e0).chunk(6, dim=1)
-        y = self.self_attn(_modulate(x, e[0], e[1]).to(dtype), rope_cos,
-                           rope_sin, time_ids, bounded)
-        x = x + y.float() * e[2]
-        n3 = F.layer_norm(x, x.shape[-1:], self.norm3.weight.float(),
-                          self.norm3.bias.float(), self.eps)
-        x = x + self.cross_attn(n3.to(dtype), ctx, time_ids, time_kv,
-                                bounded).float()
-        y = self.ffn(_modulate(x, e[3], e[4]).to(dtype))
-        return x + y.float() * e[5]
+        _, h = residual_norm(x, norm=Norm(e[0], e[1]), dtype=dtype)
+        y = self.self_attn(h, rope_cos, rope_sin, time_ids, bounded)
+        x, n3 = residual_norm(x, y, e[2], Norm(
+            self.norm3.bias, self.norm3.weight, self.eps, affine=True), dtype)
+        y = self.cross_attn(n3, ctx, time_ids, time_kv, bounded)
+        x, h = residual_norm(x, y, None, Norm(e[3], e[4]), dtype)
+        return residual_norm(x, self.ffn(h), e[5])[0]

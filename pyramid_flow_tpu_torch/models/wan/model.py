@@ -37,11 +37,12 @@ bounded form's exactness argument does not hold (``blocks``). The forward
 is the DiT shell's (``models.dit_base``): a ``dit.forward`` span with
 ``rows``, ``tokens``, ``text_tokens``, ``graph`` and the counters
 ``attn_launches`` (both attentions, 80 per forward at full depth on the
-card), ``cross_attn_launches`` (40) and ``qk_launches`` (the fused q/k/v
-kernel, one per attention: 80). A serving forward replays CUDA graphs
-captured per layout, cut at each of its two attentions per block
-(``models.dit_graphs``); every other forward runs eagerly. One device
-only: a mesh with an sp or fsdp dim above 1 is refused.
+card), ``cross_attn_launches`` (40), ``qk_launches`` (the fused q/k/v
+kernel, one per attention: 80) and ``norm_launches`` (the fused
+residual-norm kernel, four per block: 160). A serving forward replays
+CUDA graphs captured per layout, cut at each of its two attentions per
+block (``models.dit_graphs``); every other forward runs eagerly. One
+device only: a mesh with an sp or fsdp dim above 1 is refused.
 """
 
 from __future__ import annotations

@@ -13,9 +13,10 @@ that layout.
 Three versions:
 
 * :func:`qk_norm_rope_composed`, what the attention modules ran before the
-  kernel, and run still on the CPU and inside :func:`composition`: the
-  ``RMSNorm`` modules, ``torch.cat`` and :func:`~.rope.apply_rope`, with a
-  bf16 rounding after the norm; differentiable;
+  kernel, and run still on the CPU and inside
+  ``ops.composition.composition()``: the ``RMSNorm`` modules, ``torch.cat``
+  and :func:`~.rope.apply_rope`, with a bf16 rounding after the norm;
+  differentiable;
 * :func:`qk_norm_rope_reference`, the kernel's plain version: the same
   arithmetic in fp32 with one final rounding;
 * the CUDA kernel in ``csrc/qk_norm_rope.cu``, one launch per site for all
@@ -24,15 +25,14 @@ Three versions:
 :func:`qkv_heads` is the attention modules' entry. On CUDA tensors it
 launches the kernel, or raises: the kernel takes bf16 only and has no
 backward. A caller that needs the differentiable chain on the card asks for
-it by running inside :func:`composition`: the train step (its forwards and
-backward, a remat block's recompute included), ``capture_qk``'s telemetry,
-and reference forwards in fp32. On CPU tensors it runs the composition, so
-the CPU runs as it did, bit for bit.
+it by running inside ``ops.composition.composition()``: the train step (its
+forwards and backward, a remat block's recompute included),
+``capture_qk``'s telemetry, and reference forwards in fp32. On CPU tensors
+it runs the composition, so the CPU runs as it did, bit for bit.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import List, NamedTuple, Optional, Sequence, Tuple
@@ -40,12 +40,12 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..utils.cuda_build import load_library
+from .composition import composing
 from .rope import apply_rope
 
-__all__ = ["Slot", "qkv_heads", "split_heads", "composition", "composing",
-           "qk_norm_rope_composed", "qk_norm_rope_reference",
-           "qk_norm_rope_cuda", "check_slots", "kernel_library",
-           "QK_LAUNCHES"]
+__all__ = ["Slot", "qkv_heads", "split_heads", "qk_norm_rope_composed",
+           "qk_norm_rope_reference", "qk_norm_rope_cuda", "check_slots",
+           "kernel_library", "QK_LAUNCHES"]
 
 KERNEL_SOURCES = ("qk_norm_rope.cu",)
 MAX_SLOTS = 3
@@ -186,34 +186,10 @@ def check_slots(slots: Sequence[Slot], num_heads: int, cos=None,
                 raise ValueError("cos and sin must share their strides")
 
 
-# open composition() blocks; a module global and not a thread's, because
-# the autograd engine runs a CUDA backward, and so a remat block's
-# recompute, on a thread of its own
-_COMPOSING = [0]
-
-
-@contextlib.contextmanager
-def composition():
-    """Within the block, :func:`qkv_heads` runs
-    :func:`qk_norm_rope_composed` on every device: the differentiable chain,
-    for callers that need a gradient (the kernel has no backward) or compute
-    in fp32."""
-    _COMPOSING[0] += 1
-    try:
-        yield
-    finally:
-        _COMPOSING[0] -= 1
-
-
-def composing() -> bool:
-    """Whether a :func:`composition` block is open."""
-    return _COMPOSING[0] > 0
-
-
 def qkv_heads(slots: Sequence[Slot], num_heads: int, cos=None, sin=None
               ) -> List[torch.Tensor]:
     """The site's slots as ``[B, H, L, Dh]``: on CUDA tensors the kernel,
-    which raises on what it does not take; inside :func:`composition` or on
+    which raises on what it does not take; inside ``composition()`` or on
     the CPU, :func:`qk_norm_rope_composed`."""
     if composing() or not slots[0].sources[0].is_cuda:
         return qk_norm_rope_composed(slots, num_heads, cos, sin)
@@ -244,7 +220,7 @@ def qk_norm_rope_cuda(slots: Sequence[Slot], num_heads: int, cos=None,
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError("the qk_norm_rope kernel has no backward: run the "
                            "forward without autograd, or inside "
-                           "qk_norm_rope.composition()")
+                           "ops.composition.composition()")
     first = slots[0].sources[0]
     if first.device.type != "cuda":
         raise ValueError(f"qk_norm_rope_cuda takes CUDA tensors, got "

@@ -46,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.vae.model import chunk_encode, gaussian_sample
-from ..ops.qk_norm_rope import composition
+from ..ops.composition import composition
 from ..parallel.mesh import data_rank
 from ..pipeline.noising import (
     GeneratorDraws,

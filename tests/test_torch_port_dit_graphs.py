@@ -7,7 +7,7 @@ On the CPU:
   replaced bit for bit;
 * a forward of any of the three families that may not be graphed (on the
   CPU, under autograd, with ``capture_qk`` open, with an sp group, inside
-  ``qk_norm_rope.composition()``) runs eagerly, says why, and leaves the
+  ``ops.composition.composition()``) runs eagerly, says why, and leaves the
   graph counters as they were;
 * the seam that the DiT's shared site state holds during a capture is
   called in place of every attention, in call order, with the attention
@@ -17,7 +17,7 @@ On the CPU:
   seams record its module and name, and making their recorded calls where
   a replay makes them gives the eager forward;
 * at the published widths (on ``meta``) the sites keep their order, 57, 24
-  and 80 per forward;
+  and 80 per forward, beside 191, 143 and 160 fused residual norms;
 * a deep copy or a pickle of a DiT starts with an empty graph cache.
 
 On the card (``gpu``, skipped without one), reduced-depth miniFLUX, MMDiT
@@ -29,11 +29,12 @@ is replayed and a replaced weight drops the graphs; a forward hook sees
 every forward; a wrapper set on ``blocks._attention`` after capture is
 called once per site that calls it per replay, and the flash forward is
 launched ``num_attention_calls`` times; at full depth 57, 24 and 80 times
-per forward (miniFLUX, the MMDiT, Wan), from 58, 25 and 81 graphs, and the
-fused q/k/v kernel (``ops.qk_norm_rope``) as often. With that kernel
-engaged, each family's eager, captured and replayed forwards are bit-equal,
-and at the release widths within 1e-2 of the forward on the composed q/k
-chain. No JAX: on the
+per forward (miniFLUX, the MMDiT, Wan), from 58, 25 and 81 graphs, the
+fused q/k/v kernel (``ops.qk_norm_rope``) as often, and the fused
+residual-norm kernel (``ops.residual_norm``) 191, 143 and 160 times. With
+those kernels engaged, each family's eager, captured and replayed forwards
+are bit-equal, and at the release widths within 1e-2 of the forward on the
+composed chains, which launches neither. No JAX: on the
 card this file runs as
 
     python -m pytest tests/test_torch_port_dit_graphs.py -m gpu --noconftest
@@ -64,8 +65,9 @@ from pyramid_flow_tpu_torch.models.mmdit.model import (
 from pyramid_flow_tpu_torch.models.wan import blocks as wan_blocks
 from pyramid_flow_tpu_torch.models.wan.model import WanConfig, WanDiT
 from pyramid_flow_tpu_torch.ops.flash_attention import flash_fwd_cuda
-from pyramid_flow_tpu_torch.ops.qk_norm_rope import (
-    Slot, composition, qk_norm_rope_cuda)
+from pyramid_flow_tpu_torch.ops.composition import composition
+from pyramid_flow_tpu_torch.ops.qk_norm_rope import Slot, qk_norm_rope_cuda
+from pyramid_flow_tpu_torch.ops.residual_norm import residual_norm_cuda
 from pyramid_flow_tpu_torch.ops.rope import rope_freqs
 from pyramid_flow_tpu_torch.utils import profiling
 
@@ -198,6 +200,7 @@ def _forward_recorded(dit, args):
 def test_bypassed_forwards_leave_the_counters(family, case, request):
     dit = _tiny(family)
     args = _layout_inputs(dit, 2, 2, 2)
+    norms = (residual_norm_cuda.launches, residual_norm_cuda.captured)
     with torch.no_grad():
         want = dit._forward(*args)
     if case == "sp":
@@ -225,6 +228,7 @@ def test_bypassed_forwards_leave_the_counters(family, case, request):
         assert torch.equal(out, want)
     assert GRAPH_FORWARDS == before
     assert dit.graphs.layouts == {}
+    assert (residual_norm_cuda.launches, residual_norm_cuda.captured) == norms
 
 
 def _summary(t):
@@ -358,13 +362,13 @@ def test_a_new_family_runs_through_the_graphs_unedited(monkeypatch):
                 if {"flux", "mmdit", "wan", "importlib"} & set(m.split("."))]
 
 
-@pytest.mark.parametrize("family, calls", [("flux", 57), ("mmdit", 24),
-                                           ("wan", 80)])
-def test_published_sites_in_registration_order(family, calls):
+@pytest.mark.parametrize("family, calls, norms", [
+    ("flux", 57, 191), ("mmdit", 24, 143), ("wan", 80, 160)])
+def test_published_sites_in_registration_order(family, calls, norms):
     """At the release widths, on ``meta``: the sites are every block's
     attention in order (miniFLUX's dual blocks, then its single ones;
     Wan's self-, then cross-attention of each block), all on the DiT's one
-    state."""
+    state; a serving forward's fused residual norms number ``norms``."""
     dit = {"flux": PyramidFluxTransformer(device="meta"),
            "mmdit": PyramidDiffusionMMDiT(device="meta"),
            "wan": WanDiT(device="meta")}[family]
@@ -379,6 +383,7 @@ def test_published_sites_in_registration_order(family, calls):
     assert len(got) == len(want) == dit.num_attention_calls == calls
     assert all(a is b for a, b in zip(got, want))
     assert all(a.state is dit.sites for a in got)
+    assert dit.num_norm_calls == norms
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -610,23 +615,28 @@ def test_hooks_and_attention_wrapper_see_every_replay(family, cuda,
 @pytest.mark.parametrize("family", FAMILIES)
 def test_replay_is_the_eager_forward_bit_for_bit(family, cuda):
     """With the fused q/k/v kernel engaged (one launch per attention, also
-    in the span's ``qk_launches``), the layout's eager, captured and
-    replayed forwards and ``_forward`` give the same bits."""
+    in the span's ``qk_launches``) and the fused residual norm (the DiT's
+    ``num_norm_calls``, also in ``norm_launches``), the layout's eager,
+    captured and replayed forwards and ``_forward`` give the same bits."""
     dit = _card_dit(family)
-    n = dit.num_attention_calls
+    n, m = dit.num_attention_calls, dit.num_norm_calls
+    assert m == {"flux": 19, "mmdit": 17, "wan": 12}[family]
     args = _card_inputs(dit, LAYOUTS[1])
     outs = []
     with torch.no_grad():
         for how in ("eager", "capture", "replay", "replay"):
             launches = qk_norm_rope_cuda.launches
+            norms = residual_norm_cuda.launches
             out, recorded = _forward_recorded(dit, args)
             assert recorded == how
             assert qk_norm_rope_cuda.launches - launches == n
+            assert residual_norm_cuda.launches - norms == m
             outs.append(out)
         with profiling.recording() as rec:
             dit(*args)
         (fw,) = [s for s in rec.spans() if s.name == "dit.forward"]
         assert fw.attrs["qk_launches"] == n
+        assert fw.attrs["norm_launches"] == m
         want = dit._forward(*args)
     assert all(_bit_equal(out, want) for out in outs)
 
@@ -635,27 +645,30 @@ def test_replay_is_the_eager_forward_bit_for_bit(family, cuda):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_serving_forward_is_near_the_composed_forward(family, cuda):
     """At the release widths (two blocks of each kind), a serving forward,
-    whose q, k and v come from the fused kernel, stays within 1e-2 relative
-    L2 of the same forward on the composed chain (``composition()``, which
-    launches no fused kernel and rounds q and k once more). A forward
-    inside ``composition()`` runs eagerly, so the layout's next forward,
-    not it, is captured, with the kernel."""
+    whose q, k and v and whose norms come from the fused kernels, stays
+    within 1e-2 relative L2 of the same forward on the composed chains
+    (``composition()``, which launches neither fused kernel and rounds
+    more often). A forward inside ``composition()`` runs eagerly, so the
+    layout's next forward, not it, is captured, with the kernels."""
     dit = _card_dit(family, full=True, layers=2)
-    n = dit.num_attention_calls
+    n, m = dit.num_attention_calls, dit.num_norm_calls
     args = _layout_inputs(dit, 2, 8, 8, text=128, dtype=torch.bfloat16,
                           device="cuda")
     with torch.no_grad():
         launches = qk_norm_rope_cuda.launches
+        norms = residual_norm_cuda.launches
         fused = [dit(*args)]  # the layout's first forward: eager
         with composition():
             want, how = _forward_recorded(dit, args)
         assert how == "eager"
         assert qk_norm_rope_cuda.launches - launches == n
+        assert residual_norm_cuda.launches - norms == m
         for expect in ("capture", "replay"):
             out, how = _forward_recorded(dit, args)
             assert how == expect
             fused.append(out)
         assert qk_norm_rope_cuda.launches - launches == 3 * n
+        assert residual_norm_cuda.launches - norms == 3 * m
     assert all(_bit_equal(out, fused[0]) for out in fused)
     assert torch.isfinite(want.float()).all()
     assert _rel_l2(fused[0], want) <= 1e-2
@@ -666,7 +679,8 @@ def test_serving_forward_is_near_the_composed_forward(family, cuda):
 def test_full_depth_launches_per_forward(family, cuda):
     dit = _card_dit(family, full=True)
     n = {"flux": 57, "mmdit": 24, "wan": 80}[family]
-    assert dit.num_attention_calls == n
+    m = {"flux": 191, "mmdit": 143, "wan": 160}[family]
+    assert dit.num_attention_calls == n and dit.num_norm_calls == m
     args = _layout_inputs(dit, 2, 8, 8, text=128, dtype=torch.bfloat16,
                           device="cuda")
     with torch.no_grad():
@@ -674,9 +688,11 @@ def test_full_depth_launches_per_forward(family, cuda):
         for _ in range(3):
             launches = flash_fwd_cuda.launches
             fused = qk_norm_rope_cuda.launches
+            norms = residual_norm_cuda.launches
             got = dit(*args)
             assert flash_fwd_cuda.launches - launches == n
             assert qk_norm_rope_cuda.launches - fused == n
+            assert residual_norm_cuda.launches - norms == m
         assert _rel_l2(got, want) <= 1e-3
     (layout,) = [v for v in dit.graphs.layouts.values() if v.graphs]
     assert len(layout.graphs) == n + 1

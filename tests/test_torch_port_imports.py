@@ -19,7 +19,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "pyramid_flow_tpu")
 SOURCES = sorted((ROOT / "pyramid_flow_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "time_kernels.py"]
+    ROOT / "chip_smoke.py", ROOT / "time_kernels.py",
+    ROOT / "profile_unit.py"]
 
 
 def forbidden_imports(source: str):

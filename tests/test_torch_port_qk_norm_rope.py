@@ -44,9 +44,10 @@ from pyramid_flow_tpu_torch.models.mmdit import blocks as mmdit_blocks
 from pyramid_flow_tpu_torch.models.mmdit.model import (
     MMDiTConfig, PyramidDiffusionMMDiT)
 from pyramid_flow_tpu_torch.models.wan import blocks as wan_blocks
+from pyramid_flow_tpu_torch.ops.composition import composing, composition
 from pyramid_flow_tpu_torch.ops.qk_norm_rope import (
-    Slot, check_slots, composing, composition, qk_norm_rope_composed,
-    qk_norm_rope_cuda, qk_norm_rope_reference, qkv_heads, split_heads)
+    Slot, check_slots, qk_norm_rope_composed, qk_norm_rope_cuda,
+    qk_norm_rope_reference, qkv_heads, split_heads)
 from pyramid_flow_tpu_torch.ops.rope import apply_rope, rope_freqs
 from pyramid_flow_tpu_torch.pipeline.noising import GeneratorDraws
 from pyramid_flow_tpu_torch.schedulers.flow_matching import (
@@ -401,8 +402,9 @@ def _block(kind, dtype, device, heads=2, seed=0):
         blk = flux_blocks.FluxTransformerBlock(heads, head_dim, **kw)
     elif kind == "flux_single":
         blk = flux_blocks.FluxSingleTransformerBlock(heads, head_dim, **kw)
-    elif kind == "sd3":
-        blk = mmdit_blocks.JointTransformerBlock(heads, head_dim, **kw)
+    elif kind in ("sd3", "sd3_last"):  # the last: context_pre_only
+        blk = mmdit_blocks.JointTransformerBlock(
+            heads, head_dim, context_pre_only=kind == "sd3_last", **kw)
     else:
         blk = wan_blocks.WanAttentionBlock(d, 2 * d, heads, **kw)
     with torch.no_grad():
@@ -425,7 +427,7 @@ def _block(kind, dtype, device, heads=2, seed=0):
                 rnd(b, 7, d), cos, sin, time_ids.contiguous(),
                 torch.zeros((b, 7), dtype=torch.int32, device=device))
         return blk, args, 3
-    axes = (64,) if kind == "sd3" else (16, 24, 24)
+    axes = (64,) if kind.startswith("sd3") else (16, 24, 24)
     cos, sin = rope_freqs(_positions(b, lt, lx, axes, seed).to(device), axes)
     time_ids = torch.cat([torch.zeros(b, lt, dtype=torch.int32),
                           times[None].expand(b, -1).int()], 1).to(device)
@@ -437,12 +439,11 @@ def _block(kind, dtype, device, heads=2, seed=0):
 
 def _run(blk, args, n_grad, old, monkeypatch):
     """The block's output and the gradients of its parameters and of its
-    first ``n_grad`` inputs; with ``old``, every attention module runs its
-    former forward."""
+    first ``n_grad`` inputs; with ``old`` (``{module class: forward}``,
+    ``OLD``), those modules run their former forwards."""
     with monkeypatch.context() as m:
-        if old:
-            for cls, fn in OLD.items():
-                m.setattr(cls, "forward", fn)
+        for cls, fn in (old or {}).items():
+            m.setattr(cls, "forward", fn)
         blk.zero_grad(set_to_none=True)
         leaves = [a.detach().requires_grad_(i < n_grad)
                   for i, a in enumerate(args)]
@@ -463,8 +464,8 @@ BLOCKS = ("flux_dual", "flux_single", "sd3", "wan")
 def test_blocks_keep_the_composition_on_the_cpu(kind, dtype, monkeypatch):
     blk, args, n_grad = _block(kind, dtype, "cpu")
     before = (qk_norm_rope_cuda.launches, qk_norm_rope_cuda.captured)
-    outs, grads = _run(blk, args, n_grad, False, monkeypatch)
-    want_outs, want_grads = _run(blk, args, n_grad, True, monkeypatch)
+    outs, grads = _run(blk, args, n_grad, None, monkeypatch)
+    want_outs, want_grads = _run(blk, args, n_grad, OLD, monkeypatch)
     assert (qk_norm_rope_cuda.launches, qk_norm_rope_cuda.captured) == before
     assert len(outs) == len(want_outs) and len(grads) == len(want_grads)
     for got, want in zip(outs + grads, want_outs + want_grads):
@@ -576,7 +577,7 @@ def test_blocks_launch_without_grad_and_compose_on_request(kind, cuda,
     """A bf16 block on the card launches the kernel once per attention
     without autograd and refuses autograd; inside ``composition()`` it
     launches none and gives the former forward's outputs and gradients bit
-    for bit. An fp32 block on the card is refused (the kernel takes
+    for bit. An fp32 block on the card is refused (the fused kernels write
     bf16)."""
     blk, args, n_grad = _block(kind, torch.bfloat16, "cuda")
     sites = 2 if kind == "wan" else 1
@@ -587,14 +588,16 @@ def test_blocks_launch_without_grad_and_compose_on_request(kind, cuda,
     fused = fused if isinstance(fused, tuple) else (fused,)
     before = qk_norm_rope_cuda.launches
     with pytest.raises(RuntimeError, match="no backward"):
-        _run(blk, args, n_grad, False, monkeypatch)
+        _run(blk, args, n_grad, None, monkeypatch)
     with composition():
-        outs, grads = _run(blk, args, n_grad, False, monkeypatch)
+        outs, grads = _run(blk, args, n_grad, None, monkeypatch)
     assert qk_norm_rope_cuda.launches == before
-    want_outs, want_grads = _run(blk, args, n_grad, True, monkeypatch)
+    with composition():  # the blocks' norms compose too
+        want_outs, want_grads = _run(blk, args, n_grad, OLD, monkeypatch)
     for got, want in zip(outs + grads, want_outs + want_grads):
         assert got is not None and torch.equal(got, want)
-    # the fused forward is the composed one but for q/k's single rounding
+    # the fused forward is the composed one but for the single roundings of
+    # q/k and of the norms (``ops.residual_norm``)
     for got, want in zip([t for t in fused if t is not None], want_outs):
         err = ((got.float() - want.float()).norm() / want.float().norm())
         assert err.item() <= 2e-2

@@ -156,6 +156,7 @@ def test_generate_spans(family):
             assert len(fw) == steps
             assert all(f.attrs["rows"] == 2 and f.attrs["attn_launches"] == 0
                        and f.attrs["qk_launches"] == 0
+                       and f.attrs["norm_launches"] == 0
                        and f.attrs["tokens"] == spans[st].attrs["tokens"]
                        for f in fw)
             forwards += steps

@@ -20,7 +20,7 @@ On the CPU at tiny widths (dim 256, 2 heads of 128, 2 layers, text_len 16):
 On the card (``gpu``, skipped without one): at reduced depth and head dim
 128, a replayed forward equals the layout's eager forward bit for bit at two
 layouts, from ``2 L + 1`` graphs, launching ``2 L`` flash forwards, ``L`` of
-them cross-attention. No JAX: on the card this file runs as
+them cross-attention, and ``4 L`` fused residual norms. No JAX: on the card this file runs as
 
     python -m pytest tests/test_torch_port_wan.py -m gpu --noconftest
 """
@@ -283,7 +283,8 @@ def test_span_tree_of_a_request():
         assert attrs["text_tokens"] == 16 and attrs["rows"] == 2
         assert attrs["graph"] == "eager"
         assert attrs["attn_launches"] == attrs["cross_attn_launches"] == 0
-        assert attrs["qk_launches"] == 0  # the CPU keeps the composition
+        # the CPU keeps the compositions
+        assert attrs["qk_launches"] == attrs["norm_launches"] == 0
 
 
 @pytest.mark.parametrize("path", ["portbench/reference/wan.py",
@@ -352,6 +353,7 @@ def test_replay_is_the_eager_forward_bit_for_bit(cuda):
                 assert fw.attrs["attn_launches"] == n
                 assert fw.attrs["cross_attn_launches"] == n // 2
                 assert fw.attrs["qk_launches"] == n
+                assert fw.attrs["norm_launches"] == 2 * n  # four a block
                 assert [s.name for s in rec.spans()].count(
                     "wan.cross_attn") == n // 2
             for out in outs[1:]:
